@@ -1,0 +1,18 @@
+"""Bin-delta decode (port of the JAX package's losses/bin_delta.py).
+
+The losses arrive with the training step; serving needs only the decode.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def decode_bin_delta(
+    scores: torch.Tensor, residual: torch.Tensor, centers: torch.Tensor
+) -> torch.Tensor:
+    """Predicted pose = dictionary atom at the argmax bin + residual.
+
+    torch.argmax returns the first maximal index on ties, as jnp.argmax does.
+    """
+    return centers[torch.argmax(scores, dim=-1)] + residual

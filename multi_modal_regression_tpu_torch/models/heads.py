@@ -1,0 +1,122 @@
+"""Vectorized MLP head banks (port of the JAX package's models/heads.py).
+
+A bank of H parallel heads is one stacked weight per layer, (H, in, out),
+applied as one batched product, and the class is picked by a gather, as in
+the JAX package. Layer recipe: hidden layers are Linear(bias=False) + BN +
+ReLU; the last layer is a Linear with bias, then the output nonlinearity.
+BatchNorm in a bank is per (head, feature) over the batch, eps 1e-5.
+
+Weights are held in the compute dtype; BN parameters and running statistics
+in float32; outputs are returned in at least float32. Only eval mode is
+ported (running statistics).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+def torch_linear_init(
+    t: torch.Tensor, fan_in: int, generator: torch.Generator
+) -> None:
+    """Fill t with torch.nn.Linear's default U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    u = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+    with torch.no_grad():
+        t.copy_(u * (2 * bound) - bound)
+
+
+def apply_output_nonlinearity(y: torch.Tensor, kind: str) -> torch.Tensor:
+    """Output nonlinearity of a head bank; 'none' is what the BD heads use.
+
+    The regression nonlinearities arrive with their presets (ROADMAP.md).
+    """
+    if kind == "none":
+        return y
+    raise ValueError(
+        f"output nonlinearity {kind!r} is not ported yet (see ROADMAP.md)"
+    )
+
+
+class HeadBatchNorm(nn.Module):
+    """Eval-mode BatchNorm per (head, feature) on (H, B, F) activations.
+
+    Same (H, F) parameter and statistic shapes as the flax tree
+    (TorchBatchNorm with axis=(0, -1)); computed in float32 as flax's
+    normalize does, returned in the input dtype.
+    """
+
+    def __init__(self, num_heads: int, features: int, eps: float = 1e-5):
+        super().__init__()
+        shape = (num_heads, features)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
+        self.register_buffer("running_mean", torch.zeros(shape))
+        self.register_buffer("running_var", torch.ones(shape))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        compute = torch.promote_types(x.dtype, torch.float32)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.to(compute) - self.running_mean[:, None, :]) * mul[:, None, :]
+        return (y + self.bias[:, None, :]).to(x.dtype)
+
+
+class MultiHeadMLP(nn.Module):
+    """A bank of `num_heads` MLPs over shared input features.
+
+    Input (B, F) shared by all heads; output (B, H, features[-1]).
+    `features` lists hidden dims then the output dim: bin_3layer(N0, N1,
+    N2, K) is MultiHeadMLP(N0, H, (N1, N2, K)). Parameters are named as in
+    the flax tree: fc<i>_kernel (H, in, out), bn<i>, and fc<last>_bias
+    (H, out).
+    """
+
+    def __init__(
+        self, in_features: int, num_heads: int, features: Sequence[int],
+        *, generator: torch.Generator, output_nonlinearity: str = "none",
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.dtype = dtype
+        self.output_nonlinearity = output_nonlinearity
+        self.num_layers = len(features)
+        fan_in = in_features
+        for li, out_dim in enumerate(features, start=1):
+            kernel = nn.Parameter(
+                torch.empty(num_heads, fan_in, out_dim, dtype=dtype)
+            )
+            torch_linear_init(kernel, fan_in, generator)
+            self.register_parameter(f"fc{li}_kernel", kernel)
+            if li == self.num_layers:
+                bias = nn.Parameter(torch.empty(num_heads, out_dim, dtype=dtype))
+                torch_linear_init(bias, fan_in, generator)
+                self.register_parameter(f"fc{li}_bias", bias)
+            else:
+                self.add_module(f"bn{li}", HeadBatchNorm(num_heads, out_dim))
+            fan_in = out_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for li in range(1, self.num_layers + 1):
+            # (B, I) @ (H, I, O) broadcasts to (H, B, O); then (H, B, I) @ (H, I, O)
+            x = torch.matmul(x, getattr(self, f"fc{li}_kernel"))
+            if li == self.num_layers:
+                x = x + getattr(self, f"fc{li}_bias")[:, None, :]
+            else:
+                x = torch.relu(getattr(self, f"bn{li}")(x))
+        x = x.transpose(0, 1)  # (H, B, O) -> (B, H, O)
+        return apply_output_nonlinearity(
+            x.to(torch.promote_types(torch.float32, x.dtype)),
+            self.output_nonlinearity,
+        )
+
+
+def select_class(per_head: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Pick each sample's head output: (B, H, D), (B,) int -> (B, D)."""
+    idx = label.to(torch.int64)[:, None, None].expand(-1, 1, per_head.shape[-1])
+    return torch.gather(per_head, 1, idx)[:, 0]

@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+  preprocess   normalize_images_cuda   uint8 NHWC -> normalized f32/bf16
+  stem_pool    stem_bn_relu_pool       BN affine + ReLU + max-pool 3x3/2
+
+A wrapper takes its plain version only for a tensor on the CPU; for a CUDA
+tensor it launches its kernel (built by `_build` on first use) or raises.
+Each module counts its kernel's launches in a module-level `launches`.
+"""

@@ -1,0 +1,58 @@
+"""Serving: uint8 images + class labels in, decoded poses out.
+
+Port of `make_inference_fn` in the JAX package's serving.py. The
+port has no Trainer yet, so the function takes the model and the problem
+directly. The whole path runs on the model's device: normalize kernel,
+ResNet trunk in eval mode (stem kernel when the model is built with
+stem_pool='kernel'), head banks, class select, bin argmax + dictionary
+decode. `export_inference`/`load_inference` (-> torch.export) wait
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from multi_modal_regression_tpu_torch.models.bin_delta import OneBinDeltaModel
+from multi_modal_regression_tpu_torch.train.problems import Problem
+from multi_modal_regression_tpu_torch.train.steps import make_eval_step
+
+
+def make_inference_fn(
+    model: OneBinDeltaModel, problem: Problem,
+    compute_dtype: torch.dtype | None = None,
+) -> Callable:
+    """(images uint8 (B, S, S, 3), labels int32/int64 (B,)) -> poses (B, D).
+
+    Inputs may be numpy arrays or tensors; they are moved to the model's
+    device, and the poses (float32) stay there. compute_dtype None takes the
+    model's own compute dtype, so the normalize kernel writes what the trunk
+    reads. Labels given on the host are range-checked there; labels already
+    on the device are not (an out-of-range label then fails in the gather).
+    """
+    device = next(model.parameters()).device
+    dtype = compute_dtype or model.feature_model.dtype
+    eval_step = make_eval_step(model, problem, compute_dtype=dtype)
+
+    def infer(images, labels) -> torch.Tensor:
+        images = torch.as_tensor(images)
+        labels = torch.as_tensor(labels)
+        if labels.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"labels must be int32 or int64, got {labels.dtype}")
+        if labels.shape != images.shape[:1]:
+            raise ValueError(
+                f"{images.shape[0]} images but labels of shape {tuple(labels.shape)}"
+            )
+        if labels.device.type == "cpu" and labels.numel():
+            lo, hi = int(labels.min()), int(labels.max())
+            if lo < 0 or hi >= model.num_classes:
+                raise ValueError(
+                    f"labels must be in [0, {model.num_classes}), got [{lo}, {hi}]"
+                )
+        batch = {"xdata": images.to(device), "label": labels.to(device)}
+        ypred, _ = eval_step(batch)
+        return ypred
+
+    return infer

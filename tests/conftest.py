@@ -28,6 +28,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is unavailable"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
