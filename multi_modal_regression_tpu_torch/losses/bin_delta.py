@@ -1,6 +1,7 @@
 """Bin-delta decode (port of the JAX package's losses/bin_delta.py).
 
-The losses arrive with the training step; serving needs only the decode.
+The geodesic problem's losses are the primitives (losses/primitives.py);
+the expected-loss forms of the other problems arrive with their presets.
 """
 
 from __future__ import annotations

@@ -1,23 +1,29 @@
 """ResNet feature trunks (port of the JAX package's models/backbones.py).
 
 ResNet18/34/50/101/152 truncated after stage 2, 3 or 4, then a global
-average pool, in eval mode (running-stat BatchNorm). Module and parameter
-names follow the flax trees (`conv1`, `bn1`, `layer<s>_<b>/conv<i>`,
-`downsample_conv`, ...) so models/pretrained.py maps one onto the other.
+average pool. Module and parameter names follow the flax trees (`conv1`,
+`bn1`, `layer<s>_<b>/conv<i>`, `downsample_conv`, ...) so
+models/pretrained.py maps one onto the other.
 
 Layout and dtypes:
   - `forward` takes NHWC images (B, H, W, 3), as the JAX package does, and
     views them as NCHW in torch.channels_last with no copy; every conv
-    keeps that format, so the stem kernel gets conv1's output physically
+    keeps that format, so the stem kernels get conv1's output physically
     NHWC.
-  - conv weights are held in the compute dtype (bfloat16 for the serving
-    path); BN parameters and running statistics stay float32, and eval BN
-    computes in float32 before rounding to the compute dtype, as flax's
-    BatchNorm with dtype=bf16 and float32 parameters does.
+  - convs compute in `dtype` (bfloat16 on the fast path) with weights held
+    in `param_dtype`: float32 master weights for training, as the JAX
+    package keeps them, or the compute dtype itself for serving, which then
+    needs no per-call cast. BN parameters and running statistics are at
+    least float32, and BN computes in float32 before rounding to a bf16
+    compute dtype, as flax's BatchNorm with dtype=bf16 and float32
+    parameters does.
   - the pooled features are returned in at least float32.
 
-Training mode (batch statistics, the fused conv+BN kernels) and the VGG
-trunks wait (ROADMAP.md).
+BatchNorm follows the module's mode: running statistics in eval mode; in
+training mode batch statistics, with the running statistics updated at
+momentum 0.1 (flax 0.9) from torch's Bessel-corrected variance, which is
+what the JAX package's TorchBatchNorm reproduces. The fused conv+BN training
+kernels and the VGG trunks wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,7 +34,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multi_modal_regression_tpu_torch.ops.fused_conv_bn import fold_bn
+from multi_modal_regression_tpu_torch.models.norm import bessel_factor
+from multi_modal_regression_tpu_torch.ops.fused_conv_bn import (
+    fold_bn,
+    stats_to_moments,
+)
 from multi_modal_regression_tpu_torch.ops.stem_pool import stem_bn_relu_pool
 
 # (stage_sizes, bottleneck) per architecture, torchvision naming.
@@ -42,12 +52,24 @@ RESNET_CONFIGS: dict[str, tuple[tuple[int, ...], bool]] = {
 
 STEM_POOL_IMPLS = (None, "plain", "kernel")
 
+# running-stat decay of every BN: torch momentum 0.1, flax momentum 0.9
+_BN_MOMENTUM = 0.1
 
-def _conv(cin: int, cout: int, kernel: int, stride: int, pad: int, dtype) -> nn.Conv2d:
-    """Bias-free conv with symmetric padding (torch semantics)."""
-    return nn.Conv2d(
-        cin, cout, kernel, stride=stride, padding=pad, bias=False, dtype=dtype
-    )
+
+class _Conv(nn.Conv2d):
+    """Bias-free conv with symmetric padding (torch semantics); the weight
+    is held in `param_dtype` and applied in the compute `dtype`."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, pad: int,
+                 dtype, param_dtype):
+        super().__init__(
+            cin, cout, kernel, stride=stride, padding=pad, bias=False,
+            dtype=param_dtype,
+        )
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(self.compute_dtype), None)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -68,63 +90,59 @@ def init_conv_weights(module: nn.Module, generator: torch.Generator) -> None:
             lecun_normal_(m.weight, generator)
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
-    """torch-default BN (eps 1e-5); float32 parameters and statistics."""
-    return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1, dtype=torch.float32)
-
-
-def _eval_bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Running-stat BN, computed in float32 and returned in x's dtype."""
-    return F.batch_norm(
-        x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-        training=False, eps=bn.eps,
+def _bn(features: int, dtype: torch.dtype) -> nn.BatchNorm2d:
+    """torch-default BN (eps 1e-5); parameters and statistics in at least
+    float32 (float64 for a float64 trunk)."""
+    return nn.BatchNorm2d(
+        features, eps=1e-5, momentum=_BN_MOMENTUM,
+        dtype=torch.promote_types(torch.float32, dtype),
     )
 
 
 class BasicBlock(nn.Module):
     """ResNet18/34 residual block: 3x3 -> 3x3 with identity shortcut."""
 
-    def __init__(self, cin: int, features: int, stride: int, dtype):
+    def __init__(self, cin: int, features: int, stride: int, dtype, param_dtype):
         super().__init__()
-        self.conv1 = _conv(cin, features, 3, stride, 1, dtype)
-        self.bn1 = _bn(features)
-        self.conv2 = _conv(features, features, 3, 1, 1, dtype)
-        self.bn2 = _bn(features)
+        self.conv1 = _Conv(cin, features, 3, stride, 1, dtype, param_dtype)
+        self.bn1 = _bn(features, dtype)
+        self.conv2 = _Conv(features, features, 3, 1, 1, dtype, param_dtype)
+        self.bn2 = _bn(features, dtype)
         self.downsample_conv = self.downsample_bn = None
         if stride != 1 or cin != features:
-            self.downsample_conv = _conv(cin, features, 1, stride, 0, dtype)
-            self.downsample_bn = _bn(features)
+            self.downsample_conv = _Conv(cin, features, 1, stride, 0, dtype, param_dtype)
+            self.downsample_bn = _bn(features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(_eval_bn(self.conv1(x), self.bn1))
-        y = _eval_bn(self.conv2(y), self.bn2)
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
         if self.downsample_conv is not None:
-            x = _eval_bn(self.downsample_conv(x), self.downsample_bn)
+            x = self.downsample_bn(self.downsample_conv(x))
         return torch.relu(y + x)
 
 
 class BottleneckBlock(nn.Module):
     """ResNet50/101/152 bottleneck (torchvision v1.5: stride on the 3x3)."""
 
-    def __init__(self, cin: int, features: int, stride: int, dtype):
+    def __init__(self, cin: int, features: int, stride: int, dtype, param_dtype):
         super().__init__()
-        self.conv1 = _conv(cin, features, 1, 1, 0, dtype)
-        self.bn1 = _bn(features)
-        self.conv2 = _conv(features, features, 3, stride, 1, dtype)
-        self.bn2 = _bn(features)
-        self.conv3 = _conv(features, 4 * features, 1, 1, 0, dtype)
-        self.bn3 = _bn(4 * features)
+        self.conv1 = _Conv(cin, features, 1, 1, 0, dtype, param_dtype)
+        self.bn1 = _bn(features, dtype)
+        self.conv2 = _Conv(features, features, 3, stride, 1, dtype, param_dtype)
+        self.bn2 = _bn(features, dtype)
+        self.conv3 = _Conv(features, 4 * features, 1, 1, 0, dtype, param_dtype)
+        self.bn3 = _bn(4 * features, dtype)
         self.downsample_conv = self.downsample_bn = None
         if stride != 1 or cin != 4 * features:
-            self.downsample_conv = _conv(cin, 4 * features, 1, stride, 0, dtype)
-            self.downsample_bn = _bn(4 * features)
+            self.downsample_conv = _Conv(cin, 4 * features, 1, stride, 0, dtype, param_dtype)
+            self.downsample_bn = _bn(4 * features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(_eval_bn(self.conv1(x), self.bn1))
-        y = torch.relu(_eval_bn(self.conv2(y), self.bn2))
-        y = _eval_bn(self.conv3(y), self.bn3)
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
         if self.downsample_conv is not None:
-            x = _eval_bn(self.downsample_conv(x), self.downsample_bn)
+            x = self.downsample_bn(self.downsample_conv(x))
         return torch.relu(y + x)
 
 
@@ -134,16 +152,21 @@ class ResNetBackbone(nn.Module):
     num_stages 4 is 'layer4' (2048-d for bottleneck ResNets), 3 'layer3',
     2 'layer2'. Input (B, H, W, 3) NHWC; output (B, feature_dim).
 
-    stem_pool selects the stem tail in eval mode: None runs BN, ReLU and
-    max-pool as torch ops (the flax-module stem); 'plain' folds the BN and
-    runs ops.stem_pool._composite; 'kernel' folds the BN and runs the stem
-    kernel (csrc/stem_pool.cu) — the counterparts of the JAX package's
-    None, 'xla' and 'pallas'.
+    stem_pool selects the stem tail: None runs BN, ReLU and max-pool as
+    torch ops (the flax-module stem); 'plain' folds the BN and runs
+    ops.stem_pool._composite; 'kernel' folds the BN and runs the stem
+    kernels (csrc/stem_pool.cu) — the counterparts of the JAX package's
+    None, 'xla' and 'pallas'. With stem_pool set, the stem BN is written out
+    as the JAX package writes it (backbones.py:320-348): in training, the
+    float32 sum and sum of squares of conv1's output give the batch moments,
+    `bn1`'s running statistics are updated from them by hand, and the
+    folded affine stays differentiable back into conv1's output.
     """
 
     def __init__(
         self, arch: str = "resnet50", num_stages: int = 4,
         dtype: torch.dtype = torch.float32, stem_pool: str | None = None,
+        param_dtype: torch.dtype | None = None,
     ):
         super().__init__()
         if not 2 <= num_stages <= 4:
@@ -152,13 +175,14 @@ class ResNetBackbone(nn.Module):
             raise ValueError(
                 f"stem_pool must be one of {STEM_POOL_IMPLS}, got {stem_pool!r}"
             )
+        param_dtype = param_dtype or dtype
         stage_sizes, bottleneck = RESNET_CONFIGS[arch]
         block_cls = BottleneckBlock if bottleneck else BasicBlock
         expansion = 4 if bottleneck else 1
         self.dtype = dtype
         self.stem_pool = stem_pool
-        self.conv1 = _conv(3, 64, 7, 2, 3, dtype)
-        self.bn1 = _bn(64)
+        self.conv1 = _Conv(3, 64, 7, 2, 3, dtype, param_dtype)
+        self.bn1 = _bn(64, dtype)
         # blocks are attributes named as in the flax tree: layer<s>_<b>
         self.block_names: list[str] = []
         cin = 64
@@ -167,21 +191,38 @@ class ResNetBackbone(nn.Module):
             for block in range(stage_sizes[stage]):
                 stride = 2 if stage > 0 and block == 0 else 1
                 name = f"layer{stage + 1}_{block}"
-                self.add_module(name, block_cls(cin, width, stride, dtype))
+                self.add_module(name, block_cls(cin, width, stride, dtype, param_dtype))
                 self.block_names.append(name)
                 cin = width * expansion
         self.feature_dim = cin
+
+    def _stem_affine(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The folded stem BN (a, b) for conv1's output x (B, C, H, W)."""
+        bn = self.bn1
+        if not self.training:
+            return fold_bn(bn.running_mean, bn.running_var, bn.weight, bn.bias)
+        xf = x.float()
+        s = torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+        count = x.shape[0] * x.shape[2] * x.shape[3]
+        mean, var = stats_to_moments(s, count)
+        with torch.no_grad():
+            m = 1.0 - _BN_MOMENTUM
+            bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+            bn.running_var.copy_(
+                m * bn.running_var + (1 - m) * (var * bessel_factor(count))
+            )
+            bn.num_batches_tracked.add_(1)
+        return fold_bn(mean, var, bn.weight, bn.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # NHWC -> NCHW view; a contiguous NHWC input is channels_last already
         x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
         x = self.conv1(x)
         if self.stem_pool is None:
-            x = torch.relu(_eval_bn(x, self.bn1))
+            x = torch.relu(self.bn1(x))
             x = F.max_pool2d(x, 3, stride=2, padding=1)
         else:
-            bn = self.bn1
-            a, b = fold_bn(bn.running_mean, bn.running_var, bn.weight, bn.bias)
+            a, b = self._stem_affine(x)
             x = stem_bn_relu_pool(x, a, b, self.stem_pool)
         for name in self.block_names:
             x = getattr(self, name)(x)
@@ -191,7 +232,7 @@ class ResNetBackbone(nn.Module):
 
 def make_backbone(
     name: str, layer: str, dtype: torch.dtype = torch.float32,
-    stem_pool: str | None = None,
+    stem_pool: str | None = None, param_dtype: torch.dtype | None = None,
 ) -> ResNetBackbone:
     """Factory for the ResNet names with layer 'layer2'|'layer3'|'layer4'."""
     if name not in RESNET_CONFIGS:
@@ -202,5 +243,6 @@ def make_backbone(
     if layer not in ("layer2", "layer3", "layer4"):
         raise ValueError(f"layer must be layer2|layer3|layer4, got {layer!r}")
     return ResNetBackbone(
-        arch=name, num_stages=int(layer[-1]), dtype=dtype, stem_pool=stem_pool
+        arch=name, num_stages=int(layer[-1]), dtype=dtype, stem_pool=stem_pool,
+        param_dtype=param_dtype,
     )

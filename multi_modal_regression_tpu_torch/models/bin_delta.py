@@ -24,8 +24,9 @@ class OneBinDeltaModel(nn.Module):
 
     forward(x (B, H, W, 3), label (B,)) -> scores (B, K), residual (B, ndim),
     both float32 (at least). Weights are drawn on the CPU from a
-    torch.Generator seeded with `seed`. Eval mode only: training mode raises
-    until the training step is ported.
+    torch.Generator seeded with `seed` and held in `param_dtype` (default:
+    the compute `dtype`). The model is built in eval mode; its BNs follow
+    the module's mode, as flax's `train` argument selects them.
     """
 
     def __init__(
@@ -33,13 +34,14 @@ class OneBinDeltaModel(nn.Module):
         N1: int = 1000, N2: int = 500, ndim: int = 3,
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, stem_pool: str | None = None,
-        seed: int = 0,
+        seed: int = 0, param_dtype: torch.dtype | None = None,
     ):
         super().__init__()
         g = torch.Generator().manual_seed(seed)  # init draws on the CPU
         self.num_classes = num_classes
         self.feature_model = make_backbone(
-            feature_network, feature_layer, dtype=dtype, stem_pool=stem_pool
+            feature_network, feature_layer, dtype=dtype, stem_pool=stem_pool,
+            param_dtype=param_dtype,
         )
         if self.feature_model.feature_dim != N0:
             raise ValueError(
@@ -48,20 +50,18 @@ class OneBinDeltaModel(nn.Module):
             )
         init_conv_weights(self.feature_model, g)
         self.bin_models = MultiHeadMLP(
-            N0, num_classes, (N1, N2, num_clusters), generator=g, dtype=dtype
+            N0, num_classes, (N1, N2, num_clusters), generator=g, dtype=dtype,
+            param_dtype=param_dtype,
         )
         self.res_models = MultiHeadMLP(
-            N0, num_classes, (N1, N2, ndim), generator=g, dtype=dtype
+            N0, num_classes, (N1, N2, ndim), generator=g, dtype=dtype,
+            param_dtype=param_dtype,
         )
         self.eval()
 
     def forward(
         self, x: torch.Tensor, label: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "training mode is not ported yet (ROADMAP.md); call .eval()"
-            )
         feat = self.feature_model(x)
         scores = select_class(self.bin_models(feat), label)
         residual = select_class(self.res_models(feat), label)

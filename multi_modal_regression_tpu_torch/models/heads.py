@@ -6,9 +6,11 @@ the JAX package. Layer recipe: hidden layers are Linear(bias=False) + BN +
 ReLU; the last layer is a Linear with bias, then the output nonlinearity.
 BatchNorm in a bank is per (head, feature) over the batch, eps 1e-5.
 
-Weights are held in the compute dtype; BN parameters and running statistics
-in float32; outputs are returned in at least float32. Only eval mode is
-ported (running statistics).
+Weights are held in `param_dtype` (float32 master weights for training, or
+the compute dtype for serving) and applied in the compute dtype; BN
+parameters and running statistics are at least float32; outputs are returned in at
+least float32. BN follows the module's mode (running statistics in eval,
+batch statistics in training).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from multi_modal_regression_tpu_torch.models.norm import bessel_factor
 
 
 def torch_linear_init(
@@ -43,26 +47,47 @@ def apply_output_nonlinearity(y: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 class HeadBatchNorm(nn.Module):
-    """Eval-mode BatchNorm per (head, feature) on (H, B, F) activations.
+    """BatchNorm per (head, feature) on (H, B, F) activations.
 
     Same (H, F) parameter and statistic shapes as the flax tree
     (TorchBatchNorm with axis=(0, -1)); computed in float32 as flax's
-    normalize does, returned in the input dtype.
+    normalize does, returned in the input dtype. In training mode the
+    statistics are taken over the batch axis, every head seeing the whole
+    batch, and the running variance takes torch's n/(n-1) with n = B. The
+    biased variance is taken in two passes, mean((x - mean)^2), where flax
+    uses E[x^2] - E[x]^2: the same quantity, but when a feature varies by
+    well under 1% across the batch (random weights, similar images) the
+    one-pass form cancels in float32 and loses the variance.
     """
 
-    def __init__(self, num_heads: int, features: int, eps: float = 1e-5):
+    def __init__(self, num_heads: int, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         shape = (num_heads, features)
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(shape))
-        self.bias = nn.Parameter(torch.zeros(shape))
-        self.register_buffer("running_mean", torch.zeros(shape))
-        self.register_buffer("running_var", torch.ones(shape))
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(shape, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(shape, dtype=dtype))
+        self.register_buffer("running_mean", torch.zeros(shape, dtype=dtype))
+        self.register_buffer("running_var", torch.ones(shape, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         compute = torch.promote_types(x.dtype, torch.float32)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.to(compute) - self.running_mean[:, None, :]) * mul[:, None, :]
+        xc = x.to(compute)
+        if self.training:
+            mean = xc.mean(dim=1)
+            var = torch.square(xc - mean[:, None, :]).mean(dim=1)
+            with torch.no_grad():
+                m = 1.0 - self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(
+                    m * self.running_var
+                    + (1 - m) * (var * bessel_factor(x.shape[1]))
+                )
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xc - mean[:, None, :]) * mul[:, None, :]
         return (y + self.bias[:, None, :]).to(x.dtype)
 
 
@@ -79,34 +104,38 @@ class MultiHeadMLP(nn.Module):
     def __init__(
         self, in_features: int, num_heads: int, features: Sequence[int],
         *, generator: torch.Generator, output_nonlinearity: str = "none",
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None,
     ):
         super().__init__()
+        param_dtype = param_dtype or dtype
         self.dtype = dtype
         self.output_nonlinearity = output_nonlinearity
         self.num_layers = len(features)
         fan_in = in_features
         for li, out_dim in enumerate(features, start=1):
             kernel = nn.Parameter(
-                torch.empty(num_heads, fan_in, out_dim, dtype=dtype)
+                torch.empty(num_heads, fan_in, out_dim, dtype=param_dtype)
             )
             torch_linear_init(kernel, fan_in, generator)
             self.register_parameter(f"fc{li}_kernel", kernel)
             if li == self.num_layers:
-                bias = nn.Parameter(torch.empty(num_heads, out_dim, dtype=dtype))
+                bias = nn.Parameter(torch.empty(num_heads, out_dim, dtype=param_dtype))
                 torch_linear_init(bias, fan_in, generator)
                 self.register_parameter(f"fc{li}_bias", bias)
             else:
-                self.add_module(f"bn{li}", HeadBatchNorm(num_heads, out_dim))
+                self.add_module(f"bn{li}", HeadBatchNorm(
+                    num_heads, out_dim,
+                    dtype=torch.promote_types(torch.float32, dtype),
+                ))
             fan_in = out_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         for li in range(1, self.num_layers + 1):
             # (B, I) @ (H, I, O) broadcasts to (H, B, O); then (H, B, I) @ (H, I, O)
-            x = torch.matmul(x, getattr(self, f"fc{li}_kernel"))
+            x = torch.matmul(x, getattr(self, f"fc{li}_kernel").to(self.dtype))
             if li == self.num_layers:
-                x = x + getattr(self, f"fc{li}_bias")[:, None, :]
+                x = x + getattr(self, f"fc{li}_bias").to(self.dtype)[:, None, :]
             else:
                 x = torch.relu(getattr(self, f"bn{li}")(x))
         x = x.transpose(0, 1)  # (H, B, O) -> (B, H, O)

@@ -46,6 +46,8 @@ _SIGNATURES = {
                          _I, _P],
     # y, a, b, out, B, H, W, C, is_bf16, device, stream
     "mmr_stem_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # g, y, a, b, dy, arg, partial, dab, B, H, W, C, nblk, is_bf16, device, stream
+    "mmr_stem_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

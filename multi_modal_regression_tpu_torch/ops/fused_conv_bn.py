@@ -1,7 +1,8 @@
-"""BN folding (port of `fold_bn` in the JAX package's ops/fused_conv_bn.py).
+"""BN folding and batch moments (the JAX package's ops/fused_conv_bn.py).
 
-The fused conv+BN kernels themselves are training kernels and wait for the
-training step (ROADMAP.md); the eval path needs only the fold.
+`fold_bn` and `stats_to_moments` are what the explicit stem BN needs
+(models/backbones.py). The fused conv+BN kernels themselves wait for the
+fused training trunk (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,3 +18,12 @@ def fold_bn(
     a = scale.float() * torch.rsqrt(var.float() + eps)
     b = bias.float() - mean.float() * a
     return a, b
+
+
+def stats_to_moments(
+    s: torch.Tensor, count: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(2, N) sums (sum y, sum y^2) -> (mean, biased variance clamped at 0)."""
+    mean = s[0] / count
+    var = s[1] / count - mean * mean
+    return mean, torch.clamp(var, min=0.0)

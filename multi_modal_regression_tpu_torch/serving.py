@@ -1,8 +1,9 @@
 """Serving: uint8 images + class labels in, decoded poses out.
 
-Port of `make_inference_fn` in the JAX package's serving.py. The
-port has no Trainer yet, so the function takes the model and the problem
-directly. The whole path runs on the model's device: normalize kernel,
+Port of `make_inference_fn` in the JAX package's serving.py. It takes the
+model and the problem directly (a Trainer's `model` and `problem` serve
+as they are). The whole path runs on the model's device, with the model in
+eval mode whatever mode it was left in: normalize kernel,
 ResNet trunk in eval mode (stem kernel when the model is built with
 stem_pool='kernel'), head banks, class select, bin argmax + dictionary
 decode. `export_inference`/`load_inference` (-> torch.export) wait

@@ -1,14 +1,16 @@
 """Experiment presets (port of the JAX package's train/presets.py).
 
 The port has one preset so far, `geodesic_bd` (learnGeodesicBDModel.py, the
-north-star configuration), with the fields its serving path reads. The other
-presets raise until they are ported, in the order ROADMAP.md gives.
+north-star configuration), with the fields its serving and training paths
+read, under the JAX names and defaults. Settings this slice does not port
+raise NotImplementedError when the config is made, so none is ignored; the
+other presets raise until they are ported, in the order ROADMAP.md gives.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -18,13 +20,32 @@ from multi_modal_regression_tpu_torch.train.problems import Problem, make_proble
 
 PORTED_PRESETS = ("geodesic_bd",)
 
-_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# 'float64' exists for the parity tests against the JAX package's x64
+# harness (on CPU tensors; the kernels take float32 and bfloat16)
+_COMPUTE_DTYPES = {
+    "float32": torch.float32, "bfloat16": torch.bfloat16, "float64": torch.float64,
+}
+# optimizer_dtype -> Adam's mu_dtype (None: the parameters' own dtype)
+_MU_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+# field -> the only value this slice runs (the JAX package's "off" value)
+_NOT_PORTED = {
+    "frozen_bn": False,
+    "remat": None,
+    "train_flip": False,
+    "device_resize_from": None,
+    "epoch_lr_decay": None,
+    "train_only": None,
+    "bn_train_only": None,
+    "fused_conv_bn": None,
+}
 
 
 @dataclasses.dataclass
 class ExperimentConfig:
-    """The fields of the JAX ExperimentConfig that the serving slice reads,
-    with the same names and defaults."""
+    """The fields of the JAX ExperimentConfig that the serving and training
+    slices read, with the same names and defaults (except stem_pool and
+    fused_conv_bn, whose JAX default 'auto' resolves to off)."""
 
     preset: str = "geodesic_bd"
     feature_network: str = "resnet50"
@@ -35,12 +56,57 @@ class ExperimentConfig:
     N1: int = 1000
     N2: int = 500
     ndim: int = 3
+    # problem / loss
+    problem: str = "geodesic"
+    self_balance: bool = True  # False -> fixed loss Lc + alpha * Lr
+    reset_s_between_phases: bool = True  # s = 0 before the main phase
+    alpha: float = 1.0  # fixed main-phase Lr weight when self-balance is off
+    warmup_alpha: float = 1.0  # fixed warm-up Lr weight
+    # two loaders (real, render): per-stream BN statistics, two running-stat
+    # updates per step, real first (learnGeodesicBDModel.py:116-121)
+    bn_per_stream: bool = True
+    bn_stream_fused: bool = True  # same semantics; see train/steps.py
+    loss_stream_sum: bool = False  # loss_real + loss_render (= 2 x concat mean)
+    # optimization (learnGeodesicBDModel.py:41-42,96)
+    init_lr: float = 1e-4
+    lr_scaling: str = "none"  # 'none' | 'linear' | 'sqrt' in items_per_batch
+    lr_scaling_base_items: int = 8
+    num_warmup_epochs: int = 1
+    num_epochs: int = 3
+    items_per_batch: int = 8  # images per loader per step = items * classes
     image_size: int = 224
+    max_iterations: int | None = None  # cap on steps per epoch
+    eval_every: int = 1000
     seed: int = 0
-    compute_dtype: str = "float32"  # 'bfloat16' for the serving fast path
-    # stem tail in eval mode: None | 'plain' | 'kernel' (the JAX package's
-    # None | 'xla' | 'pallas'); see models/backbones.ResNetBackbone
+    compute_dtype: str = "float32"  # 'bfloat16' for the fast path
+    # Adam's first moment: 'bfloat16' stores it in bf16 as optax's mu_dtype
+    # does (the update runs in f32); 'float32' is the reference's torch Adam
+    optimizer_dtype: str = "bfloat16"
+    # stem tail: None | 'plain' | 'kernel' (the JAX package's None | 'xla' |
+    # 'pallas'); see models/backbones.ResNetBackbone
     stem_pool: str | None = None
+    # not ported by this slice: setting any of them raises (ROADMAP.md)
+    fused_conv_bn: str | None = None
+    frozen_bn: bool = False
+    remat: str | None = None
+    train_flip: bool = False
+    device_resize_from: int | None = None
+    epoch_lr_decay: str | None = None
+    train_only: tuple[str, ...] | None = None
+    bn_train_only: tuple[str, ...] | None = None
+
+    def __post_init__(self):
+        for name, off in _NOT_PORTED.items():
+            if getattr(self, name) != off:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} is not ported yet; the "
+                    f"port runs {name}={off!r} (see ROADMAP.md)"
+                )
+        if self.optimizer_dtype not in _MU_DTYPES:
+            raise ValueError(
+                f"optimizer_dtype must be one of {sorted(_MU_DTYPES)}, "
+                f"got {self.optimizer_dtype!r}"
+            )
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
@@ -64,15 +130,21 @@ def resolve_compute_dtype(name: str) -> torch.dtype:
 
 
 def build_model(
-    cfg: ExperimentConfig, device: torch.device | str | None = None
+    cfg: ExperimentConfig, device: torch.device | str | None = None,
+    param_dtype: torch.dtype | None = None,
 ) -> OneBinDeltaModel:
-    """The preset's model in eval mode, weights drawn from `cfg.seed`."""
+    """The preset's model in eval mode, weights drawn from `cfg.seed`.
+
+    param_dtype None holds the weights in the compute dtype (serving: no
+    per-call cast); training passes at least float32 for master weights,
+    as the JAX package keeps its params.
+    """
     model = OneBinDeltaModel(
         num_classes=cfg.num_classes, num_clusters=cfg.dict_size, N0=cfg.N0,
         N1=cfg.N1, N2=cfg.N2, ndim=cfg.ndim,
         feature_network=cfg.feature_network, feature_layer=cfg.feature_layer,
         dtype=resolve_compute_dtype(cfg.compute_dtype),
-        stem_pool=cfg.stem_pool, seed=cfg.seed,
+        stem_pool=cfg.stem_pool, seed=cfg.seed, param_dtype=param_dtype,
     )
     return model.to(device)
 
@@ -88,4 +160,112 @@ def build_problem(
             f"dictionary has shape {centers.shape}, the config expects "
             f"({cfg.dict_size}, {cfg.ndim})"
         )
-    return make_problem("geodesic", centers, device)
+    problem = make_problem(cfg.problem, centers, device)
+    if not cfg.self_balance:
+        problem = dataclasses.replace(
+            problem, warmup_balance=None, main_balance=None
+        )
+    return problem
+
+
+def scaled_lr(cfg: ExperimentConfig) -> float:
+    """init_lr adjusted by the global-batch scaling rule (cfg.lr_scaling):
+    k = items_per_batch / lr_scaling_base_items; 'linear' -> k * init_lr,
+    'sqrt' -> sqrt(k) * init_lr, 'none' -> init_lr."""
+    if cfg.lr_scaling == "none":
+        return cfg.init_lr
+    k = cfg.items_per_batch / cfg.lr_scaling_base_items
+    if cfg.lr_scaling == "linear":
+        return cfg.init_lr * k
+    if cfg.lr_scaling == "sqrt":
+        return cfg.init_lr * float(np.sqrt(k))
+    raise ValueError(f"unknown lr_scaling {cfg.lr_scaling!r}")
+
+
+class Adam(torch.optim.Optimizer):
+    """Adam with optax's update formula and first-moment dtype.
+
+    Per parameter, with count t (optax.scale_by_adam, then
+    scale_by_learning_rate and apply_updates):
+
+        mu  = (1 - b1) * g + b1 * mu
+        nu  = (1 - b2) * g**2 + b2 * nu
+        p  += -lr * (mu / (1 - b1**t)) / (sqrt(nu / (1 - b2**t)) + eps)
+
+    The update runs in the parameters' dtype (float32 master weights). The
+    stored mu takes `mu_dtype` (None: the parameter's dtype): as under
+    optax's mu_dtype, b1 * mu is computed in that dtype with b1 itself
+    rounded to it (XLA's weak-typed scalar; bf16 0.8984375), and the new mu
+    is rounded to it once per step, after the update used it.
+    torch.optim.Adam computes the same float32 step in another rounding
+    order. Moments live in `self.state[p]` and are cleared with it.
+    """
+
+    def __init__(self, params: Iterable, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 mu_dtype: torch.dtype | None = None):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            lr, b1, b2, eps = group["lr"], group["b1"], group["b2"], group["eps"]
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["count"] = 0
+                    self.state[p]["mu"] = torch.zeros_like(
+                        p, dtype=self.mu_dtype or p.dtype,
+                        memory_format=torch.preserve_format,
+                    )
+                    self.state[p]["nu"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format
+                    )
+            states = [self.state[p] for p in params]
+            count = states[0]["count"] + 1
+            if any(st["count"] + 1 != count for st in states):
+                raise RuntimeError("Adam: parameters of one group at different steps")
+            grads = [p.grad for p in params]
+            mus = [st["mu"] for st in states]
+            nus = [st["nu"] for st in states]
+            mu = torch._foreach_mul(grads, 1 - b1)
+            if self.mu_dtype is None:
+                decayed = torch._foreach_mul(mus, b1)
+            else:
+                b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
+                decayed = [
+                    m.to(p.dtype) for m, p in zip(torch._foreach_mul(mus, b1_mu), params)
+                ]
+            torch._foreach_add_(mu, decayed)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(
+                nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2)
+            )
+            # bias corrections in float32, as optax computes 1 - decay**count
+            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            upd = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(upd, denom)
+            torch._foreach_mul_(upd, -lr)
+            torch._foreach_add_(params, upd)
+            torch._foreach_copy_(mus, mu)
+            for st in states:
+                st["count"] = count
+
+
+def build_optimizer(cfg: ExperimentConfig, params: Iterable) -> Adam:
+    """Adam at scaled_lr(cfg), b1 0.9, b2 0.999, eps 1e-8, first moment in
+    bfloat16 for cfg.optimizer_dtype 'bfloat16', else in the parameters'
+    dtype (the JAX build_optimizer without the unported train_only masking
+    and epoch lr decay, which the config refuses)."""
+    return Adam(
+        params, scaled_lr(cfg), mu_dtype=_MU_DTYPES[cfg.optimizer_dtype]
+    )

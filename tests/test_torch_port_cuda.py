@@ -21,6 +21,8 @@ from multi_modal_regression_tpu_torch.train.presets import (
     build_problem,
     get_config,
 )
+from multi_modal_regression_tpu_torch.train.state import TrainState
+from multi_modal_regression_tpu_torch.train.steps import make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +105,109 @@ def test_small_slice_kernel_path_matches_plain(dev):
         x = normalize_images(torch.from_numpy(images).to(dev))
         want = problem.decode(plain(x, torch.from_numpy(labels).to(dev)))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _stem_bwd_inputs(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    b, c, h, w = shape
+    y = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((b, c, h // 2, w // 2)).astype(np.float32)).to(dev)
+    a = torch.from_numpy(rng.uniform(0.5, 2.0, c).astype(np.float32)).to(dev)
+    bb = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32)).to(dev)
+    cl = torch.channels_last
+    return y.to(dtype).contiguous(memory_format=cl), g.to(dtype).contiguous(memory_format=cl), a, bb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 16, 12), (3, 40, 8, 8), (1, 3, 2, 2)])
+def test_stem_backward_kernel(dev, shape, dtype):
+    """(dy, da, db) vs the plain vjp, one launch counted, two runs bit-equal.
+    f32: dy within rtol/atol 1e-6, da and db within 1e-5 of their largest
+    magnitude. bf16: the tie tolerance (under 1% of dy rerouted by more than
+    2e-2 of its largest magnitude; da, db within 2e-2 of theirs)."""
+    y, g, a, b = _stem_bwd_inputs(shape, dtype, dev, sum(shape))
+    before = stem_pool.bwd_launches
+    got = stem_pool.stem_pool_bwd(g, y, a, b)
+    assert stem_pool.bwd_launches == before + 1
+    again = stem_pool.stem_pool_bwd(g, y, a, b)
+    want = stem_pool._plain_bwd(g, y, a, b)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    dy, da, db = got
+    assert dy.dtype == dtype and dy.is_contiguous(memory_format=torch.channels_last)
+    assert da.dtype == db.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(dy, want[0], rtol=1e-6, atol=1e-6)
+        for k, w in zip((da, db), want[1:]):
+            assert float((k - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        return
+    scale = float(want[0].float().abs().max())
+    assert float(((dy.float() - want[0].float()).abs() > 2e-2 * scale).float().mean()) < 0.01
+    for k, w in zip((da, db), want[1:]):
+        assert float((k - w.float()).abs().max()) <= 2e-2 * float(w.float().abs().max())
+
+
+def test_stem_autograd_runs_both_kernels(dev):
+    """Through autograd the forward and the backward kernels run once each,
+    and y, a, b get the plain path's gradients (f32, within 1e-6)."""
+    y, g, a, b = _stem_bwd_inputs((2, 16, 12, 10), torch.float32, dev, 7)
+    leaves = [t.clone().requires_grad_() for t in (y, a, b)]
+    plain = [t.clone().requires_grad_() for t in (y, a, b)]
+    f0, b0 = stem_pool.launches, stem_pool.bwd_launches
+    out = stem_pool.stem_bn_relu_pool(*leaves, "kernel")
+    (out * g).sum().backward()
+    assert (stem_pool.launches - f0, stem_pool.bwd_launches - b0) == (1, 1)
+    (stem_pool.stem_bn_relu_pool(*plain, "plain") * g).sum().backward()
+    for k, p in zip(leaves, plain):
+        torch.testing.assert_close(k.grad, p.grad, rtol=1e-6, atol=1e-5)
+
+
+def test_stem_backward_takes_any_gradient_layout(dev):
+    """A gradient that is not channels_last is made so (same result); a
+    gradient of the wrong shape or dtype raises."""
+    y, g, a, b = _stem_bwd_inputs((2, 8, 8, 6), torch.float32, dev, 8)
+    want = stem_pool.stem_pool_bwd(g, y, a, b)
+    got = stem_pool.stem_pool_bwd(g.contiguous(), y, a, b)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    with pytest.raises(ValueError, match="g must be"):
+        stem_pool.stem_pool_bwd(g[:, :, :2], y, a, b)
+    with pytest.raises(ValueError, match="g must be"):
+        stem_pool.stem_pool_bwd(g.to(torch.bfloat16), y, a, b)
+
+
+def test_small_train_step_stem_kernel_matches_plain(dev):
+    """One dual-stream f32 train step (TF32 off, SGD(lr=1) so the parameter
+    delta is the gradient) of a small geodesic_bd model with the stem kernels
+    against the plain stem, both after the normalize kernel: 1 normalize, 2
+    stem and 2 stem backward launches; loss within 1e-5 relative, every
+    gradient leaf within 1e-4 of its largest magnitude."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = dict(N1=32, N2=16, dict_size=8, num_classes=3, image_size=64)
+    cfg = get_config("geodesic_bd", stem_pool="kernel", compute_dtype="float32", **small)
+    centers = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    problem = build_problem(cfg, centers, dev)
+    rng = np.random.default_rng(2)
+    batch = {
+        "xdata": torch.from_numpy(rng.integers(0, 256, (24, 64, 64, 3), np.uint8)).to(dev),
+        "euler": torch.from_numpy(rng.uniform(-90, 90, (24, 3)).astype(np.float32)).to(dev),
+        "label": torch.from_numpy(np.tile(np.arange(3), 8).astype(np.int32)).to(dev),
+    }
+    results = {}
+    weights = None
+    for stem in ("kernel", "plain"):
+        model = build_model(cfg.replace(stem_pool=stem), dev)
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        sgd = torch.optim.SGD(model.parameters(), lr=1.0)
+        step = make_train_step(model, problem, sgd, phase="main", dual_stream_bn=True)
+        counts = (preprocess.launches, stem_pool.launches, stem_pool.bwd_launches)
+        _, m = step(TrainState(0, model, sgd, torch.zeros((), device=dev)), batch)
+        counts = tuple(n - n0 for n, n0 in zip(
+            (preprocess.launches, stem_pool.launches, stem_pool.bwd_launches), counts))
+        assert counts == ((1, 2, 2) if stem == "kernel" else (1, 0, 0))
+        results[stem] = (float(m["loss"]), {k: p.grad for k, p in model.named_parameters()})
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for k, w in gp.items():
+        assert float((gk[k] - w).abs().max()) <= 1e-4 * float(w.abs().max()), k

@@ -165,8 +165,16 @@ def test_stem_wrapper_rejects_what_the_kernel_does_not_take():
         stem_pool.stem_bn_relu_pool(
             torch.from_numpy(y).permute(0, 3, 1, 2).contiguous(), at, bt
         )
-    with pytest.raises(RuntimeError, match="no backward"):
-        stem_pool.stem_bn_relu_pool(_to_port(y, torch.float32).requires_grad_(), at, bt)
+    # the autograd Function backpropagates on the CPU through the plain vjp
+    yg = _to_port(y, torch.float32).requires_grad_()
+    ag, bg = at.clone().requires_grad_(), bt.clone().requires_grad_()
+    stem_pool.stem_bn_relu_pool(yg, ag, bg).sum().backward()
+    want = stem_pool._plain_bwd(
+        torch.ones((2, 4, 4, 3)), yg.detach(), at, bt
+    )
+    for got, w in zip((yg.grad, ag.grad, bg.grad), want):
+        assert torch.equal(got, w)
+    assert stem_pool.bwd_launches == 0
     with pytest.raises(ValueError, match="unsupported device"):
         stem_pool.stem_bn_relu_pool(
             _to_port(y, torch.float32).to("meta"), at.to("meta"), bt.to("meta")
@@ -322,6 +330,7 @@ def test_head_bank_matches_jax():
     )
     port = MultiHeadMLP(32, 3, (16, 8, 5), generator=torch.Generator().manual_seed(1))
     port.load_state_dict(from_jax_variables(jax.device_get(variables["params"]), stats))
+    port.eval()  # the head BNs follow the module's mode; JAX applies train=False
     with torch.no_grad():
         got = port(torch.from_numpy(x))
     assert got.shape == (6, 3, 5) and got.dtype == torch.float32

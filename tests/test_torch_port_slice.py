@@ -204,9 +204,21 @@ def test_inputs_outside_the_contract_raise(jax_side):
         make_eval_step(model, problem, resize_to=64)
     with pytest.raises(ValueError, match="dictionary"):
         build_problem(cfg, np.zeros((5, 3), np.float32))
+    # eval is eval whatever mode the module was left in (the JAX eval step
+    # always applies with train=False): a model in train mode serves the
+    # eval-mode poses, updates no running statistic, and stays in train mode
+    want = infer(images, labels)
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if "running" in k or "num_batches" in k}
     model.train()
-    with pytest.raises(NotImplementedError, match="training"):
-        infer(images, labels)
+    model.bin_models.eval()  # a mixed mode is restored module by module
+    got = infer(images, labels)
+    assert torch.equal(got, want)
+    for k, v in model.state_dict().items():
+        if k in stats:
+            assert torch.equal(v, stats[k]), k
+    assert model.training and model.feature_model.bn1.training
+    assert not model.bin_models.training and not model.bin_models.bn1.training
 
 
 def test_presets_and_backbones_not_yet_ported_raise():
