@@ -35,11 +35,34 @@ line each (or more), in order:
      memory; then one f32 step with TF32 off and SGD(lr=1), stem kernels vs
      plain stem on the same normalized batch: loss within 1e-4 relative,
      every gradient leaf within 1e-3 of its largest magnitude
-  6  one JSON line of the kernels, then the result line
+  3c fused 1x1 conv kernels (forward with BN prologue and statistics
+     epilogue, backward) vs their plain versions, bf16, at the ResNet50
+     trunk's shapes for a 48-image stream and one ragged M: y and dx at most
+     1 bf16 ulp apart on under 1% of the elements, sums, dw, da, db within
+     FUSED_F32_TOL of their largest magnitude; two runs bit-equal; times
+  3d fused 3x3 conv kernels likewise at (48,56,56,64) ... (48,7,7,512) and
+     one small odd-sized shape, with and without the prologue
+  6  fused training: Trainer.fit of the same preset with
+     fused_conv_bn='kernel' for 2 + 2 steps; per step exactly 1 normalize,
+     2 stem forward, 2 stem backward, 72 fused 1x1 forward, 72 backward, 26
+     fused 3x3 forward, 26 backward launches; finite metrics, s moving,
+     every running statistic moved; the same steps through
+     fused_conv_bn='plain' from the same weights within FUSED_TRAIN_TOL; the
+     first step's loss within 10% of the unfused path's; one request served
+     from the trained fused model (eval branch, no fused kernel launched);
+     host-clock step time in interleaved pairs against the unfused path of
+     [5], img/s and peak memory
+  7  one JSON line of the kernels (time, plain time and the bound of each:
+     the larger of bytes moved over 3.35 TB/s and operations over the peak
+     rate of their type), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Times are CUDA-event medians over 30 runs with the 50 MB L2 flushed before
-each, or host-clock medians of requests that end in a synchronize.
+With --profile, [6] also prints the device-time table (torch.profiler) of 3
+fused and 3 unfused main steps.
+
+Times are CUDA-event medians over 30 runs (plain versions of the fused
+kernels: 10) with the 50 MB L2 flushed before each, or host-clock medians of
+requests or steps that end in a synchronize.
 """
 
 from __future__ import annotations
@@ -60,7 +83,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from multi_modal_regression_tpu_torch.data.loader import normalize_images  # noqa: E402
 from multi_modal_regression_tpu_torch.dictionary.kmeans import KMeansDictionary  # noqa: E402
 from multi_modal_regression_tpu_torch.models.heads import HeadBatchNorm  # noqa: E402
-from multi_modal_regression_tpu_torch.ops import _build, preprocess, stem_pool  # noqa: E402
+from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
+    _build,
+    fused_conv_bn,
+    preprocess,
+    stem_pool,
+)
 from multi_modal_regression_tpu_torch.serving import make_inference_fn  # noqa: E402
 from multi_modal_regression_tpu_torch.train import steps  # noqa: E402
 from multi_modal_regression_tpu_torch.train.presets import (  # noqa: E402
@@ -91,14 +119,46 @@ SERVE_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # (warm-up) and 9% on step 3's Lr. The metrics must agree within 15% (s, a
 # log, within 0.15 absolute); the f32 gradient check below is the tight one.
 TRAIN_TOL = 0.15
+# Fused conv+BN kernels vs their plain versions. Both feed the same bf16
+# operands to their products and differ in the order of the float32
+# accumulation: y and dx at most 1 bf16 ulp apart on under 1% of the
+# elements (elements under 1/64 of the largest magnitude, where sums cancel,
+# are held to the ulp at that floor); float32 results (sums, dw, da, db)
+# within 1e-3 of their largest magnitude.
+FUSED_F32_TOL = 1e-3
+# Fused training, kernel vs plain, per step. The first step (same weights,
+# no update yet) shows the forward alone: the two trunks differ by those
+# 1-ulp flips in each of 98 conv outputs and must agree within 3% (measured
+# 1.6% on Lr, 0.1% on the loss, the same in every run). From step 2 on
+# Adam's +/-lr steps turn rounding-level gradient differences into lr-sized
+# weight differences and the argmax decode amplifies them, as in TRAIN_TOL;
+# with cuDNN left free to pick float32 backward algorithms that sum with
+# atomics, the plain path's own step-2 loss spread over 5.19-5.25 across
+# four runs and the worst difference over 3.4-11.8%. So the plain path runs
+# with deterministic cuDNN algorithms (then both paths repeat their bits:
+# worst difference 2.9% in two runs) and steps 2-4 are held within 20%.
+FUSED_TRAIN_TOL = 0.2
+# H100 SXM peaks for the bounds: HBM bytes/s, dense bf16 tensor FLOP/s,
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 
-def cuda_ms(fn, flush: torch.Tensor) -> float:
+def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: each input read and each output
+    written once over the memory rate, or the operations over their peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "operations": int(ops),
+            "library_ms": None}  # no single PyTorch call computes any of these kernels
+
+
+def cuda_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
     """Median device time of fn() in ms, L2 flushed before each run."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -164,7 +224,10 @@ def phase_normalize(dev, flush) -> dict:
                 plain_ms = cuda_ms(lambda: normalize_images(x, dtype), flush)
                 line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
                 if shape[0] == 64 and dtype == torch.bfloat16:
-                    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                    # 1 byte in, 2 out, a multiply and an add per value
+                    n = x.numel()
+                    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           **bound(3 * n, 2 * n, PEAK_F32)}
             print(line)
     return rec
 
@@ -196,7 +259,9 @@ def phase_stem(dev, flush) -> dict:
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             )
             if shape[0] == 64 and dtype == torch.bfloat16:
-                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                # y read, p written; 9 taps x (multiply, add, ReLU, max) per output
+                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **bound(2 * (y.numel() + got.numel()), 36 * got.numel(), PEAK_F32)}
     return rec
 
 
@@ -262,7 +327,10 @@ def phase_stem_bwd(dev, flush) -> dict:
             plain_ms = cuda_ms(lambda: stem_pool._plain_bwd(g, y, a, b), flush)
             print(f"[3b] {tag}: two runs bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if shape[0] == 96 and dtype == torch.bfloat16:
-                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                # g and y read, dy written; per input element the affine, the
+                # mask, up to 4 window compares and 3 multiply-adds
+                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **bound(2 * (g.numel() + 2 * y.numel()), 14 * y.numel(), PEAK_F32)}
     # NaN inputs: NaN wins its windows in both, and propagates into da
     y, g, a, b = _stem_bwd_inputs((4, 8, 16, 12), dev, gen)
     y[0, 0, 5, 5] = y[1, 3, 0, 0] = y[2, 7, 15, 11] = float("nan")
@@ -275,6 +343,148 @@ def phase_stem_bwd(dev, flush) -> dict:
         torch.testing.assert_close(k.nan_to_num(), p.nan_to_num(), rtol=1e-6, atol=1e-5)
     print(f"[3b] stem bwd NaN inputs: NaN positions equal ({int(got[1].isnan().sum())} channels of da NaN)")
     return rec
+
+
+def bf16_close(tag: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The bf16 tolerance of the fused kernels (see FUSED_F32_TOL's note);
+    returns the largest absolute error."""
+    if got.shape != want.shape or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{tag}: shape {tuple(got.shape)} dtype {got.dtype}")
+    gf, wf = got.float(), want.float()
+    floor = 2.0**-6 * float(wf.abs().max())
+    above = wf.abs() >= floor
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    ulps = int(torch.where(above, (ordered(got) - ordered(want)).abs(), 0).max())
+    low = float(torch.where(above, 0.0, (gf - wf).abs()).max())
+    share = float((got != want).float().mean())
+    if not (ulps <= 1 and low <= 2.0**-7 * floor and share < 0.01):
+        raise AssertionError(
+            f"{tag}: {ulps} ulps, {low:.3g} under the floor {floor:.3g}, {share:.3%} differ")
+    return float((gf - wf).abs().max())
+
+
+def f32_close(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float = FUSED_F32_TOL) -> float:
+    """Largest error as a share of the largest magnitude; raises above tol."""
+    if got.shape != want.shape or got.dtype != torch.float32:
+        raise AssertionError(f"{tag}: shape {tuple(got.shape)} dtype {got.dtype}")
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    if not err <= tol:
+        raise AssertionError(f"{tag}: {err:.3g} of the largest magnitude > {tol:g}")
+    return err
+
+
+def check_fused(tag, fns, x, wb, ab, gy, gs, flush) -> tuple[dict, dict]:
+    """One fused conv's forward and backward kernels against their plain
+    versions on the same inputs; returns their (forward, backward) records
+    without the bounds."""
+    fwd, fwd_plain, bwd, bwd_plain = fns
+    relu = ab is not None
+    y, s = fwd(x, wb, ab, relu)
+    py, ps = fwd_plain(x, wb, ab, relu)
+    y_err = bf16_close(f"{tag} y", y, py)
+    f32_close(f"{tag} sums vs its own y", s, fused_conv_bn._stats(y), 1e-5)
+    s_err = f32_close(f"{tag} sums", s, ps)
+    got = bwd(gy, gs, y, x, wb, ab, relu)
+    want = bwd_plain(gy, gs, y, x, wb, ab, relu)
+    dx_err = bf16_close(f"{tag} dx", got[0], want[0])
+    dw_err = f32_close(f"{tag} dw", got[1], want[1])
+    dab_err = f32_close(f"{tag} da, db", got[2], want[2]) if relu else 0.0
+    again = (fwd(x, wb, ab, relu), bwd(gy, gs, y, x, wb, ab, relu))
+    torch.cuda.synchronize()
+    for u, v in zip((y, s, *got), (*again[0], *again[1])):
+        if u is not None and not torch.equal(u, v):
+            raise AssertionError(f"{tag}: two runs differ")
+    ms = cuda_ms(lambda: fwd(x, wb, ab, relu), flush)
+    plain_ms = cuda_ms(lambda: fwd_plain(x, wb, ab, relu), flush, 10)
+    bwd_ms = cuda_ms(lambda: bwd(gy, gs, y, x, wb, ab, relu), flush)
+    bwd_plain_ms = cuda_ms(lambda: bwd_plain(gy, gs, y, x, wb, ab, relu), flush, 10)
+    print(
+        f"{tag}: y max err {y_err:.3g} (<= 1 ulp, < 1% differ), sums {s_err:.2g}, dx max err "
+        f"{dx_err:.3g}, dw {dw_err:.2g}, da/db {dab_err:.2g} of max (<= {FUSED_F32_TOL:g}); "
+        f"two runs bit-equal; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; backward "
+        f"kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms"
+    )
+    return ({"max_abs_err": y_err, "ms": ms, "plain_ms": plain_ms},
+            {"max_abs_err": dx_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms})
+
+
+def fused_inputs(x_shape, w_shape, prologue, dev, gen):
+    """bf16 activations ~ N(0, 1), lecun-scaled weights, a BN-like affine,
+    a small output gradient and stats cotangent."""
+    k, n = x_shape[-1], w_shape[0]
+    x = torch.randn(x_shape, device=dev, generator=gen).bfloat16()
+    fan = 1
+    for d in w_shape[1:]:
+        fan *= d
+    wb = (torch.randn(w_shape, device=dev, generator=gen) * fan**-0.5).bfloat16()
+    ab = None
+    if prologue:
+        ab = torch.stack([torch.rand(k, device=dev, generator=gen) * 1.5 + 0.5,
+                          torch.randn(k, device=dev, generator=gen) * 0.3])
+    gy = (torch.randn((*x_shape[:-1], n), device=dev, generator=gen) * 0.1).bfloat16()
+    gs = torch.randn((2, n), device=dev, generator=gen) * 0.01
+    return x, wb, ab, gy, gs
+
+
+def fused_bounds(m: int, k_taps: int, k: int, n: int, prologue: bool) -> tuple[dict, dict]:
+    """(forward, backward) bounds of a fused conv with m output rows, k
+    input channels over k_taps taps and n output channels. Forward: x and w
+    read, y and the sums written, 2 m k n taps operations. Backward: gy, y,
+    x, w, gs read, dx and dw written, twice the operations."""
+    w_elems, ab_bytes = k_taps * k * n, (8 * k if prologue else 0)
+    fwd = bound(2 * (m * k + w_elems + m * n) + ab_bytes + 8 * n,
+                2 * m * k_taps * k * n, PEAK_BF16)
+    bwd = bound(2 * (2 * m * n + 2 * m * k + w_elems) + 4 * w_elems + 2 * ab_bytes + 8 * n,
+                4 * m * k_taps * k * n, PEAK_BF16)
+    return fwd, bwd
+
+
+def phase_fused_mm(dev, flush) -> tuple[dict, dict]:
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fns = (fused_conv_bn._mm_stats, fused_conv_bn._mm_plain,
+           fused_conv_bn._mm_stats_bwd, fused_conv_bn._mm_bwd_plain)
+    recs = None
+    # (M, K, N, prologue): layer1 conv1 and conv3, layer4 conv3 and conv1 of
+    # a 48-image stream, and a ragged M with K, N no multiples of 64
+    for m, k, n, pro in ((150528, 256, 64, False), (150528, 64, 256, True),
+                         (2352, 512, 2048, True), (2352, 2048, 512, False),
+                         (9413, 264, 1000, True)):
+        args = fused_inputs((m, k), (n, k), pro, dev, gen)
+        tag = f"[3c] fused 1x1 ({m}, {k} -> {n}){' prologue' if pro else ''}"
+        fwd, bwd = check_fused(tag, fns, *args, flush)
+        bf, bb = fused_bounds(m, 1, k, n, pro)
+        print(f"{tag}: bound forward {bf['bound_ms']:.4f} ms ({bf['bound_by']}), backward "
+              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']})")
+        if (m, k, n) == (150528, 64, 256):
+            recs = ({**fwd, **bf}, {**bwd, **bb})
+        del args
+    return recs
+
+
+def phase_fused_c3(dev, flush) -> tuple[dict, dict]:
+    gen = torch.Generator(device=dev).manual_seed(6)
+    fns = (fused_conv_bn._c3_fwd, fused_conv_bn._c3_plain,
+           fused_conv_bn._c3_bwd, fused_conv_bn._c3_bwd_plain)
+    recs = None
+    # the four stride-1 3x3 shapes of a 48-image stream, and a small one with
+    # odd H, W and image seams inside a 128-pixel tile
+    for b, h, w, c, cout in ((48, 56, 56, 64, 64), (48, 28, 28, 128, 128), (48, 14, 14, 256, 256),
+                             (48, 7, 7, 512, 512), (3, 13, 11, 24, 40)):
+        for pro in (True, False):
+            args = fused_inputs((b, h, w, c), (cout, c, 3, 3), pro, dev, gen)
+            tag = f"[3d] fused 3x3 ({b}, {h}, {w}, {c} -> {cout}){' prologue' if pro else ''}"
+            fwd, bwd = check_fused(tag, fns, *args, flush)
+            bf, bb = fused_bounds(b * h * w, 9, c, cout, pro)
+            print(f"{tag}: bound forward {bf['bound_ms']:.4f} ms ({bf['bound_by']}), backward "
+                  f"{bb['bound_ms']:.4f} ms ({bb['bound_by']})")
+            if (h, c, pro) == (56, 64, True):
+                recs = ({**fwd, **bf}, {**bwd, **bb})
+            del args
+    return recs
 
 
 def randomize_bn_stats(model: torch.nn.Module, rng: np.random.Generator) -> None:
@@ -516,13 +726,12 @@ def phase_train(dev, dictionary) -> dict:
 
     # the counted run: Trainer.fit, 2 warm-up + 2 main steps
     torch.cuda.reset_peak_memory_stats()
-    preprocess.launches = stem_pool.launches = stem_pool.bwd_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state = kern.fit(kern.init_state(), real, render, log_every=1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"normalize": preprocess.launches, "stem_pool": stem_pool.launches,
-                "stem_pool_bwd": stem_pool.bwd_launches}
+    launches = {k: v for k, v in read_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = state.step
     print(f"[5] fit: {n} steps in {fit_s:.2f} s (first steps included); launches {launches}; "
@@ -636,6 +845,189 @@ def phase_train(dev, dictionary) -> dict:
     return {"launches": launches, "img_s": n_img / med_k, "plain_img_s": n_img / med_p}
 
 
+FUSED_COUNTERS = ("mm_launches", "mm_bwd_launches", "c3_launches", "c3_bwd_launches")
+
+
+def reset_counts() -> None:
+    preprocess.launches = stem_pool.launches = stem_pool.bwd_launches = 0
+    for name in FUSED_COUNTERS:
+        setattr(fused_conv_bn, name, 0)
+
+
+def read_counts() -> dict:
+    return {"normalize": preprocess.launches, "stem_pool": stem_pool.launches,
+            "stem_pool_bwd": stem_pool.bwd_launches,
+            **{name.removesuffix("_launches"): getattr(fused_conv_bn, name)
+               for name in FUSED_COUNTERS}}
+
+
+def profile_steps(tag: str, step_fn, state, batch, n: int = 3):
+    """Device time by kernel of n steps (torch.profiler), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    # kernels and device copies only: an annotation's device time is a span
+    rows = [(e.key, e.device_time_total / n / 1e3, e.count / n)
+            for e in prof.key_averages() if e.device_time_total > 0
+            and e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    print(f"[6] profile {tag}: {total:.3f} ms of kernels per step, {sum(r[2] for r in rows):.0f} launches")
+    for key, ms, count in rows[:40]:
+        print(f"[6]   {ms:8.3f} ms {100 * ms / total:5.1f}% x{count:6.1f}  {key[:110]}")
+    return state
+
+
+def phase_train_fused(dev, dictionary, profile: bool) -> dict:
+    base = get_config(
+        "geodesic_bd", compute_dtype="bfloat16", stem_pool="kernel",
+        items_per_batch=4, max_iterations=2, num_warmup_epochs=1, num_epochs=1,
+    )
+    cfg = base.replace(fused_conv_bn="kernel")
+    kern = Trainer(cfg, dictionary=dictionary, device=dev)
+    init_sd = {k: v.clone() for k, v in kern.model.state_dict().items()}
+    rng = np.random.default_rng(4)  # the loaders of [5]
+    real, render = (make_loader(rng, 2, cfg.items_per_batch, cfg.image_size, cfg.num_classes)
+                    for _ in range(2))
+    n_img = 2 * len(real[0]["label"])
+    before = bn_stats(kern.model)
+
+    # the counted run: Trainer.fit, 2 warm-up + 2 main steps
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = kern.fit(kern.init_state(), real, render, log_every=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = state.step
+    print(f"[6] fused fit (fused_conv_bn='kernel'): {n} steps in {fit_s:.2f} s (first steps "
+          f"included); launches {launches}; peak device memory {peak:.2f} GiB")
+    per_step = {"normalize": 1, "stem_pool": 2, "stem_pool_bwd": 2, "mm": 72, "mm_bwd": 72,
+                "c3": 26, "c3_bwd": 26}
+    if n != 4 or launches != {k: v * n for k, v in per_step.items()}:
+        raise AssertionError(f"expected 4 steps of {per_step} launches")
+    keys = ("loss", "lc", "lr", "s", "alpha")
+    hist = kern.history
+    for rec in hist:
+        if not all(np.isfinite(rec[k]) for k in keys):
+            raise AssertionError(f"non-finite metrics at step {rec['step']}: {rec}")
+    if len({rec["s"] for rec in hist}) != len(hist):
+        raise AssertionError("s did not change from step to step")
+    after = bn_stats(kern.model)
+    stuck = [k for k in before if torch.equal(before[k], after[k])]
+    if stuck:
+        raise AssertionError(f"running statistics that did not move: {stuck[:5]}")
+    print(f"[6] metrics finite at every step, s moving, all {len(before)} running statistics moved")
+
+    # the same steps through the plain fused ops, and through the unfused
+    # trunk of [5], from the same weights
+    others = {}
+    for name, c in (("plain", base.replace(fused_conv_bn="plain")), ("unfused", base)):
+        t = Trainer(c, dictionary=dictionary, device=dev)
+        t.model.load_state_dict(init_sd)
+        reset_counts()
+        # the plain ops' float32 library backward repeats its bits only
+        # with deterministic algorithms
+        torch.backends.cudnn.deterministic = name == "plain"
+        try:
+            st = t.fit(t.init_state(), real, render, log_every=1)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if any(getattr(fused_conv_bn, name_) for name_ in FUSED_COUNTERS):
+            raise AssertionError(f"the {name} path launched a fused kernel")
+        others[name] = (t, st)
+    worst = 0.0
+    for rk, rp, ru in zip(hist, others["plain"][0].history, others["unfused"][0].history,
+                          strict=True):
+        for k in keys:
+            err = abs(rk[k] - rp[k]) / (1.0 if k == "s" else abs(rp[k]))
+            if not err <= (0.03 if rk["step"] == 1 else FUSED_TRAIN_TOL):
+                raise AssertionError(f"step {rk['step']} {k}: kernel {rk[k]} plain {rp[k]}")
+            worst = max(worst, err)
+        print(
+            f"[6] step {rk['step']} {rk['phase']}: fused kernel loss {rk['loss']:.5f} lc "
+            f"{rk['lc']:.5f} lr {rk['lr']:.5f} s {rk['s']:.5f} | fused plain loss "
+            f"{rp['loss']:.5f} lc {rp['lc']:.5f} lr {rp['lr']:.5f} s {rp['s']:.5f} | unfused "
+            f"loss {ru['loss']:.5f} lc {ru['lc']:.5f} lr {ru['lr']:.5f} s {ru['s']:.5f}"
+        )
+    print(f"[6] fused kernel vs fused plain metrics: worst difference {worst:.3g} "
+          f"(<= {FUSED_TRAIN_TOL}, first step <= 0.03)")
+    first, first_u = hist[0]["loss"], others["unfused"][0].history[0]["loss"]
+    if not abs(first - first_u) <= 0.10 * abs(first_u):
+        raise AssertionError(f"first-step loss fused {first} vs unfused {first_u}")
+    print(f"[6] first-step loss: fused {first:.5f}, unfused {first_u:.5f} "
+          f"({abs(first - first_u) / abs(first_u):.3%} apart, <= 10%)")
+    del others["plain"]
+
+    # one request served from the trained fused model: the eval branch
+    # (library convs, folded running-stat affine), no fused kernel
+    images, labels = make_requests(np.random.default_rng(7), (64,), cfg.image_size,
+                                   cfg.num_classes)[0]
+    reset_counts()
+    poses = make_inference_fn(kern.model, kern.problem)(images, labels)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if poses.shape != (64, 3) or not bool(torch.isfinite(poses).all()):
+        raise AssertionError(f"bad poses from the fused model: {tuple(poses.shape)}")
+    if counts != {**dict.fromkeys(counts, 0), "normalize": 1, "stem_pool": 1}:
+        raise AssertionError(f"serving from the fused model launched {counts}")
+    twin = build_model(base, dev, param_dtype=torch.float32)
+    twin.load_state_dict(kern.model.state_dict())
+    got = outputs(kern.model, kern.problem, images, labels, dev, torch.bfloat16, kernel=True)
+    ref = outputs(twin, kern.problem, images, labels, dev, torch.bfloat16, kernel=True)
+    errs = [float((g - r).abs().max()) / float(r.abs().max()) for g, r in zip(got[:2], ref[:2])]
+    # bf16 folded affine against float32 eval BN in each of 53 BNs: 10% of max
+    if not max(errs) <= 0.1:
+        raise AssertionError(f"fused eval vs unfused eval: {errs}")
+    print(f"[6] served 64 images from the trained fused model (launches {counts}); scores and "
+          f"residual within {max(errs):.3g} of the unfused model's largest (<= 0.1)")
+    del twin
+
+    # step time: 10 interleaved pairs of main steps against the unfused path
+    unf, ustate = others["unfused"]
+    batch = kern._to_device(next(_interleave(real, render)))
+    step_k = kern.train_step_fn("main", dual_stream=True)
+    step_u = unf.train_step_fn("main", dual_stream=True)
+    state, _ = timed_steps(step_k, state, batch, 2)
+    ustate, _ = timed_steps(step_u, ustate, batch, 2)
+    peaks = {}
+    for name, fn, st in (("fused", step_k, state), ("unfused", step_u, ustate)):
+        torch.cuda.reset_peak_memory_stats()
+        timed_steps(fn, st, batch, 1)
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    t_k, t_u = [], []
+    for i in range(10):
+        for path in (("k", "u") if i % 2 == 0 else ("u", "k")):
+            if path == "k":
+                state, t = timed_steps(step_k, state, batch, 1)
+                t_k += t
+            else:
+                ustate, t = timed_steps(step_u, ustate, batch, 1)
+                t_u += t
+    med_k, med_u = statistics.median(t_k), statistics.median(t_u)
+    print(
+        f"[6] bf16 main train step, {n_img} images on the card, 10 interleaved pairs: "
+        f"fused kernel path median {med_k * 1e3:.3f} ms = {n_img / med_k:.1f} img/s "
+        f"(q1 {np.percentile(t_k, 25) * 1e3:.3f}, q3 {np.percentile(t_k, 75) * 1e3:.3f}), "
+        f"peak {peaks['fused']:.2f} GiB; unfused path median {med_u * 1e3:.3f} ms = "
+        f"{n_img / med_u:.1f} img/s (q1 {np.percentile(t_u, 25) * 1e3:.3f}, q3 "
+        f"{np.percentile(t_u, 75) * 1e3:.3f}), peak {peaks['unfused']:.2f} GiB; fused faster in "
+        f"{sum(a < b for a, b in zip(t_k, t_u))} of 10 pairs"
+    )
+    if profile:
+        state = profile_steps("fused kernel path", step_k, state, batch)
+        ustate = profile_steps("unfused path", step_u, ustate, batch)
+    return {"launches": launches, "img_s": n_img / med_k, "unfused_img_s": n_img / med_u}
+
+
 def main() -> None:
     name = phase_device()
     dev = torch.device("cuda", 0)
@@ -645,11 +1037,18 @@ def main() -> None:
     norm = phase_normalize(dev, flush)
     stem = phase_stem(dev, flush)
     stem_bwd = phase_stem_bwd(dev, flush)
+    mm, mm_bwd = phase_fused_mm(dev, flush)
+    c3, c3_bwd = phase_fused_c3(dev, flush)
     del flush
+    torch.cuda.empty_cache()
     dictionary = make_dictionary(get_config("geodesic_bd").dict_size)
     serve = phase_serve(dev, dictionary)
     train = phase_train(dev, dictionary)
-    # launches: this slice's main path, training; serving's counts are in [4]
+    fused = phase_train_fused(dev, dictionary, profile="--profile" in sys.argv[1:])
+    # launches: each kernel's count over the 4 steps of its training path
+    # ([5] unfused, [6] fused); serving's counts are in [4]
+    fused_src = f"{PORT}/csrc/fused_%s.cu"
+    fused_at = f"{JAX_PACKAGE}/ops/fused_conv_bn.py:%d"
     kernels = [
         {"name": "normalize", "route": "cuda",
          "source": f"{PORT}/csrc/normalize.cu",
@@ -665,6 +1064,14 @@ def main() -> None:
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:186",
          "launches": train["launches"]["stem_pool_bwd"], **stem_bwd},
+        {"name": "mm_stats", "route": "cuda", "source": fused_src % "mm",
+         "replaces": fused_at % 215, "launches": fused["launches"]["mm"], **mm},
+        {"name": "mm_stats_bwd", "route": "cuda", "source": fused_src % "mm",
+         "replaces": fused_at % 447, "launches": fused["launches"]["mm_bwd"], **mm_bwd},
+        {"name": "c3_fwd", "route": "cuda", "source": fused_src % "c3",
+         "replaces": fused_at % 805, "launches": fused["launches"]["c3"], **c3},
+        {"name": "c3_bwd", "route": "cuda", "source": fused_src % "c3",
+         "replaces": fused_at % 878, "launches": fused["launches"]["c3_bwd"], **c3_bwd},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -26,7 +26,8 @@ class OneBinDeltaModel(nn.Module):
     both float32 (at least). Weights are drawn on the CPU from a
     torch.Generator seeded with `seed` and held in `param_dtype` (default:
     the compute `dtype`). The model is built in eval mode; its BNs follow
-    the module's mode, as flax's `train` argument selects them.
+    the module's mode, as flax's `train` argument selects them. `fused_bn`
+    is the trunk's fused conv+BN setting (models/backbones.ResNetBackbone).
     """
 
     def __init__(
@@ -35,13 +36,14 @@ class OneBinDeltaModel(nn.Module):
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, stem_pool: str | None = None,
         seed: int = 0, param_dtype: torch.dtype | None = None,
+        fused_bn: str | None = None,
     ):
         super().__init__()
         g = torch.Generator().manual_seed(seed)  # init draws on the CPU
         self.num_classes = num_classes
         self.feature_model = make_backbone(
             feature_network, feature_layer, dtype=dtype, stem_pool=stem_pool,
-            param_dtype=param_dtype,
+            param_dtype=param_dtype, fused=fused_bn,
         )
         if self.feature_model.feature_dim != N0:
             raise ValueError(

@@ -2,10 +2,14 @@
 
 Every `csrc/*.cu` file is compiled, at first use, into one shared library
 with a plain C interface (no PyTorch headers, so the build takes seconds):
+one nvcc per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-        -Xcompiler -fPIC -o build/torch_kernels/libmmr_kernels_<hash>.so \\
-        multi_modal_regression_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+        -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu    (each)
+    nvcc -shared -o build/torch_kernels/libmmr_kernels_<hash>.so *.o
+
+Each compile's output (ptxas' registers, shared memory and spills per
+kernel) is kept beside the library as `<name>_<hash>.log`.
 
 The library goes to `build/torch_kernels/` at the root of the checkout
 (listed in .gitignore), named by a hash of the sources and the flags: a
@@ -34,7 +38,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -48,6 +52,16 @@ _SIGNATURES = {
     "mmr_stem_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g, y, a, b, dy, arg, partial, dab, B, H, W, C, nblk, is_bf16, device, stream
     "mmr_stem_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, ab|null, y, partial, sums, M, K, N, relu, device, stream
+    "mmr_mm_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # gy, y, x, w, gs, ab|null, dx, dw, dab, partial_ab, partial_dw, M, K, N,
+    # relu, splits, rows_per_split, device, stream
+    "mmr_mm_stats_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    # x, w9, ab|null, y, partial, sums, B, H, W, C, Cout, relu, device, stream
+    "mmr_c3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # gy, y, x, w9, gs, ab|null, dx, dw9, dab, partial_ab, partial_dw, ge, B, H,
+    # W, C, Cout, relu, splits, rows_per_split, device, stream
+    "mmr_c3_bwd": [_P] * 12 + [_I] * 9 + [_P],
 }
 
 
@@ -87,15 +101,40 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    nvcc = find_nvcc()
+    digest = out.stem.rsplit("_", 1)[1]
+    srcs = sources()
+    objects = [BUILD_DIR / f"{src.stem}_{digest}.{os.getpid()}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objects)]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    try:
+        for src, cmd, proc in zip(srcs, cmds, procs):
+            log = proc.communicate()[0]
+            (BUILD_DIR / f"{src.stem}_{digest}.log").write_text(log)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{log}"
+                )
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {res.returncode}:\n{' '.join(cmd)}\n"
+                f"{res.stdout}{res.stderr}"
+            )
+        os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    finally:
+        for proc in procs:  # a failed compile leaves no sibling running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

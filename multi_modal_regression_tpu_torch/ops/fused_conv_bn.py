@@ -1,13 +1,68 @@
-"""BN folding and batch moments (the JAX package's ops/fused_conv_bn.py).
+"""Fused conv + BatchNorm ops (port of the JAX package's ops/fused_conv_bn.py).
 
-`fold_bn` and `stats_to_moments` are what the explicit stem BN needs
-(models/backbones.py). The fused conv+BN kernels themselves wait for the
-fused training trunk (ROADMAP.md).
+For the 1x1 and the stride-1 3x3 convolutions of a ResNet bottleneck block
+in training:
+
+    forward:   xhat = relu(x * a + b)      the folded BN of the PREVIOUS conv,
+                                           applied in bf16 while x is read
+               y    = conv(xhat, w)        bf16 operands, float32 accumulation,
+                                           rounded to bf16
+               sums = [sum y, sum y^2]     per output channel, float32, of the
+                                           ROUNDED y, in the pass that writes y
+
+so the BN statistics of y cost no pass of their own and xhat is never
+materialized. The moments are formed from `sums` outside
+(`stats_to_moments`), so autograd routes d(mean), d(var) back into the conv
+through the `sums` cotangent. The backward recomputes xhat from x and forms
+
+    gy_eff = bf16(gy + gs[0] + 2 * y * gs[1])
+    dxh = conv^T(gy_eff, w);  dz = dxh where z > 0 (z the recomputed bf16
+    pre-activation);  dx = bf16(dz * a);  da = sum dz * x;  db = sum dz
+    dw = xhat^T gy_eff in float32
+
+The kernels are csrc/fused_mm.cu (1x1: forward `_mm_stats`, backward
+`_mm_stats_bwd`) and csrc/fused_c3.cu (3x3: `_c3_fwd`, `_c3_bwd`); each has
+its plain PyTorch version beside it here (`_mm_plain`, `_mm_bwd_plain`,
+`_c3_plain`, `_c3_bwd_plain`), which computes the same function with the same
+bf16 roundings (prologue, gy_eff, y) and float32 products, so kernel and
+plain differ only in the order of float32 accumulation. The backwards are
+written out, not autograd of the plain forwards: the JAX custom VJP rounds
+gy_eff to bf16 and recomputes the bf16 prologue, and so does this.
+
+impl 'kernel': on a CUDA tensor the kernels run (or the call raises), on a
+CPU tensor their plain versions. impl 'plain': the plain versions on any
+device, through the same autograd Functions (the JAX 'pallas' and 'xla').
+
+Layout: activations are channels-last and contiguous, (M, K) or
+(B, H, W, K) bfloat16, as the JAX package has them. Weights are the torch
+parameters: (N, K) or (N, K, 1, 1) for the 1x1, (Cout, C, 3, 3) for the 3x3,
+float32 master weights (cast to bf16 once per call); dw comes back in
+float32 in the parameter's own layout. The kernels take channel counts that
+are multiples of 8 and any number of rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from multi_modal_regression_tpu_torch.ops import _build
+
+IMPLS = ("plain", "kernel")
+
+# kernel launches in this process, counted where each wrapper launches
+mm_launches = 0  # _mm_stats (1x1 forward)
+mm_bwd_launches = 0  # _mm_stats_bwd
+c3_launches = 0  # _c3_fwd (3x3 forward)
+c3_bwd_launches = 0  # _c3_bwd
+
+# tiles of csrc/fused_tiles.cuh: forward and dx blocks own 128 rows, a dw
+# block a 64 x 64 tile fed 32 rows at a time; about 4 dw blocks per SM
+_BM, _DW_TILE, _DW_ROWS, _DW_BLOCKS = 128, 64, 32, 132 * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def fold_bn(
@@ -27,3 +82,379 @@ def stats_to_moments(
     mean = s[0] / count
     var = s[1] / count - mean * mean
     return mean, torch.clamp(var, min=0.0)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _prologue(x, ab, relu):
+    """(z, xhat): z = x * a + b with a, b, the product and the sum each
+    rounded to bf16 (x's dtype), xhat = relu(z) or z. ab None: (None, x)."""
+    if ab is None:
+        return None, x
+    abc = ab.to(x.dtype)
+    z = x * abc[0] + abc[1]
+    return z, (torch.relu(z) if relu else z)
+
+
+def _stats(y):
+    yf = y.float().reshape(-1, y.shape[-1])
+    return torch.stack([yf.sum(dim=0), (yf * yf).sum(dim=0)])
+
+
+def _gy_eff(gy, y, gs):
+    return (gy.float() + gs[0] + 2.0 * y.float() * gs[1]).to(torch.bfloat16)
+
+
+def _prologue_bwd(dxh, x, z, ab, relu):
+    """(dx, dab) from dxh (float32) through the prologue; dab None without one."""
+    if ab is None:
+        return dxh.to(x.dtype), None
+    dz = torch.where(z > 0, dxh, 0.0) if relu else dxh
+    red = tuple(range(x.ndim - 1))
+    dab = torch.stack([(dz * x.float()).sum(dim=red), dz.sum(dim=red)])
+    return (dz * ab[0]).to(x.dtype), dab
+
+
+def _mm_plain(x, wb, ab, relu):
+    """Plain 1x1 forward: x (..., K) bf16, wb (N, K) bf16, ab (2, K) float32
+    or None -> (y (..., N) bf16, sums (2, N) float32)."""
+    _, xh = _prologue(x, ab, relu)
+    y = (xh.float() @ wb.float().t()).to(torch.bfloat16)
+    return y, _stats(y)
+
+
+def _mm_bwd_plain(gy, gs, y, x, wb, ab, relu):
+    """Plain 1x1 backward -> (dx bf16, dw (N, K) float32, dab (2, K) or None)."""
+    k, n = x.shape[-1], wb.shape[0]
+    ge = _gy_eff(gy, y, gs).float()
+    z, xh = _prologue(x, ab, relu)
+    dxh = ge @ wb.float()
+    dw = ge.reshape(-1, n).t() @ xh.float().reshape(-1, k)
+    dx, dab = _prologue_bwd(dxh, x, z, ab, relu)
+    return dx, dw, dab
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def _c3_plain(x, wb, ab, relu):
+    """Plain 3x3 forward: x (B, H, W, C) bf16, wb (Cout, C, 3, 3) bf16 ->
+    (y (B, H, W, Cout) bf16, sums (2, Cout)); the zero padding comes after
+    the prologue."""
+    _, xh = _prologue(x, ab, relu)
+    y = F.conv2d(_nchw(xh).float(), wb.float(), padding=1)
+    y = y.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
+    return y, _stats(y)
+
+
+def _c3_bwd_plain(gy, gs, y, x, wb, ab, relu):
+    """Plain 3x3 backward -> (dx bf16, dw (Cout, C, 3, 3) float32, dab or None)."""
+    ge = _nchw(_gy_eff(gy, y, gs).float())
+    z, xh = _prologue(x, ab, relu)
+    xs = _nchw(xh).float()
+    dxh = torch.nn.grad.conv2d_input(xs.shape, wb.float(), ge, padding=1)
+    dw = torch.nn.grad.conv2d_weight(xs, wb.shape, ge, padding=1)
+    dx, dab = _prologue_bwd(dxh.permute(0, 2, 3, 1), x, z, ab, relu)
+    return dx.contiguous(), dw, dab
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers: CUDA tensors only; they launch or raise
+# ---------------------------------------------------------------------------
+
+
+def _check_bf16(**tensors) -> torch.device:
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused conv+BN kernels run on CUDA tensors, not {dev}")
+    for name, t in tensors.items():
+        if t.dtype != torch.bfloat16 or t.device != dev or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous bfloat16 tensor on {dev}, got "
+                f"{t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
+            )
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return dev
+
+
+def _check_f32(shape: tuple, dev: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape
+                              or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}")
+
+
+def _check_channels(**counts) -> None:
+    for name, c in counts.items():
+        if c <= 0 or c % 8:
+            raise ValueError(
+                f"the fused conv+BN kernels take channel counts that are "
+                f"multiples of 8, got {name}={c}"
+            )
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _dw_splits(m: int, tiles: int) -> tuple[int, int]:
+    """(splits, rows per split) of the dw kernels' M dimension: enough
+    blocks to fill the card, at least 256 rows each, whole 32-row steps."""
+    want = max(1, min(_cdiv(m, 256), _cdiv(_DW_BLOCKS, tiles)))
+    rows = _cdiv(_cdiv(m, want), _DW_ROWS) * _DW_ROWS
+    return _cdiv(m, rows), rows
+
+
+def _mm_stats(x, wb, ab, relu):
+    """Kernel #4: x (..., K), wb (N, K) bf16 on the card -> (y, sums)."""
+    global mm_launches
+    dev = _check_bf16(x=x, w=wb)
+    k, n = x.shape[-1], wb.shape[0]
+    if wb.shape != (n, k):
+        raise ValueError(f"w must be ({n}, {k}), got {tuple(wb.shape)}")
+    _check_channels(K=k, N=n)
+    _check_f32((2, k), dev, ab=ab)
+    m = x.numel() // k
+    y = torch.empty((*x.shape[:-1], n), dtype=torch.bfloat16, device=dev)
+    if m == 0:
+        return y, torch.zeros((2, n), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((_cdiv(m, _BM), 2, n), dtype=torch.float32, device=dev)
+    err = _build.load().mmr_mm_stats(
+        x.data_ptr(), wb.data_ptr(), _ptr(ab), y.data_ptr(), partial.data_ptr(),
+        sums.data_ptr(), m, k, n, int(relu), *_build.launch_args(x),
+    )
+    _build.check(err, "fused 1x1 forward kernel")
+    mm_launches += 1
+    return y, sums
+
+
+def _mm_stats_bwd(gy, gs, y, x, wb, ab, relu):
+    """Kernel #5 -> (dx, dw (N, K) float32, dab (2, K) or None)."""
+    global mm_bwd_launches
+    dev = _check_bf16(x=x, w=wb, y=y, gy=gy)
+    k, n = x.shape[-1], wb.shape[0]
+    if wb.shape != (n, k) or y.shape != (*x.shape[:-1], n) or gy.shape != y.shape:
+        raise ValueError(
+            f"shapes do not match: x {tuple(x.shape)}, w {tuple(wb.shape)}, "
+            f"y {tuple(y.shape)}, gy {tuple(gy.shape)}"
+        )
+    _check_channels(K=k, N=n)
+    _check_f32((2, k), dev, ab=ab)
+    _check_f32((2, n), dev, gs=gs)
+    m = x.numel() // k
+    dx = torch.empty_like(x)
+    fill = torch.zeros if m == 0 else torch.empty  # the kernels write every element
+    dw = fill((n, k), dtype=torch.float32, device=dev)
+    dab = None if ab is None else fill((2, k), dtype=torch.float32, device=dev)
+    if m == 0:
+        return dx, dw, dab
+    splits, rows = _dw_splits(m, _cdiv(n, _DW_TILE) * _cdiv(k, _DW_TILE))
+    partial_ab = None if ab is None else torch.empty(
+        (_cdiv(m, _BM), 2, k), dtype=torch.float32, device=dev)
+    partial_dw = None if splits == 1 else torch.empty(
+        (splits, n, k), dtype=torch.float32, device=dev)
+    err = _build.load().mmr_mm_stats_bwd(
+        gy.data_ptr(), y.data_ptr(), x.data_ptr(), wb.data_ptr(), gs.data_ptr(),
+        _ptr(ab), dx.data_ptr(), dw.data_ptr(), _ptr(dab), _ptr(partial_ab),
+        _ptr(partial_dw), m, k, n, int(relu), splits, rows, *_build.launch_args(x),
+    )
+    _build.check(err, "fused 1x1 backward kernel")
+    mm_bwd_launches += 1
+    return dx, dw, dab
+
+
+def _taps_first(w):
+    """(Cout, C, 3, 3) -> (3, 3, Cout, C) contiguous, the kernels' layout."""
+    return w.permute(2, 3, 0, 1).contiguous()
+
+
+def _c3_shapes(x, wb):
+    if x.ndim != 4 or wb.ndim != 4 or wb.shape[1:] != (x.shape[-1], 3, 3):
+        raise ValueError(
+            f"expected x (B, H, W, C) and w (Cout, C, 3, 3), got {tuple(x.shape)} "
+            f"and {tuple(wb.shape)}"
+        )
+    bsz, h, w, c = x.shape
+    if bsz * h * w >= 2**31:
+        raise ValueError(f"B*H*W = {bsz * h * w} does not fit the kernels' 32-bit pixel index")
+    _check_channels(C=c, Cout=wb.shape[0])
+    return bsz, h, w, c, wb.shape[0]
+
+
+def _c3_fwd(x, wb, ab, relu):
+    """Kernel #6: x (B, H, W, C), wb (Cout, C, 3, 3) bf16 on the card -> (y, sums)."""
+    global c3_launches
+    dev = _check_bf16(x=x, w=wb)
+    bsz, h, w, c, cout = _c3_shapes(x, wb)
+    _check_f32((2, c), dev, ab=ab)
+    m = bsz * h * w
+    y = torch.empty((bsz, h, w, cout), dtype=torch.bfloat16, device=dev)
+    if m == 0:
+        return y, torch.zeros((2, cout), dtype=torch.float32, device=dev)
+    sums = torch.empty((2, cout), dtype=torch.float32, device=dev)
+    w9 = _taps_first(wb)
+    partial = torch.empty((_cdiv(m, _BM), 2, cout), dtype=torch.float32, device=dev)
+    err = _build.load().mmr_c3_fwd(
+        x.data_ptr(), w9.data_ptr(), _ptr(ab), y.data_ptr(), partial.data_ptr(),
+        sums.data_ptr(), bsz, h, w, c, cout, int(relu), *_build.launch_args(x),
+    )
+    _build.check(err, "fused 3x3 forward kernel")
+    c3_launches += 1
+    return y, sums
+
+
+def _c3_bwd(gy, gs, y, x, wb, ab, relu):
+    """Kernel #7 -> (dx, dw (Cout, C, 3, 3) float32, dab (2, C) or None)."""
+    global c3_bwd_launches
+    dev = _check_bf16(x=x, w=wb, y=y, gy=gy)
+    bsz, h, w, c, cout = _c3_shapes(x, wb)
+    if y.shape != (bsz, h, w, cout) or gy.shape != y.shape:
+        raise ValueError(f"y and gy must be {(bsz, h, w, cout)}, got "
+                         f"{tuple(y.shape)} and {tuple(gy.shape)}")
+    _check_f32((2, c), dev, ab=ab)
+    _check_f32((2, cout), dev, gs=gs)
+    m = bsz * h * w
+    dx = torch.empty_like(x)
+    fill = torch.zeros if m == 0 else torch.empty  # the kernels write every element
+    dw9 = fill((3, 3, cout, c), dtype=torch.float32, device=dev)
+    dab = None if ab is None else fill((2, c), dtype=torch.float32, device=dev)
+    if m > 0:
+        w9 = _taps_first(wb)
+        splits, rows = _dw_splits(m, 9 * _cdiv(cout, _DW_TILE) * _cdiv(c, _DW_TILE))
+        partial_ab = None if ab is None else torch.empty(
+            (_cdiv(m, _BM), 2, c), dtype=torch.float32, device=dev)
+        partial_dw = None if splits == 1 else torch.empty(
+            (splits, 3, 3, cout, c), dtype=torch.float32, device=dev)
+        ge = torch.empty_like(gy)  # gy_eff, written once for all nine taps
+        err = _build.load().mmr_c3_bwd(
+            gy.data_ptr(), y.data_ptr(), x.data_ptr(), w9.data_ptr(), gs.data_ptr(),
+            _ptr(ab), dx.data_ptr(), dw9.data_ptr(), _ptr(dab), _ptr(partial_ab),
+            _ptr(partial_dw), ge.data_ptr(), bsz, h, w, c, cout, int(relu), splits, rows,
+            *_build.launch_args(x),
+        )
+        _build.check(err, "fused 3x3 backward kernel")
+        c3_bwd_launches += 1
+    # (kh, kw, Cout, C) -> the parameter's (Cout, C, kh, kw)
+    return dx, dw9.permute(2, 3, 0, 1).contiguous(), dab
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions (the JAX custom VJPs)
+# ---------------------------------------------------------------------------
+
+
+def _use_kernel(impl: str, x: torch.Tensor) -> bool:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return impl == "kernel" and x.device.type == "cuda"
+
+
+def _check_activation(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(
+            f"the fused conv+BN path computes in bfloat16 (y is always written "
+            f"in bf16), got {x.dtype}"
+        )
+    return x.contiguous()
+
+
+def _stack_ab(a, b, k: int):
+    if (a is None) != (b is None):
+        raise ValueError("pass both a and b, or neither")
+    if a is None:
+        return None
+    if a.shape != (k,) or b.shape != (k,):
+        raise ValueError(f"a and b must be ({k},), got {tuple(a.shape)}, {tuple(b.shape)}")
+    return torch.stack([a.float(), b.float()])
+
+
+class _FusedConvStats(torch.autograd.Function):
+    """(y, sums) = conv(relu(x * a + b), w) for the 1x1 or the 3x3
+    (`is_3x3`); the backward takes both cotangents (autograd hands zeros for
+    one that the loss does not reach)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, w, relu, kernel, is_3x3):
+        ab = _stack_ab(a, b, x.shape[-1])
+        wb = w.detach().to(torch.bfloat16).reshape(w.shape if is_3x3 else w.shape[:2])
+        wb = wb.contiguous()
+        if is_3x3:
+            y, s = (_c3_fwd if kernel else _c3_plain)(x, wb, ab, relu)
+        else:
+            y, s = (_mm_stats if kernel else _mm_plain)(x, wb, ab, relu)
+        ctx.save_for_backward(x, ab, wb, y)
+        ctx.relu, ctx.kernel, ctx.is_3x3, ctx.w_shape = relu, kernel, is_3x3, w.shape
+        return y, s
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        x, ab, wb, y = ctx.saved_tensors
+        gy, gs = gy.contiguous(), gs.float().contiguous()
+        if ctx.is_3x3:
+            bwd = _c3_bwd if ctx.kernel else _c3_bwd_plain
+        else:
+            bwd = _mm_stats_bwd if ctx.kernel else _mm_bwd_plain
+        dx, dw, dab = bwd(gy, gs, y, x, wb, ab, ctx.relu)
+        da, db = (None, None) if dab is None else (dab[0], dab[1])
+        return dx, da, db, dw.reshape(ctx.w_shape), None, None, None
+
+
+def linear_bn_stats(x, a, b, w, relu: bool = True, impl: str = "kernel"):
+    """relu(x * a + b) @ w^T with the per-channel (sum, sum of squares) of
+    the output.
+
+    x (M, K) or (B, H, W, K) bf16; a, b (K,) float32, the folded BN affine of
+    x's producer; w (N, K) or (N, K, 1, 1), the float32 parameter. Returns
+    (y (..., N) bf16, sums (2, N) float32), differentiable in x, a, b, w
+    through both outputs.
+    """
+    x = _check_activation(x)
+    if not (w.ndim in (2, 4) and w.shape[1] == x.shape[-1]
+            and tuple(w.shape[2:]) in ((), (1, 1))):
+        raise ValueError(f"w must be (N, {x.shape[-1]}[, 1, 1]), got {tuple(w.shape)}")
+    return _FusedConvStats.apply(x, a, b, w, relu, _use_kernel(impl, x), False)
+
+
+def linear_stats(x, w, impl: str = "kernel"):
+    """x @ w^T with the per-channel sums of the output (no prologue)."""
+    return linear_bn_stats(x, None, None, w, False, impl)
+
+
+def conv1x1_bn_stats(x, w, ab=None, *, stride: int = 1, relu: bool = True,
+                     impl: str = "kernel"):
+    """1x1 conv over NHWC with fused input-BN prologue and stats epilogue.
+
+    x (B, H, W, Cin) bf16; w (Cout, Cin, 1, 1) or (Cout, Cin); ab None or the
+    fold_bn() affine (a, b) of x's producer. A stride takes every stride-th
+    row and column first, as a contiguous copy (the copy the JAX slice
+    makes; the kernels read dense rows). Returns (y (B, H', W', Cout), sums).
+    """
+    if stride != 1:
+        x = x[:, ::stride, ::stride, :]
+    if ab is None:
+        return linear_stats(x, w, impl)
+    return linear_bn_stats(x, ab[0], ab[1], w, relu, impl)
+
+
+def conv3x3_bn_stats(x, w, ab=None, *, relu: bool = True, impl: str = "kernel"):
+    """3x3 stride-1 pad-1 conv with fused input-BN prologue and stats epilogue.
+
+    x (B, H, W, C) bf16; w (Cout, C, 3, 3), the float32 parameter; ab None or
+    (a, b). The prologue comes before the zero padding: a border tap adds 0.
+    Returns (y (B, H, W, Cout) bf16, sums (2, Cout)).
+    """
+    x = _check_activation(x)
+    if not (x.ndim == 4 and w.ndim == 4 and tuple(w.shape[1:]) == (x.shape[-1], 3, 3)):
+        raise ValueError(
+            f"w must be (Cout, {x.shape[-1]}, 3, 3) for an NHWC x, got {tuple(w.shape)}")
+    a, b = (None, None) if ab is None else ab
+    return _FusedConvStats.apply(
+        x, a, b, w, relu and ab is not None, _use_kernel(impl, x), True)

@@ -2,9 +2,12 @@
 
 The port has one preset so far, `geodesic_bd` (learnGeodesicBDModel.py, the
 north-star configuration), with the fields its serving and training paths
-read, under the JAX names and defaults. Settings this slice does not port
+read, under the JAX names and defaults. Settings that are not ported yet
 raise NotImplementedError when the config is made, so none is ignored; the
 other presets raise until they are ported, in the order ROADMAP.md gives.
+
+`build_model` and `build_problem` place what they build on the card
+("cuda") unless the caller names another device, as `Trainer` does.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from multi_modal_regression_tpu_torch.models.backbones import FUSED_IMPLS
 from multi_modal_regression_tpu_torch.models.bin_delta import OneBinDeltaModel
 from multi_modal_regression_tpu_torch.train.problems import Problem, make_problem
 
@@ -28,7 +32,7 @@ _COMPUTE_DTYPES = {
 # optimizer_dtype -> Adam's mu_dtype (None: the parameters' own dtype)
 _MU_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
-# field -> the only value this slice runs (the JAX package's "off" value)
+# field -> the only value the port runs so far (the JAX package's "off" value)
 _NOT_PORTED = {
     "frozen_bn": False,
     "remat": None,
@@ -37,14 +41,13 @@ _NOT_PORTED = {
     "epoch_lr_decay": None,
     "train_only": None,
     "bn_train_only": None,
-    "fused_conv_bn": None,
 }
 
 
 @dataclasses.dataclass
 class ExperimentConfig:
     """The fields of the JAX ExperimentConfig that the serving and training
-    slices read, with the same names and defaults (except stem_pool and
+    paths read, with the same names and defaults (except stem_pool and
     fused_conv_bn, whose JAX default 'auto' resolves to off)."""
 
     preset: str = "geodesic_bd"
@@ -85,8 +88,11 @@ class ExperimentConfig:
     # stem tail: None | 'plain' | 'kernel' (the JAX package's None | 'xla' |
     # 'pallas'); see models/backbones.ResNetBackbone
     stem_pool: str | None = None
-    # not ported by this slice: setting any of them raises (ROADMAP.md)
+    # fused conv+BN bottleneck blocks in training: None | 'plain' | 'kernel'
+    # (the JAX package's None | 'xla' | 'pallas'); needs compute_dtype
+    # 'bfloat16'; see models/backbones.BottleneckBlock
     fused_conv_bn: str | None = None
+    # not ported yet: setting any of them raises (ROADMAP.md)
     frozen_bn: bool = False
     remat: str | None = None
     train_flip: bool = False
@@ -101,6 +107,17 @@ class ExperimentConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet; the "
                     f"port runs {name}={off!r} (see ROADMAP.md)"
+                )
+        if self.fused_conv_bn is not None:
+            if self.fused_conv_bn not in FUSED_IMPLS:
+                raise ValueError(
+                    f"fused_conv_bn must be None or one of {FUSED_IMPLS}, got "
+                    f"{self.fused_conv_bn!r}"
+                )
+            if self.compute_dtype != "bfloat16":
+                raise ValueError(
+                    "fused_conv_bn needs compute_dtype='bfloat16' (the fused "
+                    f"convs write bf16), got {self.compute_dtype!r}"
                 )
         if self.optimizer_dtype not in _MU_DTYPES:
             raise ValueError(
@@ -130,10 +147,11 @@ def resolve_compute_dtype(name: str) -> torch.dtype:
 
 
 def build_model(
-    cfg: ExperimentConfig, device: torch.device | str | None = None,
+    cfg: ExperimentConfig, device: torch.device | str = "cuda",
     param_dtype: torch.dtype | None = None,
 ) -> OneBinDeltaModel:
-    """The preset's model in eval mode, weights drawn from `cfg.seed`.
+    """The preset's model in eval mode on `device`, weights drawn from
+    `cfg.seed` (on the CPU, then moved).
 
     param_dtype None holds the weights in the compute dtype (serving: no
     per-call cast); training passes at least float32 for master weights,
@@ -145,13 +163,14 @@ def build_model(
         feature_network=cfg.feature_network, feature_layer=cfg.feature_layer,
         dtype=resolve_compute_dtype(cfg.compute_dtype),
         stem_pool=cfg.stem_pool, seed=cfg.seed, param_dtype=param_dtype,
+        fused_bn=cfg.fused_conv_bn,
     )
     return model.to(device)
 
 
 def build_problem(
     cfg: ExperimentConfig, dictionary: Any,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> Problem:
     """dictionary: a KMeansDictionary or raw (K, ndim) centers."""
     centers = np.asarray(getattr(dictionary, "cluster_centers", dictionary))

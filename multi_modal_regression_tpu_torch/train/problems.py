@@ -47,10 +47,10 @@ class Problem:
 
 
 def make_problem(
-    name: str, centers: np.ndarray, device: torch.device | str | None = None
+    name: str, centers: np.ndarray, device: torch.device | str = "cuda"
 ) -> Problem:
     """Build a Problem by name; `centers` is the (K, 3) axis-angle dictionary,
-    placed on `device` once."""
+    placed on `device` once (the card unless the caller asks for "cpu")."""
     if name != "geodesic":
         raise ValueError(
             f"problem {name!r} is not ported yet; the port has 'geodesic' "

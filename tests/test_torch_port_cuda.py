@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from multi_modal_regression_tpu_torch.data.loader import normalize_images
+from multi_modal_regression_tpu_torch.ops import fused_conv_bn as fcb
 from multi_modal_regression_tpu_torch.ops import preprocess, stem_pool
 from multi_modal_regression_tpu_torch.serving import make_inference_fn
 from multi_modal_regression_tpu_torch.train.presets import (
@@ -23,6 +24,7 @@ from multi_modal_regression_tpu_torch.train.presets import (
 )
 from multi_modal_regression_tpu_torch.train.state import TrainState
 from multi_modal_regression_tpu_torch.train.steps import make_train_step
+from multi_modal_regression_tpu_torch.train.trainer import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -211,3 +213,182 @@ def test_small_train_step_stem_kernel_matches_plain(dev):
     assert abs(lk - lp) <= 1e-5 * abs(lp)
     for k, w in gp.items():
         assert float((gk[k] - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
+
+
+# --- the fused conv+BN kernels -------------------------------------------------
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _assert_bf16_close(got, want, what):
+    """Kernel and plain version feed the same bf16 operands to their products
+    and differ in the order of the float32 accumulation only: at most 1 bf16
+    ulp apart, on under 1% of the elements. Elements below 1/64 of the
+    largest magnitude (sums that cancel) are held to the ulp at that floor."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    wf = want.float()
+    floor = 2.0**-6 * float(wf.abs().max())
+    u = torch.where(wf.abs() >= floor, _ulps(got, want), 0)
+    assert int(u.max()) <= 1, f"{what}: {int(u.max())} ulps"
+    d = torch.where(wf.abs() < floor, (got.float() - wf).abs(), 0.0)
+    assert float(d.max()) <= 2.0**-7 * floor, f"{what}: {float(d.max())} below the floor"
+    assert float((got != want).float().mean()) < 0.01, what
+
+
+def _assert_f32_close(got, want, what, tol=1e-3):
+    """float32 sums in another order: within 1e-3 of the largest magnitude."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    scale = max(float(want.abs().max()), 1e-30)
+    assert float((got - want).abs().max()) <= tol * scale, what
+
+
+def _fused_inputs(x_shape, w_shape, dev, seed, prologue):
+    rng = np.random.default_rng(seed)
+    k = x_shape[-1]
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(dev).bfloat16()
+    fan = float(np.prod(w_shape[1:]))
+    wb = torch.from_numpy((rng.standard_normal(w_shape) / np.sqrt(fan)).astype(np.float32))
+    wb = wb.to(dev).bfloat16()
+    ab = None
+    if prologue:
+        ab = torch.from_numpy(np.stack([
+            rng.uniform(0.5, 2.0, k), rng.standard_normal(k) * 0.3]).astype(np.float32)).to(dev)
+    y_shape = (*x_shape[:-1], w_shape[0])
+    gy = torch.from_numpy((rng.standard_normal(y_shape) * 0.1).astype(np.float32))
+    gs = torch.from_numpy((rng.standard_normal((2, w_shape[0])) * 0.01).astype(np.float32))
+    return x, wb, ab, gy.to(dev).bfloat16(), gs.to(dev)
+
+
+def _check_fused_pair(fwd, fwd_plain, bwd, bwd_plain, counters, x, wb, ab, gy, gs):
+    n0 = tuple(getattr(fcb, c) for c in counters)
+    y, s = fwd(x, wb, ab, ab is not None)
+    py, ps = fwd_plain(x, wb, ab, ab is not None)
+    _assert_bf16_close(y, py, "y")
+    # the sums are those of the kernel's own rounded y
+    _assert_f32_close(s, fcb._stats(y), "sums", tol=1e-5)
+    got = bwd(gy, gs, y, x, wb, ab, ab is not None)
+    again = bwd(gy, gs, y, x, wb, ab, ab is not None)
+    want = bwd_plain(gy, gs, y, x, wb, ab, ab is not None)
+    assert tuple(getattr(fcb, c) for c in counters) == (n0[0] + 1, n0[1] + 2)
+    _assert_bf16_close(got[0], want[0], "dx")
+    _assert_f32_close(got[1], want[1], "dw")
+    assert got[1].shape == wb.shape
+    if ab is None:
+        assert got[2] is None
+    else:
+        _assert_f32_close(got[2], want[2], "dab")
+    for g, a in zip(got, again):  # no atomics: two runs give the same bits
+        assert g is None or torch.equal(g, a)
+    y2, s2 = fwd(x, wb, ab, ab is not None)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("mkn", [(700, 64, 96), (129, 8, 24), (4096, 256, 64), (33, 136, 200)])
+def test_fused_mm_kernels(dev, mkn, prologue):
+    """Kernels #4 and #5 against their plain versions at small and ragged
+    shapes (M no multiple of 128 or 32; K and N multiples of 8 only)."""
+    m, k, n = mkn
+    args = _fused_inputs((m, k), (n, k), dev, sum(mkn), prologue)
+    _check_fused_pair(fcb._mm_stats, fcb._mm_plain, fcb._mm_stats_bwd, fcb._mm_bwd_plain,
+                      ("mm_launches", "mm_bwd_launches"), *args)
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("shape", [(2, 7, 9, 16, 32), (3, 14, 14, 64, 64), (1, 5, 5, 8, 8),
+                                   (5, 3, 11, 72, 24)])
+def test_fused_c3_kernels(dev, shape, prologue):
+    """Kernels #6 and #7 against their plain versions: odd H and W, images
+    whose seams fall inside a 128-pixel tile, a ragged last tile. With the
+    prologue, b > 0 on some channels, so padding before it would show."""
+    b, h, w, c, cout = shape
+    args = _fused_inputs((b, h, w, c), (cout, c, 3, 3), dev, sum(shape), prologue)
+    _check_fused_pair(fcb._c3_fwd, fcb._c3_plain, fcb._c3_bwd, fcb._c3_bwd_plain,
+                      ("c3_launches", "c3_bwd_launches"), *args)
+
+
+def test_fused_kernels_reject_what_they_do_not_take(dev):
+    x = torch.zeros((16, 12), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fcb.linear_stats(x, torch.zeros((8, 12), device=dev))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fcb.conv3x3_bn_stats(torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16, device=dev),
+                             torch.zeros((12, 8, 3, 3), device=dev))
+    x = torch.zeros((16, 16), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        fcb._mm_stats(x, torch.zeros((8, 16), dtype=torch.bfloat16, device=dev),
+                      torch.zeros((2, 16), dtype=torch.float64, device=dev), True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fcb._mm_stats(x, torch.zeros((8, 16), device=dev), None, False)
+
+
+def test_fused_ops_autograd_runs_the_kernels(dev):
+    """Through autograd, the 1x1 (strided, by its contiguous copy) and the
+    3x3 ops launch their forward and backward kernels once each and give the
+    plain path's gradients: dx within the ulp tolerance, the rest within
+    1e-3 of their largest magnitude."""
+    x, wb, ab, _, _ = _fused_inputs((2, 9, 8, 16), (32, 16, 3, 3), dev, 11, True)
+    w3 = wb.float()
+    w1 = w3[:, :, 1, 1].contiguous()
+
+    def run(impl):
+        leaves = [t.clone().requires_grad_() for t in (x, ab[0], ab[1], w3, w1)]
+        xx, a, b, w3_, w1_ = leaves
+        y1, s1 = fcb.conv1x1_bn_stats(xx, w1_, (a, b), stride=2, impl=impl)
+        y3, s3 = fcb.conv3x3_bn_stats(xx, w3_, (a, b), impl=impl)
+        (y1.float().pow(2).sum() + s1.pow(2).sum() * 1e-3 + y3.float().pow(2).sum()
+         + s3.sum()).backward()
+        return [t.grad for t in leaves]
+
+    n0 = (fcb.mm_launches, fcb.mm_bwd_launches, fcb.c3_launches, fcb.c3_bwd_launches)
+    got = run("kernel")
+    n1 = (fcb.mm_launches, fcb.mm_bwd_launches, fcb.c3_launches, fcb.c3_bwd_launches)
+    assert tuple(b - a for a, b in zip(n0, n1)) == (1, 1, 1, 1)
+    want = run("plain")
+    assert (fcb.mm_launches, fcb.mm_bwd_launches, fcb.c3_launches, fcb.c3_bwd_launches) == n1
+    scale = float(want[0].float().abs().max())
+    assert float((got[0].float() - want[0].float()).abs().max()) <= 2.0**-7 * scale
+    for g, w in zip(got[1:], want[1:]):
+        _assert_f32_close(g, w, "grad")
+
+
+def test_small_fused_train_step_kernel_matches_plain(dev):
+    """One bf16 warm-up step of a small geodesic_bd model (ResNet50 to layer4
+    at 64 px, 24 images, one stream) with fused_conv_bn='kernel' against
+    'plain' from the same weights: 36 1x1 and 13 3x3 launches each way; loss,
+    lc, lr within 5% (measured 0.4%, 0.5%, 0.1%). The two differ by 1-ulp
+    flips of each conv's output, carried through 49 convs and BNs over as
+    few as 96 elements per channel; the warm-up losses (CE, MSE) are smooth
+    in the outputs, while the main phase's Lr goes through the argmax
+    decode, where one flipped bin of 24 rows moved it by 6.7%."""
+    small = dict(N1=32, N2=16, dict_size=8, num_classes=3, image_size=64,
+                 compute_dtype="bfloat16", items_per_batch=8)
+    centers = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    rng = np.random.default_rng(2)
+    batch = {
+        "xdata": rng.integers(0, 256, (24, 64, 64, 3), np.uint8),
+        "euler": rng.uniform(-90, 90, (24, 3)).astype(np.float32),
+        "label": np.tile(np.arange(3), 8).astype(np.int32),
+    }
+    metrics, weights = {}, None
+    for impl in ("kernel", "plain"):
+        trainer = Trainer(get_config("geodesic_bd", fused_conv_bn=impl, **small),
+                          dictionary=centers, device=dev)
+        if weights is None:
+            weights = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        trainer.model.load_state_dict(weights)
+        n0 = (fcb.mm_launches, fcb.mm_bwd_launches, fcb.c3_launches, fcb.c3_bwd_launches)
+        _, m = trainer.train_step_fn("warmup")(trainer.init_state(), trainer._to_device(batch))
+        n1 = (fcb.mm_launches, fcb.mm_bwd_launches, fcb.c3_launches, fcb.c3_bwd_launches)
+        assert tuple(b - a for a, b in zip(n0, n1)) == (
+            (36, 36, 13, 13) if impl == "kernel" else (0, 0, 0, 0))
+        metrics[impl] = {k: float(v) for k, v in m.items()}
+    for k in ("loss", "lc", "lr"):
+        assert abs(metrics["kernel"][k] - metrics["plain"][k]) <= 0.05 * abs(metrics["plain"][k]), (
+            k, metrics)

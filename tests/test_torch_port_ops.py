@@ -209,6 +209,7 @@ def test_port_imports_without_nvcc_triton_or_jax():
         "       ('jax', 'flax', 'optax', 'orbax', 'triton', 'PIL',\n"
         "        'multi_modal_regression_tpu')]\n"
         "assert not bad, bad\n"
+        "assert pkg.__name__ + '.ops.fused_conv_bn' in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
     env["PATH"] = os.path.dirname(sys.executable)
@@ -226,7 +227,7 @@ def test_build_library_path_follows_the_sources():
     assert p.parent == REPO / "build" / "torch_kernels"
     assert p == _build.library_path()
     names = {s.name for s in _build.sources()}
-    assert {"normalize.cu", "stem_pool.cu"} <= names
+    assert {"normalize.cu", "stem_pool.cu", "fused_mm.cu", "fused_c3.cu"} <= names
     text = "".join(s.read_text() for s in _build.sources())
     for fn in _build._SIGNATURES:
         assert f'extern "C" int {fn}(' in text

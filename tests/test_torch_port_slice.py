@@ -61,7 +61,7 @@ def jax_side(tmp_path_factory):
 def _port_model(jax_side, **overrides):
     trainer, state, _ = jax_side
     cfg = get_config("geodesic_bd", **SMALL, **overrides)
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     model.load_state_dict(
         from_jax_variables(jax.device_get(state.params), state.batch_stats)
     )
@@ -137,7 +137,7 @@ def test_slice_matches_jax_serving(jax_side):
     want = np.asarray(jax.jit(jax_make_inference_fn(trainer, state))(images, labels))
 
     cfg, model = _port_model(jax_side)
-    problem = build_problem(cfg, KMeansDictionary.load(path))
+    problem = build_problem(cfg, KMeansDictionary.load(path), "cpu")
     got = make_inference_fn(model, problem)(images, labels)
     assert got.shape == (8, 3) and got.dtype == torch.float32
     assert preprocess.launches == 0
@@ -175,8 +175,8 @@ def test_bf16_slice_runs_on_cpu(jax_side):
     cfg16, m16 = _port_model(jax_side, compute_dtype="bfloat16", stem_pool="kernel")
     assert m16.feature_model.conv1.weight.dtype == torch.bfloat16
     assert m16.feature_model.bn1.running_var.dtype == torch.float32
-    p32 = make_inference_fn(m32, build_problem(cfg32, dictionary))(images, labels)
-    p16 = make_inference_fn(m16, build_problem(cfg16, dictionary))(images, labels)
+    p32 = make_inference_fn(m32, build_problem(cfg32, dictionary, "cpu"))(images, labels)
+    p16 = make_inference_fn(m16, build_problem(cfg16, dictionary, "cpu"))(images, labels)
     assert p16.shape == (BATCH, 3) and p16.dtype == torch.float32
     assert torch.isfinite(p16).all()
     with torch.no_grad():
@@ -191,7 +191,7 @@ def test_bf16_slice_runs_on_cpu(jax_side):
 
 def test_inputs_outside_the_contract_raise(jax_side):
     cfg, model = _port_model(jax_side)
-    problem = build_problem(cfg, np.zeros((8, 3), np.float32))
+    problem = build_problem(cfg, np.zeros((8, 3), np.float32), "cpu")
     infer = make_inference_fn(model, problem)
     images, labels, _ = _batch(5)
     with pytest.raises(ValueError, match="labels must be in"):
@@ -203,7 +203,7 @@ def test_inputs_outside_the_contract_raise(jax_side):
     with pytest.raises(NotImplementedError, match="augment"):
         make_eval_step(model, problem, resize_to=64)
     with pytest.raises(ValueError, match="dictionary"):
-        build_problem(cfg, np.zeros((5, 3), np.float32))
+        build_problem(cfg, np.zeros((5, 3), np.float32), "cpu")
     # eval is eval whatever mode the module was left in (the JAX eval step
     # always applies with train=False): a model in train mode serves the
     # eval-mode poses, updates no running statistic, and stays in train mode

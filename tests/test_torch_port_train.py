@@ -246,7 +246,7 @@ def test_geodesic_problem_matches_jax(phase):
     y = _poses(rng, 12)
     scores = rng.standard_normal((12, 8)).astype(np.float32)
     residual = (0.2 * rng.standard_normal((12, 3))).astype(np.float32)
-    port, ref = make_problem("geodesic", C), jax_make_problem("geodesic", C)
+    port, ref = make_problem("geodesic", C, "cpu"), jax_make_problem("geodesic", C)
     assert (port.warmup_balance, port.main_balance) == (ref.warmup_balance, ref.main_balance)
     tg, jtg = port.targets(torch.from_numpy(y)), ref.targets(jnp.asarray(y))
     np.testing.assert_array_equal(tg["bins"].numpy(), np.asarray(jtg["bins"]))
@@ -529,6 +529,12 @@ def test_build_optimizer_matches_optax(optimizer_dtype):
     dict(fused_conv_bn="kernel"),
 ])
 def test_unported_settings_raise(setting):
+    """Settings that are not ported raise NotImplementedError; fused_conv_bn
+    is ported but refuses the default float32 compute dtype."""
+    if "fused_conv_bn" in setting:
+        with pytest.raises(ValueError, match="bfloat16"):
+            get_config("geodesic_bd", **setting)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config("geodesic_bd", **setting)
 
