@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +21,18 @@ def pairwise_sqeuclidean(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y2 = torch.sum(y * y, dim=-1, keepdim=True).T
     d = x2 - 2.0 * (x @ y.T) + y2
     return torch.clamp(d, min=0.0)
+
+
+def get_gamma(centers) -> float:
+    """RBF bandwidth from a dictionary: 1 / (2 * min over atoms of the
+    distance-squared to its nearest other atom).
+
+    Used by the relaxed/soft-bin problems to pick the soft-assignment
+    temperature from the dictionary geometry (reference:
+    helperFunctions.get_gamma, helperFunctions.py:51-58). A (K, K) host
+    computation in float64, done once when a problem is built.
+    """
+    c = torch.as_tensor(np.asarray(centers, dtype=np.float64))
+    d = pairwise_sqeuclidean(c, c)
+    d.fill_diagonal_(float("inf"))
+    return float(1.0 / (2.0 * d.min()))

@@ -1,8 +1,10 @@
 """Loss primitives with the reference's reduction conventions.
 
-Port of the JAX package's losses/primitives.py, as far as the `geodesic`
-problem needs: cross-entropy averages over the batch, MSE over all
-elements, and the geodesic loss between axis-angle poses.
+Port of the JAX package's losses/primitives.py, as far as the ported
+problems need. Reductions matter for parity: cross-entropy averages over the
+batch, MSE and the KL divergence over ALL elements (the nn.KLDivLoss()
+default the reference relies on, not batchmean); and the geodesic loss
+between axis-angle poses.
 """
 
 from __future__ import annotations
@@ -18,6 +20,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.to(torch.int64)[..., None])[..., 0]
     return nll.mean()
+
+
+def kl_div_mean(log_pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """KL(target || softmax) given log-probabilities, mean over ALL elements.
+
+    Pointwise target * (log(target) - log_pred), with 0*log(0) := 0: the
+    nn.KLDivLoss(reduction='mean') convention used by every relaxed loss in
+    the reference (binDeltaLosses.py:75-106). Where target is 0 neither the
+    value nor the gradient sees log_pred.
+    """
+    safe = torch.clamp(target, min=1e-38)
+    pointwise = torch.where(
+        target > 0, target * (torch.log(safe) - log_pred), torch.zeros_like(log_pred)
+    )
+    return pointwise.mean()
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

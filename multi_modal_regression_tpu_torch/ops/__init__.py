@@ -15,5 +15,5 @@ tensor it launches its kernel (built by `_build` on first use) or raises.
 Each module counts its kernels' launches in module-level counters:
 `preprocess.launches`, `stem_pool.launches`, `stem_pool.bwd_launches`,
 `fused_conv_bn.mm_launches`, `mm_bwd_launches`, `c3_launches`,
-`c3_bwd_launches`.
+`c3_bwd_launches`, `assign.launches`.
 """

@@ -62,6 +62,8 @@ _SIGNATURES = {
     # gy, y, x, w9, gs, ab|null, dx, dw9, dab, partial_ab, partial_dw, ge, B, H,
     # W, C, Cout, relu, splits, rows_per_split, device, stream
     "mmr_c3_bwd": [_P] * 12 + [_I] * 9 + [_P],
+    # y, centers, out, N, D, K, device, stream
+    "mmr_assign": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
 }
 
 

@@ -1,10 +1,14 @@
 """Experiment presets (port of the JAX package's train/presets.py).
 
-The port has one preset so far, `geodesic_bd` (learnGeodesicBDModel.py, the
-north-star configuration), with the fields its serving and training paths
-read, under the JAX names and defaults. Settings that are not ported yet
-raise NotImplementedError when the config is made, so none is ignored; the
-other presets raise until they are ported, in the order ROADMAP.md gives.
+The ported presets (`PRESETS`): `geodesic_bd` (learnGeodesicBDModel.py, the
+north-star configuration), `probabilistic_bd` (learnProbabilisticBDModel.py,
+over a fitted GMM dictionary), `relaxed_bd` and `ablation_xbd`
+(ablationXBDModel.py, RBF soft bins over a kmeans dictionary), each with the
+JAX package's overrides, over a config that has the fields the serving and
+training paths read, under the JAX names and defaults. Settings that are not
+ported yet raise NotImplementedError when the config is made, so none is
+ignored; the other presets raise until they are ported, in the order
+ROADMAP.md gives.
 
 `build_model` and `build_problem` place what they build on the card
 ("cuda") unless the caller names another device, as `Trainer` does.
@@ -18,11 +22,11 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
+from multi_modal_regression_tpu_torch.dictionary.common import get_gamma
 from multi_modal_regression_tpu_torch.models.backbones import FUSED_IMPLS
 from multi_modal_regression_tpu_torch.models.bin_delta import OneBinDeltaModel
 from multi_modal_regression_tpu_torch.train.problems import Problem, make_problem
-
-PORTED_PRESETS = ("geodesic_bd",)
+from multi_modal_regression_tpu_torch.train.schedules import EPOCH_LR_FACTORS
 
 # 'float64' exists for the parity tests against the JAX package's x64
 # harness (on CPU tensors; the kernels take float32 and bfloat16)
@@ -38,7 +42,6 @@ _NOT_PORTED = {
     "remat": None,
     "train_flip": False,
     "device_resize_from": None,
-    "epoch_lr_decay": None,
     "train_only": None,
     "bn_train_only": None,
 }
@@ -65,6 +68,9 @@ class ExperimentConfig:
     reset_s_between_phases: bool = True  # s = 0 before the main phase
     alpha: float = 1.0  # fixed main-phase Lr weight when self-balance is off
     warmup_alpha: float = 1.0  # fixed warm-up Lr weight
+    # RBF soft-bin width; None -> derived from the dictionary geometry via
+    # get_gamma (the ablationXBDModel.py:61-62 protocol)
+    gamma: float | None = 10.0
     # two loaders (real, render): per-stream BN statistics, two running-stat
     # updates per step, real first (learnGeodesicBDModel.py:116-121)
     bn_per_stream: bool = True
@@ -72,6 +78,11 @@ class ExperimentConfig:
     loss_stream_sum: bool = False  # loss_real + loss_render (= 2 x concat mean)
     # optimization (learnGeodesicBDModel.py:41-42,96)
     init_lr: float = 1e-4
+    # per-epoch LR decay applied before each MAIN epoch, the reference's
+    # scheduler.step()-before-training() pattern (main epoch e runs at
+    # init_lr * factor(e+1); warm-up passes at factor(0)=1): 'objectnet' |
+    # 'step' | 'inv' (train/schedules.py); None = constant lr
+    epoch_lr_decay: str | None = None
     lr_scaling: str = "none"  # 'none' | 'linear' | 'sqrt' in items_per_batch
     lr_scaling_base_items: int = 8
     num_warmup_epochs: int = 1
@@ -97,7 +108,6 @@ class ExperimentConfig:
     remat: str | None = None
     train_flip: bool = False
     device_resize_from: int | None = None
-    epoch_lr_decay: str | None = None
     train_only: tuple[str, ...] | None = None
     bn_train_only: tuple[str, ...] | None = None
 
@@ -108,6 +118,11 @@ class ExperimentConfig:
                     f"{name}={getattr(self, name)!r} is not ported yet; the "
                     f"port runs {name}={off!r} (see ROADMAP.md)"
                 )
+        if self.epoch_lr_decay is not None and self.epoch_lr_decay not in EPOCH_LR_FACTORS:
+            raise ValueError(
+                f"unknown epoch_lr_decay {self.epoch_lr_decay!r}; "
+                f"available: {sorted(EPOCH_LR_FACTORS)}"
+            )
         if self.fused_conv_bn is not None:
             if self.fused_conv_bn not in FUSED_IMPLS:
                 raise ValueError(
@@ -129,13 +144,46 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
+# The ported presets with the JAX package's overrides (its PRESETS table).
+# Every one of them is the JAX model_kind 'one_bin_delta', the one model the
+# port has, so the port's config carries no model_kind field.
+PRESETS: dict[str, dict] = {
+    # learnGeodesicBDModel.py: the north-star config
+    "geodesic_bd": dict(problem="geodesic"),
+    # learnProbabilisticBDModel.py (GMM soft bins, expected loss)
+    "probabilistic_bd": dict(
+        problem="probabilistic",
+        num_warmup_epochs=0,  # single-phase (learnProbabilisticBDModel.py:106)
+        epoch_lr_decay="step",  # StepLR(1, 0.1) stepped at :204
+    ),
+    # ablationXBDModel.py (RBF-relaxed soft bins)
+    "relaxed_bd": dict(
+        problem="relaxed_kmeans",
+        self_balance=False,  # fixed-alpha criteria, ablationXBDModel.py:67-69
+        epoch_lr_decay="step",  # ablationXBDModel.py:96,218
+        loss_stream_sum=True,  # loss_real + loss_render, ablationXBDModel.py:120
+    ),
+    # ablationXBDModel.py: relaxed soft bins with data-driven gamma
+    # (get_gamma over the dictionary, ablationXBDModel.py:61-62)
+    "ablation_xbd": dict(
+        problem="relaxed_kmeans", gamma=None,
+        dict_size=100,  # ablationXBDModel.py:34 (not the usual 200)
+        self_balance=False,  # fixed-alpha criteria, ablationXBDModel.py:67-69
+        epoch_lr_decay="step",  # ablationXBDModel.py:96,218
+        loss_stream_sum=True,  # loss_real + loss_render, ablationXBDModel.py:120
+    ),
+}
+
+
 def get_config(preset: str, **overrides) -> ExperimentConfig:
-    if preset not in PORTED_PRESETS:
+    if preset not in PRESETS:
         raise ValueError(
             f"preset {preset!r} is not ported yet; the port has "
-            f"{list(PORTED_PRESETS)} (see ROADMAP.md for the order of the rest)"
+            f"{sorted(PRESETS)} (see ROADMAP.md for the order of the rest)"
         )
-    return ExperimentConfig(preset=preset, **overrides)
+    base = dict(PRESETS[preset])
+    base.update(overrides)
+    return ExperimentConfig(preset=preset, **base)
 
 
 def resolve_compute_dtype(name: str) -> torch.dtype:
@@ -172,14 +220,31 @@ def build_problem(
     cfg: ExperimentConfig, dictionary: Any,
     device: torch.device | str = "cuda",
 ) -> Problem:
-    """dictionary: a KMeansDictionary or raw (K, ndim) centers."""
-    centers = np.asarray(getattr(dictionary, "cluster_centers", dictionary))
+    """dictionary: a GMMDictionary (its means are the atoms), a
+    KMeansDictionary or raw (K, ndim) centers. cfg.gamma None resolves to
+    `get_gamma` of the atoms."""
+    gmm_kw: dict = {}
+    if hasattr(dictionary, "means"):  # GMM
+        gmm_kw = dict(
+            gmm_means=dictionary.means,
+            gmm_covariances=dictionary.covariances,
+            gmm_weights=dictionary.weights,
+        )
+        centers = np.asarray(dictionary.means)
+    else:
+        centers = np.asarray(getattr(dictionary, "cluster_centers", dictionary))
     if centers.shape != (cfg.dict_size, cfg.ndim):
         raise ValueError(
             f"dictionary has shape {centers.shape}, the config expects "
             f"({cfg.dict_size}, {cfg.ndim})"
         )
-    problem = make_problem(cfg.problem, centers, device)
+    if cfg.problem == "probabilistic" and not gmm_kw:
+        raise ValueError(
+            "the probabilistic problem needs a GMMDictionary (means, "
+            "covariances, weights); fit one with dictionary.fit_gmm"
+        )
+    gamma = get_gamma(centers) if cfg.gamma is None else cfg.gamma
+    problem = make_problem(cfg.problem, centers, device, gamma=gamma, **gmm_kw)
     if not cfg.self_balance:
         problem = dataclasses.replace(
             problem, warmup_balance=None, main_balance=None
@@ -283,8 +348,10 @@ class Adam(torch.optim.Optimizer):
 def build_optimizer(cfg: ExperimentConfig, params: Iterable) -> Adam:
     """Adam at scaled_lr(cfg), b1 0.9, b2 0.999, eps 1e-8, first moment in
     bfloat16 for cfg.optimizer_dtype 'bfloat16', else in the parameters'
-    dtype (the JAX build_optimizer without the unported train_only masking
-    and epoch lr decay, which the config refuses)."""
+    dtype (the JAX build_optimizer without the unported train_only masking,
+    which the config refuses). The rate is the optimizer's `lr` of each
+    param group, which `Trainer.apply_epoch_lr` sets per main epoch under
+    cfg.epoch_lr_decay; the moments are untouched by that."""
     return Adam(
         params, scaled_lr(cfg), mu_dtype=_MU_DTYPES[cfg.optimizer_dtype]
     )

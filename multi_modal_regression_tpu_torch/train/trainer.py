@@ -1,5 +1,5 @@
 """The Trainer: warm-up and main phases of steps (port of the JAX package's
-train/trainer.py, as far as the geodesic_bd training path needs).
+train/trainer.py, as far as the ported presets' training paths need).
 
 Each step consumes one real batch and one render batch, concatenated (the
 reference zips two DataLoaders, learnGeodesicBDModel.py:160-173). Loaders
@@ -26,7 +26,9 @@ from multi_modal_regression_tpu_torch.train.presets import (
     build_optimizer,
     build_problem,
     resolve_compute_dtype,
+    scaled_lr,
 )
+from multi_modal_regression_tpu_torch.train.schedules import epoch_lr_factor
 from multi_modal_regression_tpu_torch.train.state import TrainState
 from multi_modal_regression_tpu_torch.train.steps import (
     make_train_step,
@@ -113,13 +115,35 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Step 0, s = 0, the trainer's model (weights as built from
-        cfg.seed or as loaded since) and its optimizer with no moments.
-        Unlike the JAX init_state, the weights are not drawn again."""
+        cfg.seed or as loaded since) and its optimizer with no moments,
+        at the base rate scaled_lr(cfg). Unlike the JAX init_state, the
+        weights are not drawn again."""
         self.optimizer.state.clear()
+        self._set_lr(scaled_lr(self.config))
         return TrainState(
             step=0, model=self.model, optimizer=self.optimizer,
             s=init_log_balance(self.device),
         )
+
+    def _set_lr(self, lr: float) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+
+    def apply_epoch_lr(self, state: TrainState, epoch: int) -> TrainState:
+        """Set the MAIN-epoch learning rate (cfg.epoch_lr_decay: 'objectnet'
+        | 'step' | 'inv', see schedules.EPOCH_LR_FACTORS). Every stepping
+        reference script calls scheduler.step() BEFORE each training() epoch
+        (learnObjectnetBDModel.py:190, learnGeodesicRegressionModel.py:234,
+        learnCategorizationModel.py:118), so main epoch e (0-based) runs at
+        scaled_lr * factor(e+1); the warm-up pass before the epoch loop ran
+        at factor(0)=1. The rate is a host scalar in the optimizer's param
+        groups, read by each step: Adam's moments are untouched."""
+        if state.optimizer is not self.optimizer:
+            raise ValueError("the state holds another optimizer than this trainer")
+        self._set_lr(
+            scaled_lr(self.config) * epoch_lr_factor(self.config.epoch_lr_decay, epoch + 1)
+        )
+        return state
 
     def _to_device(self, batch: dict) -> dict:
         return {
@@ -135,7 +159,8 @@ class Trainer:
         """One pass over the zipped loaders (at most cfg.max_iterations
         steps). Steps 1, log_every, 2*log_every, ... are logged: one
         device-to-host fetch of the step's metrics each, printed and
-        appended to self.history; no other step waits for the device."""
+        appended to self.history with the learning rate the step ran at; no
+        other step waits for the device."""
         _no_test_loader(test_loader)
         cfg = self.config
         use_dual = render_loader is not None and cfg.bn_per_stream
@@ -154,6 +179,7 @@ class Trainer:
                 rec = {
                     "step": state.step, "phase": phase, **m,
                     "train_loss": m["loss"],
+                    "learning_rate": self.optimizer.param_groups[0]["lr"],
                     "images_per_sec": images_done / max(time.time() - t0, 1e-9),
                 }
                 print(
@@ -173,7 +199,8 @@ class Trainer:
     ) -> TrainState:
         """cfg.num_warmup_epochs warm-up epochs, s reset to 0 when
         cfg.reset_s_between_phases (learnGeodesicBDModel.py:240), then
-        cfg.num_epochs main epochs."""
+        cfg.num_epochs main epochs, each at its own learning rate under
+        cfg.epoch_lr_decay."""
         _no_test_loader(test_loader)
         cfg = self.config
         for _ in range(cfg.num_warmup_epochs):
@@ -182,7 +209,9 @@ class Trainer:
             )
         if cfg.reset_s_between_phases:
             state = state.replace(s=init_log_balance(self.device))
-        for _ in range(cfg.num_epochs):
+        for epoch in range(cfg.num_epochs):
+            if cfg.epoch_lr_decay is not None:
+                state = self.apply_epoch_lr(state, epoch)
             state = self.run_epoch(
                 state, real_loader, render_loader, "main", log_every=log_every
             )

@@ -14,6 +14,9 @@ import pytest
 import torch
 
 from multi_modal_regression_tpu_torch.data.loader import normalize_images
+from multi_modal_regression_tpu_torch.dictionary.gmm import fit_gmm
+from multi_modal_regression_tpu_torch.dictionary.kmeans import fit_kmeans
+from multi_modal_regression_tpu_torch.ops import assign
 from multi_modal_regression_tpu_torch.ops import fused_conv_bn as fcb
 from multi_modal_regression_tpu_torch.ops import preprocess, stem_pool
 from multi_modal_regression_tpu_torch.serving import make_inference_fn
@@ -392,3 +395,79 @@ def test_small_fused_train_step_kernel_matches_plain(dev):
     for k in ("loss", "lc", "lr"):
         assert abs(metrics["kernel"][k] - metrics["plain"][k]) <= 0.05 * abs(metrics["plain"][k]), (
             k, metrics)
+
+
+# --- the assign kernel and the dictionary path -----------------------------------
+
+
+@pytest.mark.parametrize("n,d,k", [(257, 3, 16), (100_003, 4, 200), (5000, 1, 7),
+                                   (4096, 2, 3000), (70_000, 3, 200)])
+def test_assign_kernel_equals_plain(dev, n, d, k):
+    """Equal indices (both sides round each product and sum on its own, in
+    the same order), int32, one launch counted per call, two runs equal."""
+    rng = np.random.default_rng(n + d + k)
+    y = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32)).to(dev)
+    before = assign.launches
+    got = assign.assign_bins(y, c)
+    assert assign.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n,) and not got.requires_grad
+    assert torch.equal(got, assign.assign_bins_plain(y, c))
+    assert torch.equal(got, assign.assign_bins(y, c))
+
+
+def test_assign_kernel_ties_nan_casts_and_refusals(dev):
+    """Duplicate centers -> the lower index; a NaN row -> index 0; a NaN
+    center -> every row; float64 and strided inputs are cast and copied;
+    N = 0 launches nothing; D > 4 and centers beyond shared memory raise."""
+    rng = np.random.default_rng(1)
+    y = torch.from_numpy(rng.standard_normal((512, 3)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal((40, 3)).astype(np.float32)).to(dev)
+    c[30:35] = c[0:5]
+    y[:5] = c[:5]
+    y[9, 2] = float("nan")
+    got = assign.assign_bins(y, c)
+    assert torch.equal(got, assign.assign_bins_plain(y, c))
+    assert got[:5].tolist() == [0, 1, 2, 3, 4] and int(got[9]) == 0
+    assert torch.equal(assign.assign_bins(y.double(), c.double()), got)
+    wide = torch.cat([y, y], dim=1)[:, ::2]
+    assert not wide.is_contiguous()
+    assert torch.equal(assign.assign_bins(wide, c), assign.assign_bins(wide.contiguous(), c))
+    c[20, 0] = float("nan")
+    got = assign.assign_bins(y, c)
+    assert torch.equal(got, assign.assign_bins_plain(y, c))
+    assert int((got == 20).sum()) == 511 and int(got[9]) == 0
+    before = assign.launches
+    assert assign.assign_bins(y[:0], c).shape == (0,)
+    assert assign.launches == before
+    with pytest.raises(ValueError, match="D <= 4"):
+        assign.assign_bins(torch.zeros((4, 5), device=dev), torch.zeros((3, 5), device=dev))
+    with pytest.raises(ValueError, match="D <= 4"):
+        assign.assign_bins(torch.zeros((4, 3), device=dev), torch.zeros((4000, 3), device=dev))
+    with pytest.raises(ValueError, match="centers on"):
+        assign.assign_bins(y, c.cpu())
+
+
+def test_dictionary_fits_on_the_card(dev):
+    """fit_kmeans on planted blobs on the card: the blobs recovered, the
+    kernel launched n_init * (num_iters + 1) times, predict (default device)
+    equal to the nearest center, two fits from one seed bit-equal; fit_gmm
+    recovers the same blobs."""
+    rng = np.random.default_rng(2)
+    centers = rng.uniform(-2, 2, (4, 3))
+    pts = (centers[np.repeat(np.arange(4), 500)]
+           + 0.05 * rng.standard_normal((2000, 3))).astype(np.float32)
+    before = assign.launches
+    d = fit_kmeans(pts, 4, seed=0, n_init=2, num_iters=8)
+    assert assign.launches == before + 2 * 9
+    dist = np.linalg.norm(centers[:, None] - d.cluster_centers[None], axis=-1)
+    assert np.all(dist.min(axis=1) < 0.1)
+    bins = d.predict(pts)
+    full = np.linalg.norm(pts[:, None] - d.cluster_centers[None], axis=-1)
+    np.testing.assert_array_equal(bins, full.argmin(axis=1))
+    again = fit_kmeans(pts, 4, seed=0, n_init=2, num_iters=8)
+    np.testing.assert_array_equal(again.cluster_centers, d.cluster_centers)
+    g = fit_gmm(pts, 4, seed=0, n_init=1, num_iters=20)
+    dist = np.linalg.norm(centers[:, None] - g.means[None], axis=-1)
+    assert np.all(dist.min(axis=1) < 0.1)
+    np.testing.assert_allclose(g.predict_proba(pts).sum(axis=1), 1.0, atol=1e-5)

@@ -345,7 +345,11 @@ def test_kmeans_dictionary_reads_jax_npz(tmp_path):
     d = KMeansDictionary.load(tmp_path / "d.npz")
     assert d.n_clusters == 200 and d.inertia == 1.5
     np.testing.assert_array_equal(d.cluster_centers, centers)
-    assert not hasattr(d, "predict")  # arrives with the assignment kernel
+    # predict arrived with the assignment kernel: the JAX class's bins
+    y = rng.standard_normal((64, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        d.predict(y, device="cpu"), JaxKMeansDictionary.load(tmp_path / "d.npz").predict(y)
+    )
     d.save(tmp_path / "e.npz")
     np.testing.assert_array_equal(
         JaxKMeansDictionary.load(tmp_path / "e.npz").cluster_centers, centers

@@ -524,16 +524,22 @@ def test_build_optimizer_matches_optax(optimizer_dtype):
 
 @pytest.mark.parametrize("setting", [
     dict(frozen_bn=True), dict(remat="block"), dict(train_flip=True),
-    dict(device_resize_from=256), dict(epoch_lr_decay="step"),
+    dict(device_resize_from=256), dict(epoch_lr_decay="cosine"),
     dict(train_only=("res_models",)), dict(bn_train_only=("res_models",)),
     dict(fused_conv_bn="kernel"),
 ])
 def test_unported_settings_raise(setting):
     """Settings that are not ported raise NotImplementedError; fused_conv_bn
-    is ported but refuses the default float32 compute dtype."""
+    is ported but refuses the default float32 compute dtype; epoch_lr_decay
+    is ported ('objectnet' | 'step' | 'inv') and refuses any other kind."""
     if "fused_conv_bn" in setting:
         with pytest.raises(ValueError, match="bfloat16"):
             get_config("geodesic_bd", **setting)
+        return
+    if "epoch_lr_decay" in setting:
+        with pytest.raises(ValueError, match="unknown epoch_lr_decay"):
+            get_config("geodesic_bd", **setting)
+        assert get_config("geodesic_bd", epoch_lr_decay="step").epoch_lr_decay == "step"
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_config("geodesic_bd", **setting)
