@@ -36,12 +36,18 @@ line each (or more), in order:
      plain stem on the same normalized batch: loss within 1e-4 relative,
      every gradient leaf within 1e-3 of its largest magnitude
   3c fused 1x1 conv kernels (forward with BN prologue and statistics
-     epilogue, backward) vs their plain versions, bf16, at the ResNet50
-     trunk's shapes for a 48-image stream and one ragged M: y and dx at most
-     1 bf16 ulp apart on under 1% of the elements, sums, dw, da, db within
-     FUSED_F32_TOL of their largest magnitude; two runs bit-equal; times
-  3d fused 3x3 conv kernels likewise at (48,56,56,64) ... (48,7,7,512) and
-     one small odd-sized shape, with and without the prologue
+     epilogue, backward) vs their plain versions, bf16, at all 16 shapes
+     that a fused step gives them (tools/time_fused.MM_SHAPES: M 150528 ...
+     2352 of a 48-image stream) and one ragged M: y and dx at most 1 bf16
+     ulp apart on under 1% of the elements, sums, dw, da, db within
+     FUSED_F32_TOL of their largest magnitude; two runs bit-equal; kernel
+     times at every shape (plain versions at four of them), the bf16
+     products alone through torch.matmul as a yardstick, and the step sums
+     (time x calls over a step) against their bounds
+  3d fused 3x3 conv kernels likewise at the 4 stride-1 shapes
+     (48,56,56,64) ... (48,7,7,512) with the prologue (products alone:
+     torch.nn.grad.conv2d_input + conv2d_weight) and one small odd-sized
+     shape with and without it
   6  fused training: Trainer.fit of the same preset with
      fused_conv_bn='kernel' for 2 + 2 steps; per step exactly 1 normalize,
      2 stem forward, 2 stem backward, 72 fused 1x1 forward, 72 backward, 26
@@ -81,8 +87,10 @@ With --profile, [6] also prints the device-time table (torch.profiler) of 3
 fused and 3 unfused main steps.
 
 Times are CUDA-event medians over 30 runs (plain versions of the fused and
-assign kernels: 10) with the 50 MB L2 flushed before each, or host-clock medians of
-requests or steps that end in a synchronize.
+assign kernels: 10) with the 50 MB L2 flushed before each and the device
+held asleep while the host enqueues the run (device time, not the host's
+gaps between launches), or host-clock medians of requests or steps that end
+in a synchronize.
 """
 
 from __future__ import annotations
@@ -119,6 +127,11 @@ from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
     stem_pool,
 )
 from multi_modal_regression_tpu_torch.serving import make_inference_fn  # noqa: E402
+from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
+    C3_SHAPES,
+    MM_SHAPES,
+    SLEEP_CYCLES,
+)
 from multi_modal_regression_tpu_torch.train import steps  # noqa: E402
 from multi_modal_regression_tpu_torch.train.presets import (  # noqa: E402
     build_model,
@@ -196,12 +209,14 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
 
 
 def cuda_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
-    """Median device time of fn() in ms, L2 flushed before each run."""
+    """Median device time of fn() in ms: the L2 flushed before each run and
+    the device held asleep while the host enqueues fn (SLEEP_CYCLES)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)  # the device waits while the host enqueues fn
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -419,10 +434,11 @@ def f32_close(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float = FUSE
     return err
 
 
-def check_fused(tag, fns, x, wb, ab, gy, gs, flush) -> tuple[dict, dict]:
+def check_fused(tag, fns, x, wb, ab, gy, gs, flush,
+                time_plain=True) -> tuple[dict, dict, torch.Tensor]:
     """One fused conv's forward and backward kernels against their plain
     versions on the same inputs; returns their (forward, backward) records
-    without the bounds."""
+    without the bounds, and y. time_plain False: no plain timings."""
     fwd, fwd_plain, bwd, bwd_plain = fns
     relu = ab is not None
     y, s = fwd(x, wb, ab, relu)
@@ -430,28 +446,52 @@ def check_fused(tag, fns, x, wb, ab, gy, gs, flush) -> tuple[dict, dict]:
     y_err = bf16_close(f"{tag} y", y, py)
     f32_close(f"{tag} sums vs its own y", s, fused_conv_bn._stats(y), 1e-5)
     s_err = f32_close(f"{tag} sums", s, ps)
+    del py, ps
     got = bwd(gy, gs, y, x, wb, ab, relu)
     want = bwd_plain(gy, gs, y, x, wb, ab, relu)
     dx_err = bf16_close(f"{tag} dx", got[0], want[0])
     dw_err = f32_close(f"{tag} dw", got[1], want[1])
     dab_err = f32_close(f"{tag} da, db", got[2], want[2]) if relu else 0.0
+    del want
     again = (fwd(x, wb, ab, relu), bwd(gy, gs, y, x, wb, ab, relu))
     torch.cuda.synchronize()
     for u, v in zip((y, s, *got), (*again[0], *again[1])):
         if u is not None and not torch.equal(u, v):
             raise AssertionError(f"{tag}: two runs differ")
+    del got, again
     ms = cuda_ms(lambda: fwd(x, wb, ab, relu), flush)
-    plain_ms = cuda_ms(lambda: fwd_plain(x, wb, ab, relu), flush, 10)
     bwd_ms = cuda_ms(lambda: bwd(gy, gs, y, x, wb, ab, relu), flush)
-    bwd_plain_ms = cuda_ms(lambda: bwd_plain(gy, gs, y, x, wb, ab, relu), flush, 10)
+    plain_ms = bwd_plain_ms = None
+    if time_plain:
+        plain_ms = cuda_ms(lambda: fwd_plain(x, wb, ab, relu), flush, 10)
+        bwd_plain_ms = cuda_ms(lambda: bwd_plain(gy, gs, y, x, wb, ab, relu), flush, 10)
+    plain = (f"plain {plain_ms:.4f} ms", f"plain {bwd_plain_ms:.4f} ms") if time_plain else (
+        "plain not timed here", "plain not timed here")
     print(
         f"{tag}: y max err {y_err:.3g} (<= 1 ulp, < 1% differ), sums {s_err:.2g}, dx max err "
         f"{dx_err:.3g}, dw {dw_err:.2g}, da/db {dab_err:.2g} of max (<= {FUSED_F32_TOL:g}); "
-        f"two runs bit-equal; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; backward "
-        f"kernel {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms"
+        f"two runs bit-equal; forward kernel {ms:.4f} ms, {plain[0]}; backward "
+        f"kernel {bwd_ms:.4f} ms, {plain[1]}"
     )
     return ({"max_abs_err": y_err, "ms": ms, "plain_ms": plain_ms},
-            {"max_abs_err": dx_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms})
+            {"max_abs_err": dx_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms}, y)
+
+
+def products_ms(is_3x3: bool, x, wb, ab, gy, gs, y, flush) -> float:
+    """A yardstick, used nowhere in the port: the backward's two bf16
+    products alone, one library call each (torch.matmul for the 1x1,
+    torch.nn.grad.conv2d_input and conv2d_weight for the 3x3), on gy_eff and
+    xhat formed beforehand. Not the same function: no gy_eff, prologue,
+    mask, da or db."""
+    ge = fused_conv_bn._gy_eff(gy, y, gs)
+    _, xh = fused_conv_bn._prologue(x, ab, ab is not None)
+    if is_3x3:
+        gn, xn = ge.permute(0, 3, 1, 2), xh.permute(0, 3, 1, 2)
+        return cuda_ms(lambda: (
+            torch.nn.grad.conv2d_input(xn.shape, wb, gn, padding=1),
+            torch.nn.grad.conv2d_weight(xn, wb.shape, gn, padding=1)), flush)
+    g2, x2 = ge.reshape(-1, ge.shape[-1]), xh.reshape(-1, xh.shape[-1])
+    return cuda_ms(lambda: (torch.matmul(g2, wb), torch.matmul(g2.t(), x2)), flush)
 
 
 def fused_inputs(x_shape, w_shape, prologue, dev, gen):
@@ -485,48 +525,64 @@ def fused_bounds(m: int, k_taps: int, k: int, n: int, prologue: bool) -> tuple[d
     return fwd, bwd
 
 
-def phase_fused_mm(dev, flush) -> tuple[dict, dict]:
-    gen = torch.Generator(device=dev).manual_seed(5)
-    fns = (fused_conv_bn._mm_stats, fused_conv_bn._mm_plain,
-           fused_conv_bn._mm_stats_bwd, fused_conv_bn._mm_bwd_plain)
+def step_line(tag: str, calls: int, step: dict) -> None:
+    print(f"{tag} step sums over {calls} calls a fused step (ms x calls): forward kernel "
+          f"{step['fwd']:.4f} ms against its bound {step['fwd_bound']:.4f} ms; backward kernel "
+          f"{step['bwd']:.4f} ms against {step['bwd_bound']:.4f} ms; backward products only "
+          f"(library yardstick) {step['products']:.4f} ms")
+
+
+def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
+    """[3c] (1x1) or [3d] (3x3): every main-path shape, then the ragged or
+    odd shapes; returns the (forward, backward) records of the table shape
+    with the step sums."""
+    if is_3x3:
+        gen = torch.Generator(device=dev).manual_seed(6)
+        fns = (fused_conv_bn._c3_fwd, fused_conv_bn._c3_plain,
+               fused_conv_bn._c3_bwd, fused_conv_bn._c3_bwd_plain)
+        # (x shape, cout, prologue, calls, time plain): the 4 stride-1 shapes,
+        # and a small one with odd H, W and image seams inside a 128-pixel tile
+        jobs = [(shape, shape[-1], True, calls, True) for shape, calls in C3_SHAPES]
+        jobs += [((3, 13, 11, 24), 40, pro, 0, True) for pro in (True, False)]
+        table = ((48, 56, 56, 64), True)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(5)
+        fns = (fused_conv_bn._mm_stats, fused_conv_bn._mm_plain,
+               fused_conv_bn._mm_stats_bwd, fused_conv_bn._mm_bwd_plain)
+        timed = {(150528, 256, 64, False), (150528, 64, 256, True), (2352, 512, 2048, True),
+                 (2352, 2048, 512, False)}  # plain versions timed at these only
+        jobs = [((m, k), n, pro, calls, (m, k, n, pro) in timed)
+                for m, k, n, pro, calls in MM_SHAPES]
+        jobs.append(((9413, 264), 1000, True, 0, True))  # ragged M, K and N no multiples of 64
+        table = ((150528, 64), True)
+    label = "[3d] fused 3x3" if is_3x3 else "[3c] fused 1x1"
+    step = dict.fromkeys(("fwd", "bwd", "fwd_bound", "bwd_bound", "products"), 0.0)
     recs = None
-    # (M, K, N, prologue): layer1 conv1 and conv3, layer4 conv3 and conv1 of
-    # a 48-image stream, and a ragged M with K, N no multiples of 64
-    for m, k, n, pro in ((150528, 256, 64, False), (150528, 64, 256, True),
-                         (2352, 512, 2048, True), (2352, 2048, 512, False),
-                         (9413, 264, 1000, True)):
-        args = fused_inputs((m, k), (n, k), pro, dev, gen)
-        tag = f"[3c] fused 1x1 ({m}, {k} -> {n}){' prologue' if pro else ''}"
-        fwd, bwd = check_fused(tag, fns, *args, flush)
-        bf, bb = fused_bounds(m, 1, k, n, pro)
+    for x_shape, n, pro, calls, time_plain in jobs:
+        w_shape = (n, x_shape[-1], 3, 3) if is_3x3 else (n, x_shape[-1])
+        args = fused_inputs(x_shape, w_shape, pro, dev, gen)
+        tag = f"{label} ({', '.join(map(str, x_shape))} -> {n}){' prologue' if pro else ''}"
+        fwd, bwd, y = check_fused(tag, fns, *args, flush, time_plain)
+        m = 1
+        for d in x_shape[:-1]:
+            m *= d
+        bf, bb = fused_bounds(m, 9 if is_3x3 else 1, x_shape[-1], n, pro)
+        prod = products_ms(is_3x3, *args, y, flush)
         print(f"{tag}: bound forward {bf['bound_ms']:.4f} ms ({bf['bound_by']}), backward "
-              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']})")
-        if (m, k, n) == (150528, 64, 256):
-            recs = ({**fwd, **bf}, {**bwd, **bb})
-        del args
-    return recs
-
-
-def phase_fused_c3(dev, flush) -> tuple[dict, dict]:
-    gen = torch.Generator(device=dev).manual_seed(6)
-    fns = (fused_conv_bn._c3_fwd, fused_conv_bn._c3_plain,
-           fused_conv_bn._c3_bwd, fused_conv_bn._c3_bwd_plain)
-    recs = None
-    # the four stride-1 3x3 shapes of a 48-image stream, and a small one with
-    # odd H, W and image seams inside a 128-pixel tile
-    for b, h, w, c, cout in ((48, 56, 56, 64, 64), (48, 28, 28, 128, 128), (48, 14, 14, 256, 256),
-                             (48, 7, 7, 512, 512), (3, 13, 11, 24, 40)):
-        for pro in (True, False):
-            args = fused_inputs((b, h, w, c), (cout, c, 3, 3), pro, dev, gen)
-            tag = f"[3d] fused 3x3 ({b}, {h}, {w}, {c} -> {cout}){' prologue' if pro else ''}"
-            fwd, bwd = check_fused(tag, fns, *args, flush)
-            bf, bb = fused_bounds(b * h * w, 9, c, cout, pro)
-            print(f"{tag}: bound forward {bf['bound_ms']:.4f} ms ({bf['bound_by']}), backward "
-                  f"{bb['bound_ms']:.4f} ms ({bb['bound_by']})")
-            if (h, c, pro) == (56, 64, True):
-                recs = ({**fwd, **bf}, {**bwd, **bb})
-            del args
-    return recs
+              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}); backward products only "
+              f"{prod:.4f} ms; {calls} calls a step")
+        for key, v in (("fwd", fwd["ms"]), ("bwd", bwd["ms"]), ("fwd_bound", bf["bound_ms"]),
+                       ("bwd_bound", bb["bound_ms"]), ("products", prod)):
+            step[key] += calls * v
+        if (x_shape, pro) == table:
+            recs = ({**fwd, **bf}, {**bwd, **bb, "products_only_ms": prod})
+        del args, y
+    step_line(label, sum(job[3] for job in jobs), step)
+    fwd_rec, bwd_rec = recs
+    fwd_rec.update(step_ms=step["fwd"], step_bound_ms=step["fwd_bound"])
+    bwd_rec.update(step_ms=step["bwd"], step_bound_ms=step["bwd_bound"],
+                   step_products_only_ms=step["products"])
+    return fwd_rec, bwd_rec
 
 
 def phase_assign(dev, flush) -> dict:
@@ -1353,8 +1409,8 @@ def main() -> None:
     norm = phase_normalize(dev, flush)
     stem = phase_stem(dev, flush)
     stem_bwd = phase_stem_bwd(dev, flush)
-    mm, mm_bwd = phase_fused_mm(dev, flush)
-    c3, c3_bwd = phase_fused_c3(dev, flush)
+    mm, mm_bwd = phase_fused(dev, flush, is_3x3=False)
+    c3, c3_bwd = phase_fused(dev, flush, is_3x3=True)
     assign_rec = phase_assign(dev, flush)
     del flush
     torch.cuda.empty_cache()

@@ -16,21 +16,55 @@
 // (N, K) float32 in the same layout; ab (2, K), gs and sums (2, N), dab
 // (2, K) float32. K and N are multiples of 8; M is any positive number.
 //
-// Bound on the H100: memory for every ResNet bottleneck shape (x read and y
-// written once is 0.5-2.5 bytes per flop-pair; e.g. M 150528, K 64, N 256:
-// 96 MB against 4.9 GFLOP). The TPU kernel walks M tiles in order and keeps
-// statistics, dw and da/db in scratch across grid steps; here blocks run in
-// parallel, so each writes partials that reduce_partials_kernel sums in a
-// fixed order. The design: one 128 x 64 output tile per block, the
-// reduction dimension tiled by 32 (any K and N, no capacity fallback),
-// prologue or gy_eff applied while the operand tile is loaded, epilogue on
-// the float32 tile staged in shared memory. Blocks of one M tile are
-// neighbours in the grid, so the operand re-read per column tile comes from
-// L2. The backward is two kernels: dx (with da, db) over (M tile, K tile),
-// and dw over (N tile, K tile, M split), each split summing its rows in
-// order. Not yet: cp.async/TMA pipelining, wgmma, wider tiles.
+// Forward design: one 128 x 64 output tile per block (wmma, the reduction
+// tiled by 32), prologue applied while the operand tile is loaded, epilogue
+// on the float32 tile staged in shared memory; per-block statistics summed
+// in a fixed order by reduce_partials_kernel. Not yet: pipelining, wgmma.
+//
+// Backward, bound on the H100: memory for the shapes of layer1-3 (gy, y, x
+// read and dx written once: 4 M N + 4 M K bytes against 4 M N K operations,
+// e.g. M 150528, K 64, N 256: 193 MB, 0.0575 ms) and operations at layer4
+// (M 2352). Two launches (sm90_tiles.cuh: a 3-stage cp.async ring, 64-deep
+// steps, ldmatrix + mma.sync m16n8k16):
+//   1. mm_bwd_dw_kernel: one TN x TK tile of dw per block (128 on a side
+//      of more than 64 channels, else 64) over a split of the rows. gy_eff
+//      and xhat are formed once per element of the tile, in the ring slot,
+//      and feed the product from there: gy_eff K / TK times over the grid,
+//      xhat N / TN times (the re-reads of gy, y and x by the other tiles of
+//      a split, neighbours in the grid, come from L2). The blocks of the
+//      first K tile also write gy_eff to scratch (bf16, M x N), so the dx
+//      product never reads gy and y. dw per split is a partial, or dw
+//      itself when one split covers M; the wrapper splits only while the
+//      tiles fill under half the card. Block 0 zeroes launch 2's counters.
+//   2. mm_bwd_dx_kernel: one BM x BN tile of dx (BM 128 or 64, BN 128 or
+//      64, chosen by the wrapper to fill the card) over gy_eff and w, with
+//      the mask, dx = bf16(dz * a) and the block's da, db partial in the
+//      epilogue; the blocks that finish a group of 16 M tiles last sum its
+//      da, db partials, and the last group the groups, in a fixed order
+//      (integer arrival counters, no float atomics). Then every block sums
+//      its share of launch 1's dw partials, in a fixed order.
+// Per block (ptxas -v, sm_90a; registers with / without the prologue):
+//   dw TN x TK   threads  shared memory  registers
+//   64 x 64      128       82,944 B      116 / 96
+//   128 x 64     256      132,096 B      101 / 98
+//   64 x 128     256      107,520 B       98 / 80
+//   128 x 128    256      156,672 B      128 / 126
+//   dx BM x BN   threads  shared memory  registers
+//   64 x 64      256       55,296 B       64 / 64
+//   64 x 128     256       79,872 B       80 / 96
+//   128 x 64     256       82,944 B       72 / 72
+//   128 x 128    256      107,520 B      130 / 126
+// (+ 128 B of static shared memory with the prologue); no spills. Above
+// 48 KB the kernels need cudaFuncSetAttribute, which every launch checks.
+// Bytes from device memory, at least: launch 1 reads gy, y, x (4 M N + 2 M K)
+// and writes gy_eff (2 M N); launch 2 reads gy_eff and x (2 M N + 2 M K) and
+// writes dx (2 M K): 8 M N + 6 M K in all (M 150528, K 64, N 256: 366 MB,
+// 0.109 ms), against 4 M N + 4 M K for the bound. Not yet: one pass that
+// keeps dw in registers for the small N K of layer1 (reads gy, y, x once),
+// wgmma, TMA. (Clusters of K tiles sharing one gy_eff tile through
+// distributed shared memory, a cluster barrier a step, measured slower.)
 
-#include "fused_tiles.cuh"
+#include "sm90_tiles.cuh"
 
 namespace {
 
@@ -82,7 +116,7 @@ mm_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                   (gn < N && gk < K) ? load_chunk(w + (long long)gn * K + gk) : zero_chunk());
     }
     __syncthreads();
-    mma_step<true>(sA, sB, acc, wm, wn);
+    mma_step(sA, sB, acc, wm, wn);
     __syncthreads();
   }
   stage_tile(sC, acc, wm, wn);
@@ -90,99 +124,341 @@ mm_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   epilogue_y_stats(sC, sRed, y, partial, mt, m0, n0, M, N);
 }
 
-template <bool PRO>
-__global__ void __launch_bounds__(kThreads)
-mm_bwd_dx_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
-                 const bf16* __restrict__ x, const bf16* __restrict__ w,
-                 const float* __restrict__ gs, const float* __restrict__ ab,
-                 bf16* __restrict__ dx, float* __restrict__ partial, int M, int K, int N,
-                 int relu) {
-  __shared__ __align__(128) unsigned char tile[kStageBytes];
-  __shared__ float sRed[8][2][kBN];
-  bf16* sA = reinterpret_cast<bf16*>(tile);  // gy_eff tile, sA[m][n]
-  bf16* sB = sA + kBM * kLdA;                // w tile as sB[n][k]
-  float* sC = reinterpret_cast<float*>(tile);
-  const int ktiles = (K + kBN - 1) / kBN;
-  const int mt = blockIdx.x / ktiles, kt = blockIdx.x % ktiles;
-  const int m0 = mt * kBM, k0 = kt * kBN;
-  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+// ---- backward ---------------------------------------------------------------
 
-  for (int nn0 = 0; nn0 < N; nn0 += kBK) {
-    for (int c = threadIdx.x; c < kBM * (kBK / 8); c += kThreads) {
-      const int row = c / (kBK / 8), nc = (c % (kBK / 8)) * 8;
-      const int gm = m0 + row, gn = nn0 + nc;
-      Chunk v = zero_chunk();
-      if (gm < M && gn < N) {
-        const long long at = (long long)gm * N + gn;
-        v = gy_eff_chunk(load_chunk(gy + at), load_chunk(y + at), gs, N, gn);
-      }
-      store_chunk(sA + row * kLdA + nc, v);
-    }
-    {
-      const int n = threadIdx.x / 8, kc = (threadIdx.x % 8) * 8;
-      const int gn = nn0 + n, gk = k0 + kc;
-      store_chunk(sB + n * kLdB + kc,
-                  (gn < N && gk < K) ? load_chunk(w + (long long)gn * K + gk) : zero_chunk());
-    }
-    __syncthreads();
-    mma_step<false>(sA, sB, acc, wm, wn);
-    __syncthreads();
-  }
-  stage_tile(sC, acc, wm, wn);
-  __syncthreads();
-  epilogue_dx<PRO>(sC, sRed, x, ab, dx, partial, mt, m0, k0, M, K, relu);
-}
+using namespace mmr::sm90;
 
-// dw tile (n0.., k0..) over the rows of one M split; out is (splits, N, K).
-template <bool PRO>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+constexpr int kLd64 = 72;  // pitch of a 64-column tile
+constexpr int kSteps = 64;  // depth of one ring step
+// The dw kernel's tile: TN output channels x TK input channels (64 or 128
+// each), by WK = TK / 32 warps along K and WN = min(TN / 32, 8 / WK) along
+// N; each warp owns (TN / WN) x 32.
+template <int TN, int TK>
+struct DwTile {
+  static constexpr int kWK = TK / 32;
+  static constexpr int kWN = TN / 32 < 8 / kWK ? TN / 32 : 8 / kWK;
+  static constexpr int kThreads = 32 * kWN * kWK;
+  static constexpr int kMI = TN / kWN / 16, kNI = 4;
+  static constexpr int kLdN = TN + 8, kLdK = TK + 8;
+  // per stage: gy (-> gy_eff) and y of 64 rows x TN, x (-> xhat) of 64 x TK
+  static constexpr int kStage = 2 * kSteps * kLdN + kSteps * kLdK;
+  static constexpr int kGyChunks = kSteps * (TN / 8) / kThreads;  // per thread
+  static constexpr int kSmem = kStages * kStage * 2;
+};
+
+// A TN x TK tile of dw (n0.., k0..) over the rows of one split; out is
+// (splits, N, K), or dw when there is one split.
+template <bool PRO, int TN, int TK>
+__global__ void __launch_bounds__(DwTile<TN, TK>::kThreads)
 mm_bwd_dw_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
                  const bf16* __restrict__ x, const float* __restrict__ gs,
-                 const float* __restrict__ ab, float* __restrict__ out, int M, int K, int N,
-                 int relu, int rows_per_split) {
-  __shared__ __align__(128) unsigned char tile[kDwT * kLdC * 4];
-  bf16* sG = reinterpret_cast<bf16*>(tile);  // gy_eff rows, sG[m][n]
-  bf16* sX = sG + kDwRows * kLdD;            // xhat rows, sX[m][k]
-  float* sC = reinterpret_cast<float*>(tile);
-  const int ntiles = (N + kDwT - 1) / kDwT, ktiles = (K + kDwT - 1) / kDwT;
+                 const float* __restrict__ ab, bf16* __restrict__ ge, float* __restrict__ out,
+                 unsigned* __restrict__ cnt, int ncnt, int M, int K, int N, int relu,
+                 int rows_per_split) {
+  using T = DwTile<TN, TK>;
+  constexpr int kT = T::kThreads, kLdN = T::kLdN, kLdK = T::kLdK, MI = T::kMI, NI = T::kNI;
+  constexpr int kCn = TN / 8, kCk = TK / 8;  // chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  if (blockIdx.x == 0) {
+    for (int i = threadIdx.x; i < ncnt; i += kT) cnt[i] = 0u;
+  }
+  const int ktiles = cdiv(K, TK), ntiles = cdiv(N, TN);
   int b = blockIdx.x;
   const int kt = b % ktiles;
   b /= ktiles;
   const int nt = b % ntiles, split = b / ntiles;
-  const int n0 = nt * kDwT, k0 = kt * kDwT;
-  const long long m_begin = (long long)split * rows_per_split;
-  const long long m_end = m_begin + rows_per_split < M ? m_begin + rows_per_split : M;
-  const int warp = threadIdx.x / 32, wn = warp / 2, wk = warp % 2;
-  const int row = threadIdx.x / 8, cc = (threadIdx.x % 8) * 8;
-  FragC acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
+  const int n0 = nt * TN, k0 = kt * TK;
+  const int m_begin = split * rows_per_split;
+  const int m_end = min(m_begin + rows_per_split, M);
+  const int nsteps = cdiv(m_end - m_begin, kSteps);
+  const bool write_ge = kt == 0;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wa = warp / T::kWK, wb = warp % T::kWK;
+  // chunk c = threadIdx.x + kT u of a tile is row c / (cols / 8), channels
+  // 8 (c % (cols / 8)).., the same channels at every u and every step
+  const int cn = (threadIdx.x % kCn) * 8, ck = (threadIdx.x % kCk) * 8;
+  const Gs8 gsc = load_gs8(gs, N, n0 + cn);
+  const Ab8 abc = load_ab8(PRO ? ab : nullptr, K, k0 + ck);
 
-  for (long long mb = m_begin; mb < m_end; mb += kDwRows) {
-    const long long gm = mb + row;
-    Chunk g = zero_chunk(), xv = zero_chunk();
-    if (gm < m_end) {
-      if (n0 + cc < N) {
-        const long long at = gm * N + n0 + cc;
-        g = gy_eff_chunk(load_chunk(gy + at), load_chunk(y + at), gs, N, n0 + cc);
+  auto load = [&](int s, int mb) {
+    bf16* sG = ring + s * T::kStage;
+    bf16* sY = sG + kSteps * kLdN;
+    bf16* sX = sY + kSteps * kLdN;
+#pragma unroll
+    for (int u = 0; u < T::kGyChunks; ++u) {
+      const int row = (threadIdx.x + kT * u) / kCn, gm = mb + row;
+      const bool v = gm < m_end && n0 + cn < N;
+      const long long at = v ? (long long)gm * N + n0 + cn : 0;
+      cp_async16(sG + row * kLdN + cn, gy + at, v);
+      cp_async16(sY + row * kLdN + cn, y + at, v);
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps * kCk / kT; ++u) {
+      const int row = (threadIdx.x + kT * u) / kCk, gm = mb + row;
+      const bool v = gm < m_end && k0 + ck < K;
+      cp_async16(sX + row * kLdK + ck, x + (v ? (long long)gm * K + k0 + ck : 0), v);
+    }
+  };
+  // gy_eff into the gy slot and xhat in place, zero outside the matrices
+  auto transform = [&](int s, int mb) {
+    bf16* sG = ring + s * T::kStage;
+    const bf16* sY = sG + kSteps * kLdN;
+    bf16* sX = sG + 2 * kSteps * kLdN;
+#pragma unroll
+    for (int u = 0; u < T::kGyChunks; ++u) {
+      const int row = (threadIdx.x + kT * u) / kCn, gm = mb + row;
+      Chunk g = zero_chunk();
+      if (gm < m_end && n0 + cn < N) {
+        g = gy_eff8(load_chunk(sG + row * kLdN + cn), load_chunk(sY + row * kLdN + cn), gsc);
+        if (write_ge) store_chunk(ge + (long long)gm * N + n0 + cn, g);
       }
-      if (k0 + cc < K) {
-        xv = load_chunk(x + gm * K + k0 + cc);
-        if (PRO) xv = prologue_chunk(xv, ab, K, k0 + cc, relu);
+      store_chunk(sG + row * kLdN + cn, g);
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps * kCk / kT; ++u) {
+      const int row = (threadIdx.x + kT * u) / kCk, gm = mb + row;
+      Chunk xv = zero_chunk();
+      if (gm < m_end && k0 + ck < K) {
+        xv = load_chunk(sX + row * kLdK + ck);
+        if (PRO) xv = prologue8(xv, abc, relu);
+      }
+      store_chunk(sX + row * kLdK + ck, xv);
+    }
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) load(s, m_begin + s * kSteps);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nsteps; ++it) {
+    cp_async_wait<kStages - 2>();
+    const int s = it % kStages;
+    transform(s, m_begin + it * kSteps);
+    __syncthreads();
+    const int nx = it + kStages - 1;
+    if (nx < nsteps) load(nx % kStages, m_begin + nx * kSteps);
+    cp_async_commit();
+    const bf16* sG = ring + s * T::kStage;
+    const bf16* sX = sG + 2 * kSteps * kLdN;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; kk += 16) {
+      unsigned a[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {  // A = gy_eff^T: rows n, reduction over m
+        ldsm_x4_t(a[i], sG + (kk + at_row(lane)) * kLdN + wa * 16 * MI + i * 16 + at_col(lane));
+      }
+#pragma unroll
+      for (int jj = 0; jj < NI / 2; ++jj) {  // B = xhat: reduction over m, columns k
+        unsigned r[4];
+        ldsm_x4_t(r, sX + (kk + bt_row(lane)) * kLdK + wb * 32 + jj * 16 + bt_col(lane));
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma16816(acc[i][2 * jj], a[i], r[0], r[1]);
+          mma16816(acc[i][2 * jj + 1], a[i], r[2], r[3]);
+        }
       }
     }
-    store_chunk(sG + row * kLdD + cc, g);
-    store_chunk(sX + row * kLdD + cc, xv);
-    __syncthreads();
-    dw_mma_step(sG, sX, acc, wn, wk);
-    __syncthreads();
   }
-  write_dw_tile(sC, acc, wn, wk, out + (long long)split * N * K, n0, k0, N, K);
+  cp_async_wait<0>();
+
+  float* o = out + (long long)split * N * K;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int n = n0 + wa * 16 * MI + i * 16 + g, k = k0 + wb * 32 + j * 8 + 2 * t;
+      if (k >= K) continue;
+      if (n < N) {
+        *reinterpret_cast<float2*>(o + (long long)n * K + k) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      }
+      if (n + 8 < N) {
+        *reinterpret_cast<float2*>(o + (long long)(n + 8) * K + k) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+    }
+  }
+}
+
+template <bool PRO, int TN, int TK>
+cudaError_t launch_mm_dw(int splits, cudaStream_t st, const bf16* gy, const bf16* y,
+                         const bf16* x, const float* gs, const float* ab, bf16* ge, float* out,
+                         unsigned* cnt, int ncnt, int M, int K, int N, int relu,
+                         int rows_per_split) {
+  using T = DwTile<TN, TK>;
+  cudaError_t err = allow_smem(mm_bwd_dw_kernel<PRO, TN, TK>, T::kSmem);
+  if (err != cudaSuccess) return err;
+  const unsigned int grid = (unsigned int)splits * ((N + TN - 1) / TN) * ((K + TK - 1) / TK);
+  mm_bwd_dw_kernel<PRO, TN, TK><<<grid, T::kThreads, T::kSmem, st>>>(
+      gy, y, x, gs, ab, ge, out, cnt, ncnt, M, K, N, relu, rows_per_split);
+  return cudaGetLastError();
+}
+
+// Shared memory of the dx kernel: the ring (per stage BM x 64 of gy_eff and
+// 64 x BN of w), reused for the staged tile, the row-group sums of the
+// epilogue and the dw partials' sums (8 x 128 floats).
+template <int MI, int NI>
+constexpr int dx_smem() {
+  const int ring = kStages * (64 * MI * kLd64 + 64 * (16 * NI + 8)) * 2;
+  const int epi = (64 * MI * (16 * NI + 4) + 4096 + 1024) * 4;
+  return ring > epi ? ring : epi;
+}
+
+// One BM x BN tile of dx (BM = 64 MI rows, BN = 16 NI input channels); 8
+// warps as 4 (rows) x 2 (columns), each (16 MI) x (8 NI). With splits > 1
+// every block then sums its share of launch 1's dw partials.
+template <bool PRO, int MI, int NI>
+__global__ void __launch_bounds__(256)
+mm_bwd_dx_kernel(const bf16* __restrict__ ge, const bf16* __restrict__ x,
+                 const bf16* __restrict__ w, const float* __restrict__ ab,
+                 bf16* __restrict__ dx, float* __restrict__ part_ab, float* __restrict__ gsum_ab,
+                 float* __restrict__ dab, unsigned* __restrict__ cnt,
+                 const float* __restrict__ part_dw, float* __restrict__ dw, int M, int K, int N,
+                 int relu, int splits) {
+  constexpr int BM = 64 * MI, BN = 16 * NI, kLdB = BN + 8;
+  constexpr int kA = BM * kLd64, kStage = kA + kSteps * kLdB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int ktiles = cdiv(K, BN), mtiles = cdiv(M, BM);
+  const int mt = blockIdx.x / ktiles, kt = blockIdx.x % ktiles;
+  const int m0 = mt * BM, k0 = kt * BN;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
+
+  auto load = [&](int s, int nn0) {
+    bf16* sA = ring + s * kStage;
+    bf16* sB = sA + kA;
+    for (int c = threadIdx.x; c < BM * 8; c += 256) {
+      const int row = c / 8, cc = (c % 8) * 8, gm = m0 + row;
+      const bool v = gm < M && nn0 + cc < N;
+      cp_async16(sA + row * kLd64 + cc, ge + (v ? (long long)gm * N + nn0 + cc : 0), v);
+    }
+    for (int c = threadIdx.x; c < kSteps * (BN / 8); c += 256) {
+      const int row = c / (BN / 8), cc = (c % (BN / 8)) * 8;
+      const bool v = nn0 + row < N && k0 + cc < K;
+      cp_async16(sB + row * kLdB + cc, w + (v ? (long long)(nn0 + row) * K + k0 + cc : 0), v);
+    }
+  };
+
+  float acc[MI][NI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  const int nsteps = cdiv(N, kSteps);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) load(s, s * kSteps);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nsteps; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nx = it + kStages - 1;
+    if (nx < nsteps) load(nx % kStages, nx * kSteps);
+    cp_async_commit();
+    const bf16* sA = ring + (it % kStages) * kStage;
+    const bf16* sB = sA + kA;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; kk += 16) {
+      unsigned a[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        ldsm_x4(a[i], sA + (wm * 16 * MI + i * 16 + a_row(lane)) * kLd64 + kk + a_col(lane));
+      }
+#pragma unroll
+      for (int jj = 0; jj < NI / 2; ++jj) {
+        unsigned r[4];
+        ldsm_x4_t(r, sB + (kk + bt_row(lane)) * kLdB + wn * 8 * NI + jj * 16 + bt_col(lane));
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma16816(acc[i][2 * jj], a[i], r[0], r[1]);
+          mma16816(acc[i][2 * jj + 1], a[i], r[2], r[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* sC = reinterpret_cast<float*>(smem);
+  float* sRed = sC + BM * (BN + 4);
+  stage_acc<MI, NI>(sC, BN + 4, acc, wm * 16 * MI, wn * 8 * NI);
+  __syncthreads();
+  dx_epilogue<PRO, BM, BN>(sC, sRed, x, ab, dx, part_ab, mt, m0, k0, M, K, relu);
+  if (splits > 1) reduce_dw_share(part_dw, dw, splits, (long long)N * K, sRed + 4096);
+  if (PRO) {
+    const int ngroups = cdiv(mtiles, kGroup);
+    reduce_dab_tail(part_ab, gsum_ab, dab, cnt + kt * (ngroups + 1), mtiles, mt, K, k0,
+                    min(BN, K - k0));
+  }
+}
+
+template <bool PRO, int MI, int NI>
+cudaError_t launch_mm_dx(unsigned int grid, cudaStream_t st, const bf16* ge, const bf16* x,
+                         const bf16* w, const float* ab, bf16* dx, float* part_ab,
+                         float* gsum_ab, float* dab, unsigned* cnt, const float* part_dw,
+                         float* dw, int M, int K, int N, int relu, int splits) {
+  constexpr int smem = dx_smem<MI, NI>();
+  cudaError_t err = allow_smem(mm_bwd_dx_kernel<PRO, MI, NI>, smem);
+  if (err != cudaSuccess) return err;
+  mm_bwd_dx_kernel<PRO, MI, NI><<<grid, 256, smem, st>>>(ge, x, w, ab, dx, part_ab, gsum_ab,
+                                                         dab, cnt, part_dw, dw, M, K, N, relu,
+                                                         splits);
+  return cudaGetLastError();
+}
+
+template <bool PRO>
+cudaError_t launch_mm_bwd(cudaStream_t st, const bf16* gy, const bf16* y, const bf16* x,
+                          const bf16* w, const float* gs, const float* ab, bf16* dx, float* dw,
+                          float* dab, bf16* ge, float* part_dw, float* part_ab, float* gsum_ab,
+                          unsigned* cnt, int M, int K, int N, int relu, int splits,
+                          int rows_per_split, int bm, int bn, int tn, int tk) {
+  if ((bm != 64 && bm != 128) || (bn != 64 && bn != 128) || (tn != 64 && tn != 128) ||
+      (tk != 64 && tk != 128) || splits < 1 ||
+      (long long)splits * rows_per_split < M || rows_per_split % kSteps != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int mtiles = (M + bm - 1) / bm, ktiles = (K + bn - 1) / bn;
+  const int ncnt = PRO ? ktiles * ((mtiles + kGroup - 1) / kGroup + 1) : 0;
+#define MMR_MM_DW(TN, TK)                                                                  \
+  launch_mm_dw<PRO, TN, TK>(splits, st, gy, y, x, gs, ab, ge, splits == 1 ? dw : part_dw, cnt, \
+                            ncnt, M, K, N, relu, rows_per_split)
+  cudaError_t err;
+  switch ((tn == 128 ? 2 : 0) + (tk == 128 ? 1 : 0)) {
+    case 0: err = MMR_MM_DW(64, 64); break;
+    case 1: err = MMR_MM_DW(64, 128); break;
+    case 2: err = MMR_MM_DW(128, 64); break;
+    default: err = MMR_MM_DW(128, 128); break;
+  }
+#undef MMR_MM_DW
+  if (err != cudaSuccess) return err;
+  const unsigned int grid = (unsigned int)mtiles * ktiles;
+  const int key = (bm == 128 ? 2 : 0) + (bn == 128 ? 1 : 0);
+#define MMR_MM_DX(MI, NI)                                                                   \
+  launch_mm_dx<PRO, MI, NI>(grid, st, ge, x, w, ab, dx, part_ab, gsum_ab, dab, cnt, part_dw, \
+                            dw, M, K, N, relu, splits)
+  switch (key) {
+    case 0: return MMR_MM_DX(1, 4);
+    case 1: return MMR_MM_DX(1, 8);
+    case 2: return MMR_MM_DX(2, 4);
+    default: return MMR_MM_DX(2, 8);
+  }
+#undef MMR_MM_DX
 }
 
 }  // namespace
@@ -213,49 +489,35 @@ extern "C" int mmr_mm_stats(const void* x, const void* w, const void* ab, void* 
 
 // gy, y (M, N), x (M, K), w (N, K) bf16; gs (2, N) float32; ab (2, K) float32
 // or null. Outputs: dx (M, K) bf16, dw (N, K) float32, dab (2, K) float32
-// (with ab). Scratch: partial_ab (ceil(M / 128), 2, K) float32 (with ab),
-// partial_dw (splits, N, K) float32 (unused when splits == 1). The dw kernel
-// gives each of `splits` blocks per tile `rows_per_split` rows (a multiple
-// of 32, splits * rows_per_split >= M). Returns the first CUDA error.
+// (with ab). Scratch: ge (M, N) bf16 for gy_eff; part_dw (splits, N, K)
+// float32 (unused when splits == 1); with ab, part_ab (ceil(M / bm), 2, K),
+// gsum_ab (ceil(ceil(M / bm) / 16), 2, K) float32 and cnt, ceil(K / bn) x
+// (that group count + 1) unsigned counters (zeroed by the first launch).
+// The dw kernel gives each of `splits` blocks per tile `rows_per_split`
+// rows (a multiple of 64, splits * rows_per_split >= M); bm, bn in {64, 128}
+// are the dx tile, tn, tk in {64, 128} the dw tile. Two launches. Returns
+// the first CUDA error.
 extern "C" int mmr_mm_stats_bwd(const void* gy, const void* y, const void* x, const void* w,
                                 const void* gs, const void* ab, void* dx, void* dw, void* dab,
-                                void* partial_ab, void* partial_dw, int M, int K, int N,
-                                int relu, int splits, int rows_per_split, int device,
+                                void* ge, void* part_dw, void* part_ab, void* gsum_ab,
+                                void* cnt, int M, int K, int N, int relu, int splits,
+                                int rows_per_split, int bm, int bn, int tn, int tk, int device,
                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const int mtiles = (M + kBM - 1) / kBM, ktiles = (K + kBN - 1) / kBN;
-  const unsigned int grid = (unsigned int)mtiles * ktiles;
-  const unsigned int dw_grid =
-      (unsigned int)splits * ((N + kDwT - 1) / kDwT) * ((K + kDwT - 1) / kDwT);
-  float* dw_out = splits == 1 ? (float*)dw : (float*)partial_dw;
   if (ab != nullptr) {
-    mm_bwd_dx_kernel<true><<<grid, kThreads, 0, st>>>(
-        (const bf16*)gy, (const bf16*)y, (const bf16*)x, (const bf16*)w, (const float*)gs,
-        (const float*)ab, (bf16*)dx, (float*)partial_ab, M, K, N, relu);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = reduce_partials((const float*)partial_ab, (float*)dab, mtiles, 2LL * K, st);
-    if (err != cudaSuccess) return (int)err;
-    mm_bwd_dw_kernel<true><<<dw_grid, kThreads, 0, st>>>(
-        (const bf16*)gy, (const bf16*)y, (const bf16*)x, (const float*)gs, (const float*)ab,
-        dw_out, M, K, N, relu, rows_per_split);
+    err = launch_mm_bwd<true>(st, (const bf16*)gy, (const bf16*)y, (const bf16*)x,
+                              (const bf16*)w, (const float*)gs, (const float*)ab, (bf16*)dx,
+                              (float*)dw, (float*)dab, (bf16*)ge, (float*)part_dw,
+                              (float*)part_ab, (float*)gsum_ab, (unsigned*)cnt, M, K, N, relu,
+                              splits, rows_per_split, bm, bn, tn, tk);
   } else {
-    mm_bwd_dx_kernel<false><<<grid, kThreads, 0, st>>>(
-        (const bf16*)gy, (const bf16*)y, (const bf16*)x, (const bf16*)w, (const float*)gs,
-        nullptr, (bf16*)dx, nullptr, M, K, N, 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    mm_bwd_dw_kernel<false><<<dw_grid, kThreads, 0, st>>>(
-        (const bf16*)gy, (const bf16*)y, (const bf16*)x, (const float*)gs, nullptr, dw_out, M,
-        K, N, 0, rows_per_split);
+    err = launch_mm_bwd<false>(st, (const bf16*)gy, (const bf16*)y, (const bf16*)x,
+                               (const bf16*)w, (const float*)gs, nullptr, (bf16*)dx,
+                               (float*)dw, nullptr, (bf16*)ge, (float*)part_dw, nullptr,
+                               nullptr, nullptr, M, K, N, 0, splits, rows_per_split, bm, bn, tn,
+                               tk);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (splits > 1) {
-    return (int)reduce_partials((const float*)partial_dw, (float*)dw, splits,
-                                (long long)N * K, st);
-  }
-  return 0;
+  return (int)err;
 }

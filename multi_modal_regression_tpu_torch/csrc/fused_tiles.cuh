@@ -1,22 +1,25 @@
-// Building blocks shared by the fused conv+BN kernels (fused_mm.cu, fused_c3.cu).
+// Building blocks shared by the fused conv+BN kernels (fused_mm.cu,
+// fused_c3.cu): the chunk moves, the BN prologue and the forward kernels'
+// wmma tiles. The backward kernels' pipeline is in sm90_tiles.cuh.
 //
-// All four kernels are tensor-core matrix products (nvcuda::wmma, bf16
+// The forward kernels are tensor-core matrix products (nvcuda::wmma, bf16
 // operands, float32 accumulation) over shared-memory tiles, with the BN
-// prologue or the stats cotangent applied while a tile is loaded and the
-// epilogue applied to the float32 tile before it is written:
+// prologue applied while a tile is loaded and the epilogue applied to the
+// float32 tile before it is written:
 //
 //   prologue   xhat = relu(bf16(bf16(x * a) + b)), a and b rounded to bf16
 //              first: the rounding of torch's eager bf16 ops (and of the JAX
 //              kernels), no contracted FMA, so kernel and plain version feed
 //              identical bf16 operands to their products
 //   gy_eff     bf16((gy + gs0) + (2 * y) * gs1) in float32, rounded once
+//              (backward, sm90_tiles.cuh gy_eff8)
 //   forward    y = bf16(acc); (sum y, sum y^2) of the ROUNDED y per block
 //   backward   dz = dxh masked by the recomputed z > 0; dx = bf16(dz * a);
-//              (sum dz * x, sum dz) per block
+//              (sum dz * x, sum dz) per block (sm90_tiles.cuh dx_epilogue)
 //
-// Reductions across blocks (statistics, da/db, dw) are per-block partials in
-// scratch memory that the caller allocates, summed by reduce_partials_kernel
-// in a fixed order: no float atomics, the same bits on every run.
+// Reductions across blocks are per-block partials in scratch memory that
+// the caller allocates, summed in a fixed order (the forward's statistics
+// by reduce_partials_kernel): no float atomics, the same bits on every run.
 //
 // Channel counts (K, N, C, Cout) are multiples of 8: every tile is moved in
 // 16-byte chunks of 8 bf16 values, a chunk lying wholly inside or wholly
@@ -33,21 +36,15 @@ namespace mmr {
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-// Output tile of the forward and dx kernels: 128 rows x 64 columns, reduced
+// Output tile of the forward kernels: 128 rows x 64 columns, reduced
 // in steps of 32, by 8 warps of 32 x 32 each.
 constexpr int kBM = 128;
 constexpr int kBN = 64;
 constexpr int kBK = 32;
 constexpr int kThreads = 256;
 constexpr int kLdA = kBK + 8;   // bf16 row pitch of a (rows x 32) operand tile
-constexpr int kLdB = kBN + 8;   // bf16 row pitch of a (32 x 64) operand tile
 constexpr int kLdC = kBN + 4;   // float row pitch of the staged accumulators
 constexpr int kStageBytes = kBM * kLdC * 4;  // 34816: the largest user of the tile memory
-
-// dw kernels: a 64 x 64 tile of dw per block, rows consumed 32 at a time.
-constexpr int kDwT = 64;
-constexpr int kDwRows = 32;
-constexpr int kLdD = kDwT + 8;
 
 struct alignas(16) Chunk {
   bf16 v[8];
@@ -94,29 +91,12 @@ __device__ __forceinline__ Chunk prologue_chunk(Chunk c, const float* __restrict
   return c;
 }
 
-// gy_eff on 8 channels starting at channel n; gs is (2, N) float32.
-__device__ __forceinline__ Chunk gy_eff_chunk(const Chunk& gy, const Chunk& y,
-                                              const float* __restrict__ gs, int N, int n) {
-  Chunk c;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float t = __fmul_rn(__fmul_rn(2.0f, __bfloat162float(y.v[j])), gs[N + n + j]);
-    c.v[j] = __float2bfloat16_rn(
-        __fadd_rn(__fadd_rn(__bfloat162float(gy.v[j]), gs[n + j]), t));
-  }
-  return c;
-}
-
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// One reduction step of the 128 x 64 tile: acc += A (128 x 32, sA[row][k]) times
-// B (32 x 64), B held either as sB[n][k] (B_IS_NK, pitch kLdA: the forward's
-// weights (N, K)) or as sB[k][n] (pitch kLdB: the dx kernels' weights).
-template <bool B_IS_NK>
+// One reduction step of the 128 x 64 tile: acc += A (128 x 32, sA[row][k])
+// times B (32 x 64) held as sB[n][k] (pitch kLdA: the weights (N, K)).
 __device__ __forceinline__ void mma_step(const bf16* sA, const bf16* sB, FragC (&acc)[2][2],
                                          int wm, int wn) {
 #pragma unroll
@@ -128,17 +108,10 @@ __device__ __forceinline__ void mma_step(const bf16* sA, const bf16* sB, FragC (
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      if (B_IS_NK) {
-        FragBT b;
-        wmma::load_matrix_sync(b, sB + (wn * 32 + j * 16) * kLdA + kk, kLdA);
+      FragBT b;
+      wmma::load_matrix_sync(b, sB + (wn * 32 + j * 16) * kLdA + kk, kLdA);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      } else {
-        FragB b;
-        wmma::load_matrix_sync(b, sB + kk * kLdB + wn * 32 + j * 16, kLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
+      for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
     }
   }
 }
@@ -201,90 +174,6 @@ __device__ __forceinline__ void epilogue_y_stats(const float* sC, float (*sRed)[
     }
   }
   write_block_partial(sRed, s0, s1, q0, q1, partial, mt, n0, N);
-}
-
-// dx epilogue over the staged dxh tile (rows m0.., input channels k0..).
-// PRO: the ReLU mask from the recomputed z, dx = bf16(dz * a), and the
-// block's (sum dz * x, sum dz) into `partial` (mtiles, 2, K). Otherwise
-// dx = bf16(dxh).
-template <bool PRO>
-__device__ __forceinline__ void epilogue_dx(const float* sC, float (*sRed)[2][kBN],
-                                            const bf16* __restrict__ x,
-                                            const float* __restrict__ ab,
-                                            bf16* __restrict__ dx, float* __restrict__ partial,
-                                            int mt, int m0, int k0, int M, int K, int relu) {
-  const int cp = threadIdx.x % 32, rg = threadIdx.x / 32;
-  const int gk = k0 + 2 * cp;
-  float s0 = 0.0f, s1 = 0.0f, q0 = 0.0f, q1 = 0.0f;  // s: sum dz * x, q: sum dz
-  if (gk < K) {
-    float a0 = 1.0f, a1 = 1.0f, ar0 = 1.0f, ar1 = 1.0f, br0 = 0.0f, br1 = 0.0f;
-    if (PRO) {
-      a0 = ab[gk];
-      a1 = ab[gk + 1];
-      ar0 = round_to<bf16>(a0);
-      ar1 = round_to<bf16>(a1);
-      br0 = round_to<bf16>(ab[K + gk]);
-      br1 = round_to<bf16>(ab[K + gk + 1]);
-    }
-    for (int r = rg; r < kBM; r += 8) {
-      const int gm = m0 + r;
-      if (gm >= M) break;
-      const float2 v = *reinterpret_cast<const float2*>(sC + r * kLdC + 2 * cp);
-      float d0 = v.x, d1 = v.y;
-      if (PRO) {
-        const __nv_bfloat162 xb =
-            *reinterpret_cast<const __nv_bfloat162*>(x + (long long)gm * K + gk);
-        const float x0 = __low2float(xb), x1 = __high2float(xb);
-        if (relu) {
-          if (!(prologue_z(x0, ar0, br0) > 0.0f)) d0 = 0.0f;
-          if (!(prologue_z(x1, ar1, br1) > 0.0f)) d1 = 0.0f;
-        }
-        s0 += d0 * x0;
-        s1 += d1 * x1;
-        q0 += d0;
-        q1 += d1;
-        d0 = __fmul_rn(d0, a0);
-        d1 = __fmul_rn(d1, a1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(dx + (long long)gm * K + gk) =
-          __floats2bfloat162_rn(d0, d1);
-    }
-  }
-  if (PRO) write_block_partial(sRed, s0, s1, q0, q1, partial, mt, k0, K);
-}
-
-// One 32-row step of a dw tile: acc += G^T (sG[m][n], 32 x 64) times
-// X (sX[m][k], 32 x 64); 8 warps, warp (wn, wk) owns rows wn*16.., columns wk*32...
-__device__ __forceinline__ void dw_mma_step(const bf16* sG, const bf16* sX, FragC (&acc)[2],
-                                            int wn, int wk) {
-#pragma unroll
-  for (int mm = 0; mm < kDwRows; mm += 16) {
-    FragAT a;
-    wmma::load_matrix_sync(a, sG + mm * kLdD + wn * 16, kLdD);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, sX + mm * kLdD + wk * 32 + j * 16, kLdD);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-}
-
-// Write a block's 64 x 64 dw tile (staged through sC, pitch kLdC) to
-// out[(n0 + n) * K + k0 + k] for n0 + n < N, k0 + k < K.
-__device__ __forceinline__ void write_dw_tile(float* sC, FragC (&acc)[2], int wn, int wk,
-                                              float* __restrict__ out, int n0, int k0, int N,
-                                              int K) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(sC + (wn * 16) * kLdC + wk * 32 + j * 16, acc[j], kLdC,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kDwT * kDwT; i += kThreads) {
-    const int n = i / kDwT, k = i % kDwT;
-    if (n0 + n < N && k0 + k < K) out[(long long)(n0 + n) * K + k0 + k] = sC[n * kLdC + k];
-  }
 }
 
 // out[i] = sum over j of partial[j * L + i]: 8 interleaved slices of the P

@@ -54,14 +54,15 @@ _SIGNATURES = {
     "mmr_stem_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, ab|null, y, partial, sums, M, K, N, relu, device, stream
     "mmr_mm_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # gy, y, x, w, gs, ab|null, dx, dw, dab, partial_ab, partial_dw, M, K, N,
-    # relu, splits, rows_per_split, device, stream
-    "mmr_mm_stats_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    # gy, y, x, w, gs, ab|null, dx, dw, dab, ge, part_dw, part_ab, gsum_ab,
+    # cnt, M, K, N, relu, splits, rows_per_split, bm, bn, tn, tk, device, stream
+    "mmr_mm_stats_bwd": [_P] * 14 + [_I] * 11 + [_P],
     # x, w9, ab|null, y, partial, sums, B, H, W, C, Cout, relu, device, stream
     "mmr_c3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # gy, y, x, w9, gs, ab|null, dx, dw9, dab, partial_ab, partial_dw, ge, B, H,
-    # W, C, Cout, relu, splits, rows_per_split, device, stream
-    "mmr_c3_bwd": [_P] * 12 + [_I] * 9 + [_P],
+    # gy, y, x, w9, gs, ab|null, dx, dw9, dab, ge, part_dw, part_ab, gsum_ab,
+    # cnt, B, H, W, C, Cout, relu, splits, rows_per_split, bm, nseg, seg_rows,
+    # device, stream
+    "mmr_c3_bwd": [_P] * 14 + [_I] * 12 + [_P],
     # y, centers, out, N, D, K, device, stream
     "mmr_assign": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
 }

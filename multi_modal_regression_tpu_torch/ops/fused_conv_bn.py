@@ -43,6 +43,8 @@ are multiples of 8 and any number of rows.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -56,9 +58,12 @@ mm_bwd_launches = 0  # _mm_stats_bwd
 c3_launches = 0  # _c3_fwd (3x3 forward)
 c3_bwd_launches = 0  # _c3_bwd
 
-# tiles of csrc/fused_tiles.cuh: forward and dx blocks own 128 rows, a dw
-# block a 64 x 64 tile fed 32 rows at a time; about 4 dw blocks per SM
-_BM, _DW_TILE, _DW_ROWS, _DW_BLOCKS = 128, 64, 32, 132 * 4
+# tiles of the kernels: forward blocks own 128 rows (csrc/fused_tiles.cuh);
+# a backward dw block owns a tile of dw (the 3x3: 64 x 64, of one row of 3
+# taps) over a split of the rows, fed 64 rows a ring step; partials of da,
+# db are summed in groups of 16 (csrc/sm90_tiles.cuh); 264 blocks, 2 per SM
+# of the H100's 132, fill the card
+_BM, _DW_TILE, _STEP, _GROUP, _FILL = 128, 64, 64, 16, 2 * 132
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -202,12 +207,79 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _dw_splits(m: int, tiles: int) -> tuple[int, int]:
-    """(splits, rows per split) of the dw kernels' M dimension: enough
-    blocks to fill the card, at least 256 rows each, whole 32-row steps."""
-    want = max(1, min(_cdiv(m, 256), _cdiv(_DW_BLOCKS, tiles)))
-    rows = _cdiv(_cdiv(m, want), _DW_ROWS) * _DW_ROWS
+def _dw_splits(m: int, tiles: int, fill: int = _FILL) -> tuple[int, int]:
+    """(splits, rows per split) of the backward dw kernels' M dimension:
+    split only while the tiles alone fill under half of the `fill` blocks
+    the card holds at once (a split costs a pass over float32 partials), no
+    more splits than M has 512 rows (8 ring steps), whole 64-row steps."""
+    want = max(1, min(_cdiv(m, 8 * _STEP), fill // tiles))
+    rows = _cdiv(_cdiv(m, want), _STEP) * _STEP
     return _cdiv(m, rows), rows
+
+
+class BwdPlan(NamedTuple):
+    """Launch shape of a backward call: the dx tile (bm rows x bn channels),
+    the dw splits, for the 1x1 the dw tile (tn x tk), for the 3x3 the halo
+    (nseg segments of seg_rows)."""
+
+    bm: int
+    bn: int
+    splits: int
+    rows: int
+    tn: int = 64
+    tk: int = 64
+    nseg: int = 0
+    seg_rows: int = 0
+
+
+def _mm_bwd_plan(m: int, k: int, n: int) -> BwdPlan:
+    """Kernel #5: dx tiles of 128 x 128, made narrower (bn 64 for K <= 64)
+    or shorter until they fill the card; dw tiles of 128 x 128, 64 on a side
+    of 64 channels or fewer (so that gy_eff and xhat are formed K / tk and
+    N / tn times, not K / 64 and N / 64), split by `_dw_splits`."""
+    bn = 128 if k > 64 else 64
+    bm = 128
+    if _cdiv(m, bm) * _cdiv(k, bn) < _FILL:
+        bm = 64
+    if _cdiv(m, bm) * _cdiv(k, bn) < _FILL:
+        bn = 64
+    tn, tk = (128 if n > 64 else 64), (128 if k > 64 else 64)
+    fill = _FILL if tn == 64 else _FILL // 2  # tn 128: one block an SM (shared memory)
+    splits, rows = _dw_splits(m, _cdiv(n, tn) * _cdiv(k, tk), fill)
+    return BwdPlan(bm, bn, splits, rows, tn, tk)
+
+
+def _c3_bwd_plan(bsz: int, h: int, w: int, c: int, cout: int) -> BwdPlan:
+    """Kernel #7: dx tiles of 128 (or, short of filling the card, 64) pixels
+    x 64 channels. The halo of gy_eff a tile reads is one run of bm + 2 w + 2
+    pixels, or, where that is longer, three runs of bm + 2 around the rows
+    above, at and below the tile (so any W fits in shared memory)."""
+    m = bsz * h * w
+    bm = 128 if _cdiv(m, 128) * _cdiv(c, 64) >= _FILL else 64
+    nseg, seg_rows = (1, bm + 2 * w + 2) if 2 * w <= 2 * bm + 4 else (3, bm + 2)
+    splits, rows = _dw_splits(m, 3 * _cdiv(cout, _DW_TILE) * _cdiv(c, _DW_TILE))
+    return BwdPlan(bm, 64, splits, rows, nseg=nseg, seg_rows=seg_rows)
+
+
+def _bwd_scratch(plan: BwdPlan, m: int, k: int, dw_shape: tuple, dev, prologue: bool):
+    """(part_dw, part_ab, gsum_ab, cnt): the float32 dw partials of the
+    splits, the da, db partials per dx row tile and per group of 16 of them,
+    and the groups' arrival counters (zeroed by the first launch)."""
+    part_dw = None if plan.splits == 1 else torch.empty(
+        (plan.splits, *dw_shape), dtype=torch.float32, device=dev)
+    if not prologue:
+        return part_dw, None, None, None
+    mtiles = _cdiv(m, plan.bm)
+    groups = _cdiv(mtiles, _GROUP)
+    part_ab = torch.empty((mtiles, 2, k), dtype=torch.float32, device=dev)
+    gsum_ab = torch.empty((groups, 2, k), dtype=torch.float32, device=dev)
+    cnt = torch.empty(_cdiv(k, plan.bn) * (groups + 1), dtype=torch.int32, device=dev)
+    return part_dw, part_ab, gsum_ab, cnt
+
+
+def _check_gs(gs) -> None:
+    if gs.data_ptr() % 16:
+        raise ValueError("gs must be 16-byte aligned")
 
 
 def _mm_stats(x, wb, ab, relu):
@@ -247,22 +319,24 @@ def _mm_stats_bwd(gy, gs, y, x, wb, ab, relu):
     _check_channels(K=k, N=n)
     _check_f32((2, k), dev, ab=ab)
     _check_f32((2, n), dev, gs=gs)
+    _check_gs(gs)
     m = x.numel() // k
+    if m >= 2**31:
+        raise ValueError(f"M = {m} does not fit the kernels' 32-bit row index")
     dx = torch.empty_like(x)
     fill = torch.zeros if m == 0 else torch.empty  # the kernels write every element
     dw = fill((n, k), dtype=torch.float32, device=dev)
     dab = None if ab is None else fill((2, k), dtype=torch.float32, device=dev)
     if m == 0:
         return dx, dw, dab
-    splits, rows = _dw_splits(m, _cdiv(n, _DW_TILE) * _cdiv(k, _DW_TILE))
-    partial_ab = None if ab is None else torch.empty(
-        (_cdiv(m, _BM), 2, k), dtype=torch.float32, device=dev)
-    partial_dw = None if splits == 1 else torch.empty(
-        (splits, n, k), dtype=torch.float32, device=dev)
+    plan = _mm_bwd_plan(m, k, n)
+    ge = torch.empty_like(gy)  # gy_eff, written once by the dw kernel
+    part_dw, part_ab, gsum_ab, cnt = _bwd_scratch(plan, m, k, (n, k), dev, ab is not None)
     err = _build.load().mmr_mm_stats_bwd(
         gy.data_ptr(), y.data_ptr(), x.data_ptr(), wb.data_ptr(), gs.data_ptr(),
-        _ptr(ab), dx.data_ptr(), dw.data_ptr(), _ptr(dab), _ptr(partial_ab),
-        _ptr(partial_dw), m, k, n, int(relu), splits, rows, *_build.launch_args(x),
+        _ptr(ab), dx.data_ptr(), dw.data_ptr(), _ptr(dab), ge.data_ptr(), _ptr(part_dw),
+        _ptr(part_ab), _ptr(gsum_ab), _ptr(cnt), m, k, n, int(relu), plan.splits,
+        plan.rows, plan.bm, plan.bn, plan.tn, plan.tk, *_build.launch_args(x),
     )
     _build.check(err, "fused 1x1 backward kernel")
     mm_bwd_launches += 1
@@ -325,17 +399,17 @@ def _c3_bwd(gy, gs, y, x, wb, ab, relu):
     dw9 = fill((3, 3, cout, c), dtype=torch.float32, device=dev)
     dab = None if ab is None else fill((2, c), dtype=torch.float32, device=dev)
     if m > 0:
+        _check_gs(gs)
         w9 = _taps_first(wb)
-        splits, rows = _dw_splits(m, 9 * _cdiv(cout, _DW_TILE) * _cdiv(c, _DW_TILE))
-        partial_ab = None if ab is None else torch.empty(
-            (_cdiv(m, _BM), 2, c), dtype=torch.float32, device=dev)
-        partial_dw = None if splits == 1 else torch.empty(
-            (splits, 3, 3, cout, c), dtype=torch.float32, device=dev)
-        ge = torch.empty_like(gy)  # gy_eff, written once for all nine taps
+        plan = _c3_bwd_plan(bsz, h, w, c, cout)
+        ge = torch.empty_like(gy)  # gy_eff, written once by the dw kernel
+        part_dw, part_ab, gsum_ab, cnt = _bwd_scratch(
+            plan, m, c, (3, 3, cout, c), dev, ab is not None)
         err = _build.load().mmr_c3_bwd(
             gy.data_ptr(), y.data_ptr(), x.data_ptr(), w9.data_ptr(), gs.data_ptr(),
-            _ptr(ab), dx.data_ptr(), dw9.data_ptr(), _ptr(dab), _ptr(partial_ab),
-            _ptr(partial_dw), ge.data_ptr(), bsz, h, w, c, cout, int(relu), splits, rows,
+            _ptr(ab), dx.data_ptr(), dw9.data_ptr(), _ptr(dab), ge.data_ptr(),
+            _ptr(part_dw), _ptr(part_ab), _ptr(gsum_ab), _ptr(cnt), bsz, h, w, c, cout,
+            int(relu), plan.splits, plan.rows, plan.bm, plan.nseg, plan.seg_rows,
             *_build.launch_args(x),
         )
         _build.check(err, "fused 3x3 backward kernel")
@@ -398,6 +472,8 @@ class _FusedConvStats(torch.autograd.Function):
     def backward(ctx, gy, gs):
         x, ab, wb, y = ctx.saved_tensors
         gy, gs = gy.contiguous(), gs.float().contiguous()
+        if gs.data_ptr() % 16:  # the kernels read gs as float4
+            gs = gs.clone()
         if ctx.is_3x3:
             bwd = _c3_bwd if ctx.kernel else _c3_bwd_plain
         else:

@@ -316,6 +316,31 @@ def test_fused_c3_kernels(dev, shape, prologue):
                       ("c3_launches", "c3_bwd_launches"), *args)
 
 
+@pytest.mark.parametrize("mkn", [(40, 64, 64), (20000, 64, 64), (300, 512, 2048),
+                                 (500, 8, 64), (200, 64, 2048)], ids=str)
+def test_fused_mm_backward_tiling(dev, mkn):
+    """Kernel #5 where its tiling is stressed: M under one tile, M over many
+    dw row splits (a fixed-order sum of their partials), N K larger than a
+    block's dw tile by far, K = 8, N = 2048; against the plain version, two
+    runs bit-equal, one count per call."""
+    m, k, n = mkn
+    args = _fused_inputs((m, k), (n, k), dev, sum(mkn), True)
+    _check_fused_pair(fcb._mm_stats, fcb._mm_plain, fcb._mm_stats_bwd, fcb._mm_bwd_plain,
+                      ("mm_launches", "mm_bwd_launches"), *args)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 3, 16, 16), (3, 9, 13, 32, 32), (1, 14, 14, 64, 64),
+                                   (2, 7, 7, 512, 512), (1, 3, 150, 16, 16)], ids=str)
+def test_fused_c3_backward_tiling(dev, shape):
+    """Kernel #7 where its halo tiles are stressed: W far under a tile's
+    pixels, H W no multiple of the tile, batch 1, C = 512 at 7 x 7, and a W
+    so wide that the halo is cut into three runs."""
+    b, h, w, c, cout = shape
+    args = _fused_inputs((b, h, w, c), (cout, c, 3, 3), dev, sum(shape), True)
+    _check_fused_pair(fcb._c3_fwd, fcb._c3_plain, fcb._c3_bwd, fcb._c3_bwd_plain,
+                      ("c3_launches", "c3_bwd_launches"), *args)
+
+
 def test_fused_kernels_reject_what_they_do_not_take(dev):
     x = torch.zeros((16, 12), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="multiples of 8"):

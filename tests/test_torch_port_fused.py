@@ -52,6 +52,7 @@ from multi_modal_regression_tpu_torch.models.backbones import (
 )
 from multi_modal_regression_tpu_torch.models.pretrained import from_jax_variables
 from multi_modal_regression_tpu_torch.ops import fused_conv_bn as fcb
+from multi_modal_regression_tpu_torch.tools import time_fused
 from multi_modal_regression_tpu_torch.train.presets import (
     build_model,
     build_problem,
@@ -521,3 +522,51 @@ def test_entry_points_default_to_the_card(fn):
     """Whatever an entry point builds lies on the card unless the caller
     asks for the CPU, as the tests do."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+# the shapes a fused training step gives the backward kernels, the odd ones
+# of tests/test_torch_port_cuda.py, and one wider than any halo
+_MM_PLAN_SHAPES = [(m, k, n) for m, k, n, _, _ in time_fused.MM_SHAPES] + [
+    (40, 64, 64), (20000, 64, 64), (300, 512, 2048), (500, 8, 64), (9413, 264, 1000)]
+_C3_PLAN_SHAPES = [(*shape, shape[-1]) for shape, _ in time_fused.C3_SHAPES] + [
+    (2, 5, 3, 16, 16), (3, 9, 13, 32, 32), (1, 14, 14, 64, 64), (1, 3, 150, 16, 16)]
+
+
+def _check_splits(plan, m):
+    """Whole 64-row ring steps; every row in exactly one split, none empty."""
+    assert plan.rows % 64 == 0 and plan.rows >= 64
+    assert (plan.splits - 1) * plan.rows < m <= plan.splits * plan.rows
+
+
+@pytest.mark.parametrize("mkn", _MM_PLAN_SHAPES, ids=str)
+def test_mm_bwd_plan(mkn):
+    """Kernel #5's launch shape: dx tiles the C side takes (64 or 128 on
+    each side), narrowed only while the card is not filled (264 blocks),
+    never wider than K needs; dw splits cover M."""
+    m, k, n = mkn
+    plan = fcb._mm_bwd_plan(m, k, n)
+    assert plan.bm in (64, 128) and plan.bn in (64, 128)
+    assert plan.bn == 64 or k > 64
+    blocks = -(-m // plan.bm) * -(-k // plan.bn)
+    assert blocks >= fcb._FILL or (plan.bm, plan.bn) == (64, 64)
+    _check_splits(plan, m)
+    assert plan.tn in (64, 128) and plan.tk in (64, 128)
+    assert (plan.tn == 128) == (n > 64) and (plan.tk == 128) == (k > 64)
+    if plan.splits > 1:  # split only to fill the card, at most one split per 512 rows
+        assert plan.splits <= -(-m // 512)
+        assert plan.splits * -(-n // plan.tn) * -(-k // plan.tk) <= fcb._FILL
+
+
+@pytest.mark.parametrize("shape", _C3_PLAN_SHAPES, ids=str)
+def test_c3_bwd_plan(shape):
+    """Kernel #7's launch shape: the gy_eff halo of a dx tile is one run of
+    bm + 2 W + 2 pixels or three of bm + 2, whichever is shorter, so it fits
+    shared memory at any W (csrc/fused_c3.cu checks the same pairs)."""
+    b, h, w, c, cout = shape
+    m = b * h * w
+    plan = fcb._c3_bwd_plan(b, h, w, c, cout)
+    assert plan.bm in (64, 128) and plan.bn == 64
+    one, three = plan.bm + 2 * w + 2, plan.bm + 2
+    assert (plan.nseg, plan.seg_rows) == ((1, one) if one <= 3 * three else (3, three))
+    assert plan.nseg * plan.seg_rows <= 3 * (plan.bm + 2)
+    _check_splits(plan, m)
