@@ -46,8 +46,8 @@ line each (or more), in order:
      (time x calls over a step) against their bounds
   3d fused 3x3 conv kernels likewise at the 4 stride-1 shapes
      (48,56,56,64) ... (48,7,7,512) with the prologue (products alone:
-     torch.nn.grad.conv2d_input + conv2d_weight) and one small odd-sized
-     shape with and without it
+     torch.nn.grad.conv2d_input + conv2d_weight), (48,7,7,512) without it,
+     and one small odd-sized shape with and without it
   6  fused training: Trainer.fit of the same preset with
      fused_conv_bn='kernel' for 2 + 2 steps; per step exactly 1 normalize,
      2 stem forward, 2 stem backward, 72 fused 1x1 forward, 72 backward, 26
@@ -87,10 +87,12 @@ With --profile, [6] also prints the device-time table (torch.profiler) of 3
 fused and 3 unfused main steps.
 
 Times are CUDA-event medians over 30 runs (plain versions of the fused and
-assign kernels: 10) with the 50 MB L2 flushed before each and the device
-held asleep while the host enqueues the run (device time, not the host's
-gaps between launches), or host-clock medians of requests or steps that end
-in a synchronize.
+assign kernels: 10) with the 50 MB L2 flushed before each
+(tools/time_fused.cuda_ms), or host-clock medians of requests or steps that
+end in a synchronize. A kernel's `ms` takes in the host's gaps between its
+launches where the host enqueues them slower than the card runs them; its
+`device_ms` holds the card asleep while the host enqueues the call, so the
+launches run back to back (device time).
 """
 
 from __future__ import annotations
@@ -130,7 +132,8 @@ from multi_modal_regression_tpu_torch.serving import make_inference_fn  # noqa: 
 from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
     C3_SHAPES,
     MM_SHAPES,
-    SLEEP_CYCLES,
+    cuda_ms,
+    fused_inputs,
 )
 from multi_modal_regression_tpu_torch.train import steps  # noqa: E402
 from multi_modal_regression_tpu_torch.train.presets import (  # noqa: E402
@@ -141,7 +144,6 @@ from multi_modal_regression_tpu_torch.train.presets import (  # noqa: E402
 from multi_modal_regression_tpu_torch.train.state import TrainState  # noqa: E402
 from multi_modal_regression_tpu_torch.train.trainer import Trainer, _interleave  # noqa: E402
 
-REPS = 30
 PORT = "multi_modal_regression_tpu_torch"
 JAX_PACKAGE = PORT.removesuffix("_torch")  # the port is named after the JAX package
 # bf16 serving: the normalize kernel rounds differently from its plain
@@ -208,23 +210,11 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
             "library_ms": None}  # no single PyTorch call computes any of these kernels
 
 
-def cuda_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
-    """Median device time of fn() in ms: the L2 flushed before each run and
-    the device held asleep while the host enqueues fn (SLEEP_CYCLES)."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)  # the device waits while the host enqueues fn
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def device_ms(fn, flush: torch.Tensor) -> dict:
+    """{"device_ms": t}: fn's time with the card asleep while the host
+    enqueues it (cuda_ms held), beside the record's `ms`, whose events also
+    take in the host's gaps between launches."""
+    return {"device_ms": cuda_ms(fn, flush, held=True)}
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -284,6 +274,7 @@ def phase_normalize(dev, flush) -> dict:
                     # 1 byte in, 2 out, a multiply and an add per value
                     n = x.numel()
                     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           **device_ms(lambda: preprocess.normalize_images_cuda(x, dtype), flush),
                            **bound(3 * n, 2 * n, PEAK_F32)}
             print(line)
     return rec
@@ -318,6 +309,7 @@ def phase_stem(dev, flush) -> dict:
             if shape[0] == 64 and dtype == torch.bfloat16:
                 # y read, p written; 9 taps x (multiply, add, ReLU, max) per output
                 rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **device_ms(lambda: stem_pool.stem_bn_relu_pool(y, a, b, "kernel"), flush),
                        **bound(2 * (y.numel() + got.numel()), 36 * got.numel(), PEAK_F32)}
     return rec
 
@@ -387,6 +379,7 @@ def phase_stem_bwd(dev, flush) -> dict:
                 # g and y read, dy written; per input element the affine, the
                 # mask, up to 4 window compares and 3 multiply-adds
                 rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **device_ms(lambda: stem_pool.stem_pool_bwd(g, y, a, b), flush),
                        **bound(2 * (g.numel() + 2 * y.numel()), 14 * y.numel(), PEAK_F32)}
     # NaN inputs: NaN wins its windows in both, and propagates into da
     y, g, a, b = _stem_bwd_inputs((4, 8, 16, 12), dev, gen)
@@ -461,6 +454,8 @@ def check_fused(tag, fns, x, wb, ab, gy, gs, flush,
     del got, again
     ms = cuda_ms(lambda: fwd(x, wb, ab, relu), flush)
     bwd_ms = cuda_ms(lambda: bwd(gy, gs, y, x, wb, ab, relu), flush)
+    dev_ms = device_ms(lambda: fwd(x, wb, ab, relu), flush)
+    bwd_dev_ms = device_ms(lambda: bwd(gy, gs, y, x, wb, ab, relu), flush)
     plain_ms = bwd_plain_ms = None
     if time_plain:
         plain_ms = cuda_ms(lambda: fwd_plain(x, wb, ab, relu), flush, 10)
@@ -470,11 +465,12 @@ def check_fused(tag, fns, x, wb, ab, gy, gs, flush,
     print(
         f"{tag}: y max err {y_err:.3g} (<= 1 ulp, < 1% differ), sums {s_err:.2g}, dx max err "
         f"{dx_err:.3g}, dw {dw_err:.2g}, da/db {dab_err:.2g} of max (<= {FUSED_F32_TOL:g}); "
-        f"two runs bit-equal; forward kernel {ms:.4f} ms, {plain[0]}; backward "
-        f"kernel {bwd_ms:.4f} ms, {plain[1]}"
+        f"two runs bit-equal; forward kernel {ms:.4f} ms (device {dev_ms['device_ms']:.4f}), "
+        f"{plain[0]}; backward kernel {bwd_ms:.4f} ms (device {bwd_dev_ms['device_ms']:.4f}), "
+        f"{plain[1]}"
     )
-    return ({"max_abs_err": y_err, "ms": ms, "plain_ms": plain_ms},
-            {"max_abs_err": dx_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms}, y)
+    return ({"max_abs_err": y_err, "ms": ms, "plain_ms": plain_ms, **dev_ms},
+            {"max_abs_err": dx_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_dev_ms}, y)
 
 
 def products_ms(is_3x3: bool, x, wb, ab, gy, gs, y, flush) -> float:
@@ -494,24 +490,6 @@ def products_ms(is_3x3: bool, x, wb, ab, gy, gs, y, flush) -> float:
     return cuda_ms(lambda: (torch.matmul(g2, wb), torch.matmul(g2.t(), x2)), flush)
 
 
-def fused_inputs(x_shape, w_shape, prologue, dev, gen):
-    """bf16 activations ~ N(0, 1), lecun-scaled weights, a BN-like affine,
-    a small output gradient and stats cotangent."""
-    k, n = x_shape[-1], w_shape[0]
-    x = torch.randn(x_shape, device=dev, generator=gen).bfloat16()
-    fan = 1
-    for d in w_shape[1:]:
-        fan *= d
-    wb = (torch.randn(w_shape, device=dev, generator=gen) * fan**-0.5).bfloat16()
-    ab = None
-    if prologue:
-        ab = torch.stack([torch.rand(k, device=dev, generator=gen) * 1.5 + 0.5,
-                          torch.randn(k, device=dev, generator=gen) * 0.3])
-    gy = (torch.randn((*x_shape[:-1], n), device=dev, generator=gen) * 0.1).bfloat16()
-    gs = torch.randn((2, n), device=dev, generator=gen) * 0.01
-    return x, wb, ab, gy, gs
-
-
 def fused_bounds(m: int, k_taps: int, k: int, n: int, prologue: bool) -> tuple[dict, dict]:
     """(forward, backward) bounds of a fused conv with m output rows, k
     input channels over k_taps taps and n output channels. Forward: x and w
@@ -527,9 +505,10 @@ def fused_bounds(m: int, k_taps: int, k: int, n: int, prologue: bool) -> tuple[d
 
 def step_line(tag: str, calls: int, step: dict) -> None:
     print(f"{tag} step sums over {calls} calls a fused step (ms x calls): forward kernel "
-          f"{step['fwd']:.4f} ms against its bound {step['fwd_bound']:.4f} ms; backward kernel "
-          f"{step['bwd']:.4f} ms against {step['bwd_bound']:.4f} ms; backward products only "
-          f"(library yardstick) {step['products']:.4f} ms")
+          f"{step['fwd']:.4f} ms (device {step['fwd_device']:.4f}) against its bound "
+          f"{step['fwd_bound']:.4f} ms; backward kernel {step['bwd']:.4f} ms (device "
+          f"{step['bwd_device']:.4f}) against {step['bwd_bound']:.4f} ms; backward products "
+          f"only (library yardstick) {step['products']:.4f} ms")
 
 
 def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
@@ -541,8 +520,10 @@ def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
         fns = (fused_conv_bn._c3_fwd, fused_conv_bn._c3_plain,
                fused_conv_bn._c3_bwd, fused_conv_bn._c3_bwd_plain)
         # (x shape, cout, prologue, calls, time plain): the 4 stride-1 shapes,
-        # and a small one with odd H, W and image seams inside a 128-pixel tile
+        # layer4's without the prologue, and a small one with odd H, W and
+        # image seams inside a 128-pixel tile
         jobs = [(shape, shape[-1], True, calls, True) for shape, calls in C3_SHAPES]
+        jobs.append(((48, 7, 7, 512), 512, False, 0, False))
         jobs += [((3, 13, 11, 24), 40, pro, 0, True) for pro in (True, False)]
         table = ((48, 56, 56, 64), True)
     else:
@@ -556,7 +537,8 @@ def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
         jobs.append(((9413, 264), 1000, True, 0, True))  # ragged M, K and N no multiples of 64
         table = ((150528, 64), True)
     label = "[3d] fused 3x3" if is_3x3 else "[3c] fused 1x1"
-    step = dict.fromkeys(("fwd", "bwd", "fwd_bound", "bwd_bound", "products"), 0.0)
+    step = dict.fromkeys(("fwd", "bwd", "fwd_device", "bwd_device", "fwd_bound", "bwd_bound",
+                          "products"), 0.0)
     recs = None
     for x_shape, n, pro, calls, time_plain in jobs:
         w_shape = (n, x_shape[-1], 3, 3) if is_3x3 else (n, x_shape[-1])
@@ -571,7 +553,8 @@ def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
         print(f"{tag}: bound forward {bf['bound_ms']:.4f} ms ({bf['bound_by']}), backward "
               f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}); backward products only "
               f"{prod:.4f} ms; {calls} calls a step")
-        for key, v in (("fwd", fwd["ms"]), ("bwd", bwd["ms"]), ("fwd_bound", bf["bound_ms"]),
+        for key, v in (("fwd", fwd["ms"]), ("bwd", bwd["ms"]), ("fwd_device", fwd["device_ms"]),
+                       ("bwd_device", bwd["device_ms"]), ("fwd_bound", bf["bound_ms"]),
                        ("bwd_bound", bb["bound_ms"]), ("products", prod)):
             step[key] += calls * v
         if (x_shape, pro) == table:
@@ -579,9 +562,10 @@ def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
         del args, y
     step_line(label, sum(job[3] for job in jobs), step)
     fwd_rec, bwd_rec = recs
-    fwd_rec.update(step_ms=step["fwd"], step_bound_ms=step["fwd_bound"])
-    bwd_rec.update(step_ms=step["bwd"], step_bound_ms=step["bwd_bound"],
-                   step_products_only_ms=step["products"])
+    fwd_rec.update(step_ms=step["fwd"], step_device_ms=step["fwd_device"],
+                   step_bound_ms=step["fwd_bound"])
+    bwd_rec.update(step_ms=step["bwd"], step_device_ms=step["bwd_device"],
+                   step_bound_ms=step["bwd_bound"], step_products_only_ms=step["products"])
     return fwd_rec, bwd_rec
 
 
@@ -617,7 +601,7 @@ def phase_assign(dev, flush) -> dict:
         )
         if (n, d, k) == (2_000_000, 3, 200):
             rec = {"max_abs_err": float((got - want).abs().max()), "ms": ms,
-                   "plain_ms": plain_ms, **b}
+                   "plain_ms": plain_ms, **device_ms(lambda: assign.assign_bins(y, c), flush), **b}
             # not one call and not the same arithmetic, so no library_ms: two
             # calls through an (N, K) float32 matrix, timed as a yardstick
             cdist_ms = cuda_ms(lambda: torch.cdist(y, c).argmin(dim=1), flush, 10)

@@ -58,8 +58,8 @@
 // BM 64: 80 / 74, shared memory 2 x (3 x (24 x halo + 10,368) + 24) bytes
 // for a halo of `halo` rows: 97,104 B at 56 x 56 (BM 128), 89,040 at 28 x 28,
 // 85,008 at 14 x 14, 73,776 at 7 x 7 (BM 64); two blocks an SM. No spills;
-// above 48 KB the kernels need cudaFuncSetAttribute, checked at every
-// launch.
+// above 48 KB the kernels need cudaFuncSetAttribute: set once per kernel
+// and device (sm90::allow_smem), its error and every launch's checked.
 // Bytes from device memory, at least: 8 M Cout + 6 M C (launch 1 reads gy,
 // y, x and writes gy_eff; launch 2 reads gy_eff, x, writes dx), M 150528,
 // C = Cout = 64: 135 MB, 0.040 ms, against 4 M Cout + 4 M C for the bound;

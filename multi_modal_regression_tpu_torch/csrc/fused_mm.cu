@@ -55,7 +55,8 @@
 //   128 x 64     256       82,944 B       72 / 72
 //   128 x 128    256      107,520 B      130 / 126
 // (+ 128 B of static shared memory with the prologue); no spills. Above
-// 48 KB the kernels need cudaFuncSetAttribute, which every launch checks.
+// 48 KB the kernels need cudaFuncSetAttribute: set once per kernel and
+// device (sm90::allow_smem), its error and every launch's checked.
 // Bytes from device memory, at least: launch 1 reads gy, y, x (4 M N + 2 M K)
 // and writes gy_eff (2 M N); launch 2 reads gy_eff and x (2 M N + 2 M K) and
 // writes dx (2 M K): 8 M N + 6 M K in all (M 150528, K 64, N 256: 366 MB,

@@ -25,6 +25,9 @@
 // reads fall on 8 different 16-byte bank groups.
 #pragma once
 
+#include <mutex>
+#include <vector>
+
 #include "fused_tiles.cuh"
 
 namespace mmr {
@@ -349,11 +352,38 @@ __device__ __forceinline__ void reduce_dw_share(const float* part, float* out, i
   reduce_range(part, out, P, L, lo, lo + per < L ? lo + per : L, s);
 }
 
-// Allow `bytes` of dynamic shared memory for kernel fn (needed above 48 KB).
+// Allow `bytes` of dynamic shared memory for kernel fn on the current device
+// (needed above 48 KB). The attribute holds for the life of the process, so
+// it is set once per kernel and device, and again only for a larger size.
+inline cudaError_t allow_smem_once(const void* fn, int bytes) {
+  struct Allowed {
+    const void* fn;
+    int device, bytes;
+  };
+  static std::mutex mu;
+  static std::vector<Allowed> allowed;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  Allowed* seen = nullptr;
+  for (Allowed& a : allowed) {
+    if (a.fn == fn && a.device == device) seen = &a;
+  }
+  if (seen != nullptr && bytes <= seen->bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  if (seen != nullptr) {
+    seen->bytes = bytes;
+  } else {
+    allowed.push_back({fn, device, bytes});
+  }
+  return cudaSuccess;
+}
+
 template <typename F>
 inline cudaError_t allow_smem(F* fn, int bytes) {
-  return cudaFuncSetAttribute((const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+  return allow_smem_once((const void*)fn, bytes);
 }
 
 }  // namespace sm90

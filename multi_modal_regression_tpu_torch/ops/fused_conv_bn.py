@@ -261,25 +261,25 @@ def _c3_bwd_plan(bsz: int, h: int, w: int, c: int, cout: int) -> BwdPlan:
     return BwdPlan(bm, 64, splits, rows, nseg=nseg, seg_rows=seg_rows)
 
 
-def _bwd_scratch(plan: BwdPlan, m: int, k: int, dw_shape: tuple, dev, prologue: bool):
-    """(part_dw, part_ab, gsum_ab, cnt): the float32 dw partials of the
-    splits, the da, db partials per dx row tile and per group of 16 of them,
-    and the groups' arrival counters (zeroed by the first launch)."""
-    part_dw = None if plan.splits == 1 else torch.empty(
-        (plan.splits, *dw_shape), dtype=torch.float32, device=dev)
-    if not prologue:
-        return part_dw, None, None, None
+def _bwd_scratch(plan: BwdPlan, m: int, k: int, n: int, dw_numel: int, dev, prologue: bool):
+    """One buffer for a backward call's scratch, and the addresses in it of
+    (ge, part_dw, part_ab, gsum_ab, cnt): gy_eff (M, N) bf16, written once
+    by the dw kernel; the float32 dw partials of the splits (None for one
+    split); with the prologue, the da, db partials per dx row tile and per
+    group of 16 of them, and the groups' int32 arrival counters (zeroed by
+    the first launch), else None. Each starts on a 256-byte boundary."""
     mtiles = _cdiv(m, plan.bm)
     groups = _cdiv(mtiles, _GROUP)
-    part_ab = torch.empty((mtiles, 2, k), dtype=torch.float32, device=dev)
-    gsum_ab = torch.empty((groups, 2, k), dtype=torch.float32, device=dev)
-    cnt = torch.empty(_cdiv(k, plan.bn) * (groups + 1), dtype=torch.int32, device=dev)
-    return part_dw, part_ab, gsum_ab, cnt
-
-
-def _check_gs(gs) -> None:
-    if gs.data_ptr() % 16:
-        raise ValueError("gs must be 16-byte aligned")
+    sizes = [2 * m * n, 0 if plan.splits == 1 else 4 * plan.splits * dw_numel]
+    sizes += [8 * mtiles * k, 8 * groups * k, 4 * _cdiv(k, plan.bn) * (groups + 1)] if prologue \
+        else [0, 0, 0]
+    offsets, total = [], 0
+    for size in sizes:
+        offsets.append(total if size else None)
+        total += _cdiv(size, 256) * 256
+    buf = torch.empty(total, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    return buf, [None if off is None else base + off for off in offsets]
 
 
 def _mm_stats(x, wb, ab, relu):
@@ -319,7 +319,6 @@ def _mm_stats_bwd(gy, gs, y, x, wb, ab, relu):
     _check_channels(K=k, N=n)
     _check_f32((2, k), dev, ab=ab)
     _check_f32((2, n), dev, gs=gs)
-    _check_gs(gs)
     m = x.numel() // k
     if m >= 2**31:
         raise ValueError(f"M = {m} does not fit the kernels' 32-bit row index")
@@ -330,13 +329,11 @@ def _mm_stats_bwd(gy, gs, y, x, wb, ab, relu):
     if m == 0:
         return dx, dw, dab
     plan = _mm_bwd_plan(m, k, n)
-    ge = torch.empty_like(gy)  # gy_eff, written once by the dw kernel
-    part_dw, part_ab, gsum_ab, cnt = _bwd_scratch(plan, m, k, (n, k), dev, ab is not None)
+    scratch, ptrs = _bwd_scratch(plan, m, k, n, n * k, dev, ab is not None)  # held until return
     err = _build.load().mmr_mm_stats_bwd(
         gy.data_ptr(), y.data_ptr(), x.data_ptr(), wb.data_ptr(), gs.data_ptr(),
-        _ptr(ab), dx.data_ptr(), dw.data_ptr(), _ptr(dab), ge.data_ptr(), _ptr(part_dw),
-        _ptr(part_ab), _ptr(gsum_ab), _ptr(cnt), m, k, n, int(relu), plan.splits,
-        plan.rows, plan.bm, plan.bn, plan.tn, plan.tk, *_build.launch_args(x),
+        _ptr(ab), dx.data_ptr(), dw.data_ptr(), _ptr(dab), *ptrs, m, k, n, int(relu),
+        plan.splits, plan.rows, plan.bm, plan.bn, plan.tn, plan.tk, *_build.launch_args(x),
     )
     _build.check(err, "fused 1x1 backward kernel")
     mm_bwd_launches += 1
@@ -399,16 +396,13 @@ def _c3_bwd(gy, gs, y, x, wb, ab, relu):
     dw9 = fill((3, 3, cout, c), dtype=torch.float32, device=dev)
     dab = None if ab is None else fill((2, c), dtype=torch.float32, device=dev)
     if m > 0:
-        _check_gs(gs)
         w9 = _taps_first(wb)
         plan = _c3_bwd_plan(bsz, h, w, c, cout)
-        ge = torch.empty_like(gy)  # gy_eff, written once by the dw kernel
-        part_dw, part_ab, gsum_ab, cnt = _bwd_scratch(
-            plan, m, c, (3, 3, cout, c), dev, ab is not None)
+        scratch, ptrs = _bwd_scratch(  # held until return
+            plan, m, c, cout, 9 * cout * c, dev, ab is not None)
         err = _build.load().mmr_c3_bwd(
             gy.data_ptr(), y.data_ptr(), x.data_ptr(), w9.data_ptr(), gs.data_ptr(),
-            _ptr(ab), dx.data_ptr(), dw9.data_ptr(), _ptr(dab), ge.data_ptr(),
-            _ptr(part_dw), _ptr(part_ab), _ptr(gsum_ab), _ptr(cnt), bsz, h, w, c, cout,
+            _ptr(ab), dx.data_ptr(), dw9.data_ptr(), _ptr(dab), *ptrs, bsz, h, w, c, cout,
             int(relu), plan.splits, plan.rows, plan.bm, plan.nseg, plan.seg_rows,
             *_build.launch_args(x),
         )
@@ -472,8 +466,6 @@ class _FusedConvStats(torch.autograd.Function):
     def backward(ctx, gy, gs):
         x, ab, wb, y = ctx.saved_tensors
         gy, gs = gy.contiguous(), gs.float().contiguous()
-        if gs.data_ptr() % 16:  # the kernels read gs as float4
-            gs = gs.clone()
         if ctx.is_3x3:
             bwd = _c3_bwd if ctx.kernel else _c3_bwd_plain
         else:

@@ -8,9 +8,11 @@ The first form times the four kernels of `ops/fused_conv_bn` (#4 `_mm_stats`,
 --root (default: the checkout that holds this file) at every shape that one
 fused training step of the `geodesic_bd` preset gives them (two 48-image
 streams, `MM_SHAPES` and `C3_SHAPES`), and prints one JSON line: per shape
-the CUDA-event median of each kernel's device time (`cuda_ms`), per kernel
-the step sum (ms x calls per step). Inputs come from a seed, the same in
-every run.
+and kernel the CUDA-event medians `ms` (the events also take in the host's
+gaps between launches) and `device_ms` (the card asleep while the host
+enqueues the call), and `host_ms`, the host's time for one call; per kernel
+the step sums of each (ms x calls per step). Inputs come from a seed, the
+same in every run.
 
 --against DIR compares two checkouts on one card: it runs the first form for
 DIR, this checkout, this checkout and DIR, in that order, each in a process
@@ -26,7 +28,10 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
+
+import torch
 
 # (M, K, N, prologue, calls per step) of the 1x1 convolutions, and
 # ((B, H, W, C), calls per step) of the stride-1 3x3 convolutions (C -> C,
@@ -44,21 +49,24 @@ C3_SHAPES = (((48, 56, 56, 64), 6), ((48, 28, 28, 128), 6), ((48, 14, 14, 256), 
              ((48, 7, 7, 512), 4))
 REPS = 30
 # ~1 ms of device time at the H100's clocks: longer than the host takes to
-# enqueue one call of a wrapper, so the events time the device's work and
-# not the host's gaps between launches
+# enqueue one call of a wrapper
 SLEEP_CYCLES = 2_000_000
 
 
-def cuda_ms(torch, fn, flush, reps: int = REPS) -> float:
-    """Median device time of fn() in ms: the 50 MB L2 flushed before each
-    run, and the device held in `torch.cuda._sleep` while the host enqueues
-    fn, so that its launches run back to back between the two events."""
+def cuda_ms(fn, flush: torch.Tensor, reps: int = REPS, held: bool = False) -> float:
+    """Median time of fn() in ms between two CUDA events, the 50 MB L2
+    flushed before each run. held False: the events also take in the host's
+    gaps between fn's launches where the host enqueues them slower than the
+    card runs them (chip_smoke.py's `ms`). held True: the card sleeps
+    (SLEEP_CYCLES) while the host enqueues fn, so its launches run back to
+    back: device time."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(SLEEP_CYCLES)  # the device waits while the host enqueues fn
+        if held:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -69,7 +77,23 @@ def cuda_ms(torch, fn, flush, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def inputs(torch, x_shape, w_shape, prologue, dev, gen):
+def host_ms(fn, reps: int = REPS) -> float:
+    """Median host time in ms of one call of fn, the card asleep meanwhile so
+    that the host never waits for it: what a wrapper costs the host."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def fused_inputs(x_shape, w_shape, prologue, dev, gen):
     """bf16 activations ~ N(0, 1), lecun-scaled weights, a BN-like affine,
     a small output gradient and stats cotangent."""
     k, n = x_shape[-1], w_shape[0]
@@ -87,28 +111,36 @@ def inputs(torch, x_shape, w_shape, prologue, dev, gen):
     return x, wb, ab, gy, gs
 
 
-def time_all(reps: int) -> dict:
-    import torch
+def time_call(fn, flush, reps: int) -> dict:
+    """A call's times in ms: `ms` and `device_ms` (cuda_ms with held False
+    and True) and `host_ms`."""
+    return {"ms": cuda_ms(fn, flush, reps), "device_ms": cuda_ms(fn, flush, reps, held=True),
+            "host_ms": host_ms(fn, reps)}
 
+
+def time_all(reps: int) -> dict:
     from multi_modal_regression_tpu_torch.ops import fused_conv_bn as fcb
 
     dev = torch.device("cuda", 0)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows, sums = [], {"mm_stats": 0.0, "mm_stats_bwd": 0.0, "c3_fwd": 0.0, "c3_bwd": 0.0}
+    rows, sums = [], {}
     jobs = [(f"1x1 ({m}, {k} -> {n}){' prologue' if pro else ''}", (m, k), (n, k), pro, calls,
              fcb._mm_stats, fcb._mm_stats_bwd, "mm") for m, k, n, pro, calls in MM_SHAPES]
     jobs += [(f"3x3 {shape} prologue", shape, (shape[-1], shape[-1], 3, 3), True, calls,
               fcb._c3_fwd, fcb._c3_bwd, "c3") for shape, calls in C3_SHAPES]
     for tag, x_shape, w_shape, pro, calls, fwd, bwd, kind in jobs:
-        x, wb, ab, gy, gs = inputs(torch, x_shape, w_shape, pro, dev, gen)
+        x, wb, ab, gy, gs = fused_inputs(x_shape, w_shape, pro, dev, gen)
         y, _ = fwd(x, wb, ab, pro)
-        f_ms = cuda_ms(torch, lambda: fwd(x, wb, ab, pro), flush, reps)
-        b_ms = cuda_ms(torch, lambda: bwd(gy, gs, y, x, wb, ab, pro), flush, reps)
         names = ("mm_stats", "mm_stats_bwd") if kind == "mm" else ("c3_fwd", "c3_bwd")
-        sums[names[0]] += calls * f_ms
-        sums[names[1]] += calls * b_ms
-        rows.append({"shape": tag, "calls": calls, names[0]: f_ms, names[1]: b_ms})
+        row = {"shape": tag, "calls": calls}
+        for name, fn in ((names[0], lambda: fwd(x, wb, ab, pro)),
+                         (names[1], lambda: bwd(gy, gs, y, x, wb, ab, pro))):
+            row[name] = time_call(fn, flush, reps)
+            step = sums.setdefault(name, dict.fromkeys(row[name], 0.0))
+            for key, v in row[name].items():
+                step[key] += calls * v
+        rows.append(row)
         del x, wb, ab, gy, gs, y
     return {"device": torch.cuda.get_device_name(0), "shapes": rows, "step_ms": sums}
 
@@ -128,24 +160,28 @@ def compare(base: Path, reps: int) -> None:
     runs = [run_one(r, reps) for r in (base, here, here, base)]
     old, new = (runs[0], runs[3]), (runs[1], runs[2])
 
-    def med(pair, i, key):
-        return statistics.median(r["shapes"][i][key] for r in pair)
+    def med(pair, get):
+        return statistics.median(get(r) for r in pair)
+
+    def parts(get_old_new, keys):
+        out = []
+        for key in keys:
+            o, n = (med(pair, lambda r: get_old_new(r)[key]) for pair in (old, new))
+            out.append(f"{key} old {o:.4f} new {n:.4f} ({n / o:.3f}x)")
+        return ", ".join(out)
 
     print(f"device: {runs[0]['device']}; {base} (old) against {here} (new), "
-          "runs old, new, new, old")
+          "runs old, new, new, old; ms, device_ms and host_ms per call")
     for i, row in enumerate(runs[0]["shapes"]):
-        keys = [k for k in row if k not in ("shape", "calls")]
-        parts = []
-        for key in keys:
-            o, n = med(old, i, key), med(new, i, key)
-            parts.append(f"{key} old {o:.4f} new {n:.4f} ms ({n / o:.3f}x)")
-        print(f"{row['shape']} x{row['calls']}: " + "; ".join(parts))
+        for name in (k for k in row if k not in ("shape", "calls")):
+            line = parts(lambda r: r["shapes"][i][name], row[name])
+            print(f"{row['shape']} x{row['calls']} {name}: {line}")
     summary = {}
-    for key in runs[0]["step_ms"]:
-        o = statistics.median(r["step_ms"][key] for r in old)
-        n = statistics.median(r["step_ms"][key] for r in new)
-        summary[key] = {"old_step_ms": o, "new_step_ms": n, "ratio": n / o}
-        print(f"step sum {key}: old {o:.4f} ms, new {n:.4f} ms ({n / o:.3f}x)")
+    for name, keys in runs[0]["step_ms"].items():
+        summary[name] = {key: {side: med(pair, lambda r: r["step_ms"][name][key])
+                               for side, pair in (("old", old), ("new", new))} for key in keys}
+        print(f"step sum {name} (ms x calls): "
+              + parts(lambda r: r["step_ms"][name], keys))
     print(json.dumps({"runs": runs, "summary": summary}))
 
 

@@ -570,3 +570,32 @@ def test_c3_bwd_plan(shape):
     assert (plan.nseg, plan.seg_rows) == ((1, one) if one <= 3 * three else (3, three))
     assert plan.nseg * plan.seg_rows <= 3 * (plan.bm + 2)
     _check_splits(plan, m)
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("mkn", [(20000, 64, 64), (300, 512, 2048), (9413, 264, 1000)],
+                         ids=str)
+def test_bwd_scratch(mkn, prologue):
+    """A backward call's scratch is one buffer: gy_eff (M, N) bf16, the dw
+    partials of the splits, and with the prologue the da, db partials, their
+    group sums and counters, each on a 256-byte boundary, none overlapping,
+    all inside the buffer; absent parts have no address."""
+    m, k, n = mkn
+    plan = fcb._mm_bwd_plan(m, k, n)
+    buf, ptrs = fcb._bwd_scratch(plan, m, k, n, n * k, torch.device("cpu"), prologue)
+    mtiles = -(-m // plan.bm)
+    groups = -(-mtiles // fcb._GROUP)
+    sizes = [2 * m * n, 4 * plan.splits * n * k if plan.splits > 1 else 0]
+    sizes += [8 * mtiles * k, 8 * groups * k, 4 * -(-k // plan.bn) * (groups + 1)] if prologue \
+        else [0, 0, 0]
+    assert len(ptrs) == 5 and buf.dtype == torch.uint8
+    base, end = buf.data_ptr(), buf.data_ptr() + buf.numel()
+    spans = []
+    for ptr, size in zip(ptrs, sizes):
+        assert (ptr is None) == (size == 0)
+        if ptr is not None:
+            assert (ptr - base) % 256 == 0 and base <= ptr and ptr + size <= end
+            spans.append((ptr, ptr + size))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
