@@ -42,12 +42,14 @@ line each (or more), in order:
      ulp apart on under 1% of the elements, sums, dw, da, db within
      FUSED_F32_TOL of their largest magnitude; two runs bit-equal; kernel
      times at every shape (plain versions at four of them), the bf16
-     products alone through torch.matmul as a yardstick, and the step sums
-     (time x calls over a step) against their bounds
+     products alone through torch.matmul as yardsticks (forward xhat w^T;
+     backward's two), and the step sums (time x calls over a step) against
+     their bounds
   3d fused 3x3 conv kernels likewise at the 4 stride-1 shapes
      (48,56,56,64) ... (48,7,7,512) with the prologue (products alone:
-     torch.nn.grad.conv2d_input + conv2d_weight), (48,7,7,512) without it,
-     and one small odd-sized shape with and without it
+     F.conv2d on channels-last xhat; torch.nn.grad.conv2d_input +
+     conv2d_weight), (48,7,7,512) without it, and one small odd-sized shape
+     with and without it
   6  fused training: Trainer.fit of the same preset with
      fused_conv_bn='kernel' for 2 + 2 steps; per step exactly 1 normalize,
      2 stem forward, 2 stem backward, 72 fused 1x1 forward, 72 backward, 26
@@ -78,7 +80,7 @@ line each (or more), in order:
      nonzero, running statistics moved; the plain path within TRAIN_TOL
      (relaxed_bd's main-phase loss and Lr, which decode through an argmax
      over nearly flat scores, within SOFT_DECODE_TOL)
-  9  one JSON line of the kernels (time, plain time and the bound of each:
+  9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
      rate of their type), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -92,7 +94,9 @@ assign kernels: 10) with the 50 MB L2 flushed before each
 end in a synchronize. A kernel's `ms` takes in the host's gaps between its
 launches where the host enqueues them slower than the card runs them; its
 `device_ms` holds the card asleep while the host enqueues the call, so the
-launches run back to back (device time).
+launches run back to back (device time). Plain versions and the products'
+yardsticks are timed both ways too (`plain_ms`, `plain_device_ms`; the
+yardsticks' `..._ms` and `..._device_ms`): compare like with like.
 """
 
 from __future__ import annotations
@@ -132,6 +136,7 @@ from multi_modal_regression_tpu_torch.serving import make_inference_fn  # noqa: 
 from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
     C3_SHAPES,
     MM_SHAPES,
+    REPS,
     cuda_ms,
     fused_inputs,
 )
@@ -210,11 +215,11 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
             "library_ms": None}  # no single PyTorch call computes any of these kernels
 
 
-def device_ms(fn, flush: torch.Tensor) -> dict:
-    """{"device_ms": t}: fn's time with the card asleep while the host
-    enqueues it (cuda_ms held), beside the record's `ms`, whose events also
-    take in the host's gaps between launches."""
-    return {"device_ms": cuda_ms(fn, flush, held=True)}
+def device_ms(fn, flush: torch.Tensor, key: str = "device_ms", reps: int = REPS) -> dict:
+    """{key: t}: fn's time with the card asleep while the host enqueues it
+    (cuda_ms held), beside the record's `ms` (or `plain_ms`), whose events
+    also take in the host's gaps between launches."""
+    return {key: cuda_ms(fn, flush, reps, held=True)}
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -275,6 +280,8 @@ def phase_normalize(dev, flush) -> dict:
                     n = x.numel()
                     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                            **device_ms(lambda: preprocess.normalize_images_cuda(x, dtype), flush),
+                           **device_ms(lambda: normalize_images(x, dtype), flush,
+                                       "plain_device_ms"),
                            **bound(3 * n, 2 * n, PEAK_F32)}
             print(line)
     return rec
@@ -310,6 +317,8 @@ def phase_stem(dev, flush) -> dict:
                 # y read, p written; 9 taps x (multiply, add, ReLU, max) per output
                 rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        **device_ms(lambda: stem_pool.stem_bn_relu_pool(y, a, b, "kernel"), flush),
+                       **device_ms(lambda: stem_pool._composite(y, a, b), flush,
+                                   "plain_device_ms"),
                        **bound(2 * (y.numel() + got.numel()), 36 * got.numel(), PEAK_F32)}
     return rec
 
@@ -380,6 +389,8 @@ def phase_stem_bwd(dev, flush) -> dict:
                 # mask, up to 4 window compares and 3 multiply-adds
                 rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        **device_ms(lambda: stem_pool.stem_pool_bwd(g, y, a, b), flush),
+                       **device_ms(lambda: stem_pool._plain_bwd(g, y, a, b), flush,
+                                   "plain_device_ms"),
                        **bound(2 * (g.numel() + 2 * y.numel()), 14 * y.numel(), PEAK_F32)}
     # NaN inputs: NaN wins its windows in both, and propagates into da
     y, g, a, b = _stem_bwd_inputs((4, 8, 16, 12), dev, gen)
@@ -456,38 +467,53 @@ def check_fused(tag, fns, x, wb, ab, gy, gs, flush,
     bwd_ms = cuda_ms(lambda: bwd(gy, gs, y, x, wb, ab, relu), flush)
     dev_ms = device_ms(lambda: fwd(x, wb, ab, relu), flush)
     bwd_dev_ms = device_ms(lambda: bwd(gy, gs, y, x, wb, ab, relu), flush)
-    plain_ms = bwd_plain_ms = None
+    plain = ({"plain_ms": None, "plain_device_ms": None},
+             {"plain_ms": None, "plain_device_ms": None})
     if time_plain:
-        plain_ms = cuda_ms(lambda: fwd_plain(x, wb, ab, relu), flush, 10)
-        bwd_plain_ms = cuda_ms(lambda: bwd_plain(gy, gs, y, x, wb, ab, relu), flush, 10)
-    plain = (f"plain {plain_ms:.4f} ms", f"plain {bwd_plain_ms:.4f} ms") if time_plain else (
-        "plain not timed here", "plain not timed here")
+        for rec, fn in zip(plain, (lambda: fwd_plain(x, wb, ab, relu),
+                                   lambda: bwd_plain(gy, gs, y, x, wb, ab, relu))):
+            rec.update(plain_ms=cuda_ms(fn, flush, 10),
+                       **device_ms(fn, flush, "plain_device_ms", 10))
+    said = [f"plain {r['plain_ms']:.4f} ms (device {r['plain_device_ms']:.4f})" if time_plain
+            else "plain not timed here" for r in plain]
     print(
         f"{tag}: y max err {y_err:.3g} (<= 1 ulp, < 1% differ), sums {s_err:.2g}, dx max err "
         f"{dx_err:.3g}, dw {dw_err:.2g}, da/db {dab_err:.2g} of max (<= {FUSED_F32_TOL:g}); "
         f"two runs bit-equal; forward kernel {ms:.4f} ms (device {dev_ms['device_ms']:.4f}), "
-        f"{plain[0]}; backward kernel {bwd_ms:.4f} ms (device {bwd_dev_ms['device_ms']:.4f}), "
-        f"{plain[1]}"
+        f"{said[0]}; backward kernel {bwd_ms:.4f} ms (device {bwd_dev_ms['device_ms']:.4f}), "
+        f"{said[1]}"
     )
-    return ({"max_abs_err": y_err, "ms": ms, "plain_ms": plain_ms, **dev_ms},
-            {"max_abs_err": dx_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_dev_ms}, y)
+    return ({"max_abs_err": y_err, "ms": ms, **plain[0], **dev_ms},
+            {"max_abs_err": dx_err, "ms": bwd_ms, **plain[1], **bwd_dev_ms}, y)
 
 
-def products_ms(is_3x3: bool, x, wb, ab, gy, gs, y, flush) -> float:
-    """A yardstick, used nowhere in the port: the backward's two bf16
-    products alone, one library call each (torch.matmul for the 1x1,
-    torch.nn.grad.conv2d_input and conv2d_weight for the 3x3), on gy_eff and
-    xhat formed beforehand. Not the same function: no gy_eff, prologue,
-    mask, da or db."""
+def products_ms(is_3x3: bool, x, wb, ab, gy, gs, y, flush) -> dict:
+    """Yardsticks, used nowhere in the port: the bf16 products alone, one
+    library call each, on xhat and gy_eff formed beforehand. "fwd": the
+    forward's product (torch.matmul(xhat, w^T) for the 1x1, F.conv2d on a
+    channels-last xhat for the 3x3); "bwd": the backward's two
+    (torch.matmul for the 1x1, torch.nn.grad.conv2d_input and conv2d_weight
+    for the 3x3). Not the same functions: no prologue, statistics, gy_eff,
+    mask, da or db. Each on both timers: "fwd", "bwd" as the kernels' `ms`,
+    "fwd_device", "bwd_device" as their `device_ms`."""
     ge = fused_conv_bn._gy_eff(gy, y, gs)
     _, xh = fused_conv_bn._prologue(x, ab, ab is not None)
     if is_3x3:
-        gn, xn = ge.permute(0, 3, 1, 2), xh.permute(0, 3, 1, 2)
-        return cuda_ms(lambda: (
-            torch.nn.grad.conv2d_input(xn.shape, wb, gn, padding=1),
-            torch.nn.grad.conv2d_weight(xn, wb.shape, gn, padding=1)), flush)
-    g2, x2 = ge.reshape(-1, ge.shape[-1]), xh.reshape(-1, xh.shape[-1])
-    return cuda_ms(lambda: (torch.matmul(g2, wb), torch.matmul(g2.t(), x2)), flush)
+        gn, xn = ge.permute(0, 3, 1, 2), xh.permute(0, 3, 1, 2)  # channels-last NCHW views
+        wl = wb.contiguous(memory_format=torch.channels_last)
+        fns = {"fwd": lambda: torch.nn.functional.conv2d(xn, wl, padding=1),
+               "bwd": lambda: (torch.nn.grad.conv2d_input(xn.shape, wb, gn, padding=1),
+                               torch.nn.grad.conv2d_weight(xn, wb.shape, gn, padding=1))}
+    else:
+        g2, x2 = ge.reshape(-1, ge.shape[-1]), xh.reshape(-1, xh.shape[-1])
+        wt = wb.t()
+        fns = {"fwd": lambda: torch.matmul(x2, wt),
+               "bwd": lambda: (torch.matmul(g2, wb), torch.matmul(g2.t(), x2))}
+    out = {}
+    for key, fn in fns.items():
+        out[key] = cuda_ms(fn, flush)
+        out.update(device_ms(fn, flush, f"{key}_device"))
+    return out
 
 
 def fused_bounds(m: int, k_taps: int, k: int, n: int, prologue: bool) -> tuple[dict, dict]:
@@ -507,8 +533,10 @@ def step_line(tag: str, calls: int, step: dict) -> None:
     print(f"{tag} step sums over {calls} calls a fused step (ms x calls): forward kernel "
           f"{step['fwd']:.4f} ms (device {step['fwd_device']:.4f}) against its bound "
           f"{step['fwd_bound']:.4f} ms; backward kernel {step['bwd']:.4f} ms (device "
-          f"{step['bwd_device']:.4f}) against {step['bwd_bound']:.4f} ms; backward products "
-          f"only (library yardstick) {step['products']:.4f} ms")
+          f"{step['bwd_device']:.4f}) against {step['bwd_bound']:.4f} ms; products only "
+          f"(library yardsticks) forward {step['fwd_products']:.4f} ms (device "
+          f"{step['fwd_products_device']:.4f}), backward {step['products']:.4f} ms (device "
+          f"{step['products_device']:.4f})")
 
 
 def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
@@ -538,7 +566,8 @@ def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
         table = ((150528, 64), True)
     label = "[3d] fused 3x3" if is_3x3 else "[3c] fused 1x1"
     step = dict.fromkeys(("fwd", "bwd", "fwd_device", "bwd_device", "fwd_bound", "bwd_bound",
-                          "products"), 0.0)
+                          "products", "products_device", "fwd_products",
+                          "fwd_products_device"), 0.0)
     recs = None
     for x_shape, n, pro, calls, time_plain in jobs:
         w_shape = (n, x_shape[-1], 3, 3) if is_3x3 else (n, x_shape[-1])
@@ -551,21 +580,31 @@ def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
         bf, bb = fused_bounds(m, 9 if is_3x3 else 1, x_shape[-1], n, pro)
         prod = products_ms(is_3x3, *args, y, flush)
         print(f"{tag}: bound forward {bf['bound_ms']:.4f} ms ({bf['bound_by']}), backward "
-              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}); backward products only "
-              f"{prod:.4f} ms; {calls} calls a step")
+              f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}); products only: forward "
+              f"{prod['fwd']:.4f} ms (device {prod['fwd_device']:.4f}), backward "
+              f"{prod['bwd']:.4f} ms (device {prod['bwd_device']:.4f}); {calls} calls a step")
         for key, v in (("fwd", fwd["ms"]), ("bwd", bwd["ms"]), ("fwd_device", fwd["device_ms"]),
                        ("bwd_device", bwd["device_ms"]), ("fwd_bound", bf["bound_ms"]),
-                       ("bwd_bound", bb["bound_ms"]), ("products", prod)):
+                       ("bwd_bound", bb["bound_ms"]), ("products", prod["bwd"]),
+                       ("products_device", prod["bwd_device"]),
+                       ("fwd_products", prod["fwd"]),
+                       ("fwd_products_device", prod["fwd_device"])):
             step[key] += calls * v
         if (x_shape, pro) == table:
-            recs = ({**fwd, **bf}, {**bwd, **bb, "products_only_ms": prod})
+            recs = ({**fwd, **bf, "fwd_products_only_ms": prod["fwd"],
+                     "fwd_products_only_device_ms": prod["fwd_device"]},
+                    {**bwd, **bb, "products_only_ms": prod["bwd"],
+                     "products_only_device_ms": prod["bwd_device"]})
         del args, y
     step_line(label, sum(job[3] for job in jobs), step)
     fwd_rec, bwd_rec = recs
     fwd_rec.update(step_ms=step["fwd"], step_device_ms=step["fwd_device"],
-                   step_bound_ms=step["fwd_bound"])
+                   step_bound_ms=step["fwd_bound"],
+                   step_fwd_products_only_ms=step["fwd_products"],
+                   step_fwd_products_only_device_ms=step["fwd_products_device"])
     bwd_rec.update(step_ms=step["bwd"], step_device_ms=step["bwd_device"],
-                   step_bound_ms=step["bwd_bound"], step_products_only_ms=step["products"])
+                   step_bound_ms=step["bwd_bound"], step_products_only_ms=step["products"],
+                   step_products_only_device_ms=step["products_device"])
     return fwd_rec, bwd_rec
 
 
@@ -601,7 +640,9 @@ def phase_assign(dev, flush) -> dict:
         )
         if (n, d, k) == (2_000_000, 3, 200):
             rec = {"max_abs_err": float((got - want).abs().max()), "ms": ms,
-                   "plain_ms": plain_ms, **device_ms(lambda: assign.assign_bins(y, c), flush), **b}
+                   "plain_ms": plain_ms, **device_ms(lambda: assign.assign_bins(y, c), flush),
+                   **device_ms(lambda: assign.assign_bins_plain(y, c), flush,
+                               "plain_device_ms", 10), **b}
             # not one call and not the same arithmetic, so no library_ms: two
             # calls through an (N, K) float32 matrix, timed as a yardstick
             cdist_ms = cuda_ms(lambda: torch.cdist(y, c).argmin(dim=1), flush, 10)

@@ -22,11 +22,43 @@
 // 11.1 GFLOP forward) and operations from layer2 on. The TPU kernel handles
 // whole images per grid step and builds W-shifted copies by rolls in VMEM.
 //
-// Forward design: an implicit GEMM over M = B*H*W output pixels; a block
-// owns 128 consecutive pixels x 64 output channels and walks the 9 taps x
-// C/32 channel steps, gathering each operand tile from the shifted pixels
-// (bounds-checked per row, so borders, image seams inside a tile and the
-// ragged last tile are one case). Not yet: a halo tile, pipelining, wgmma.
+// Forward design: an implicit GEMM over M = B*H*W output pixels on the
+// building blocks of sm90_tiles.cuh (cp.async ring, ldmatrix, mma.sync
+// m16n8k16), two launches:
+//   1. c3_fwd_kernel: tiles of BM (256, or 128 where W is so wide that the
+//      halo of 256 would keep two blocks off an SM) consecutive pixels x 64
+//      output channels; a block walks every mgroups-th tile of one channel
+//      tile (at most 264 blocks, 2 an SM), in steps of 16 input channels
+//      through 2 ring slots that run on across its tiles (3 would keep two
+//      blocks of 256 pixels off an SM). Per step one
+//      halo of x (rows m0 - W - 1 .. m0 + BM + W, or, where 2 W + 2 exceeds
+//      2 (BM + 2), three runs of BM + 2 around m0 - W, m0, m0 + W) and the 9
+//      taps' 64 x 16 weight tiles land in the slot; the prologue is applied
+//      once per halo element there, by the thread that copied it. All 9
+//      taps read their A rows from that one halo through per-lane ldmatrix
+//      addresses (pixel p + dy W + dx); a lane whose neighbour lies outside
+//      the image (border, image seam inside the tile, ragged end) points at
+//      a row of zeros that the prologue never touches, which is the padding
+//      after the prologue. A 144-deep reduction a step; the epilogue is
+//      fused_mm.cu's (y rounded in registers and written in 16-byte chunks,
+//      running fixed-order statistics, one partial per block). 256-pixel
+//      tiles halve the weight bytes per pixel that every step pulls from L2
+//      against 128.
+//   2. reduce_partials_kernel sums the partials in a fixed order.
+//   Where the tiles are fewer than the SMs (layer4: 10 x 8 tiles), C is
+//   split to fill the card (3 splits there): launch 1 writes each split's
+//   float32 products and launch 2 is split_fixup_kernel (fused_tiles.cuh),
+//   which sums them in split order, rounds once, writes y and takes the
+//   sums of the rounded y in a fixed order.
+// Per block (ptxas -v, sm_90a; registers with / without the prologue):
+// 256 threads; BM 256: 128 / 128 registers, 24 / 24 bytes of spills; BM
+// 128: 126 / 123, no spills; shared memory 48 + 32 BM + slots x (48 x halo
+// + 27,648) bytes for a halo of `halo` rows: 94,960 B at 56 x 56, 89,584 at
+// 28 x 28, 86,896 at 14 x 14, 85,552 at 7 x 7 (BM 256, 2 slots); two blocks
+// an SM. Bytes from device memory, at least: x and y once (the bound's
+// 2 M C + 2 M Cout); the halo's overlap, the other channel tiles' re-reads
+// of x and the weight tiles come from L2. Not yet: wgmma, TMA, x
+// transformed once for all output-channel tiles.
 //
 // Backward design: two launches on the building blocks of sm90_tiles.cuh
 // (3-stage cp.async ring, ldmatrix, mma.sync m16n8k16). Every tap reads its
@@ -72,80 +104,226 @@
 namespace {
 
 using namespace mmr;
+using namespace mmr::sm90;
 
-template <bool PRO>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+constexpr int kLd64 = 72;  // pitch of a 64-channel tile
+constexpr int kChunk = 16;  // channels of one ring step of the forward and dx kernels
+constexpr int kLdH = kChunk + 8;  // pitch of a 16-channel tile (halo, forward weights)
+
+// ---- forward ----------------------------------------------------------------
+
+// Halo row j (of nseg segments of seg_rows rows) holds pixel m0 - W - 1 + j
+// with one segment; with three, row s seg_rows + t holds m0 + (s - 1) W -
+// 1 + t.
+__device__ __forceinline__ int halo_pixel(int j, int m0, int W, int nseg, int seg_rows) {
+  return nseg == 1 ? m0 - (W + 1) + j : m0 + (j / seg_rows - 1) * W - 1 + j % seg_rows;
+}
+
+constexpr int kFwdStages = 2;  // ring slots of the forward
+
+// Shared memory of the forward: a row of zeros, the running statistics
+// (WM x 2 x 64 floats), then the slots the ring uses (kFwdStages, or fewer
+// where the block has fewer steps; per slot the halo of x, halo rows x 16
+// channels, and the 9 taps' 64 x 16 weight tiles).
+inline int c3_fwd_smem(int bm, int halo_rows, int steps) {
+  const int slots = kFwdStages < steps ? kFwdStages : steps;
+  return kLdH * 2 + (bm / 32) * 2 * 64 * 4 + slots * (halo_rows * kLdH + 9 * 64 * kLdH) * 2;
+}
+
+// Block (g, ot) owns output channels o0 = 64 ot.. and the pixel tiles g,
+// g + mgroups, ..: BM pixels (m0..) each; 8 warps as WM = BM / 32 (pixels)
+// x WN = 8 / WM (channels), each 32 x (64 / WN). The ring runs over the
+// block's (tile, 16-channel step) pairs in order, kFwdStages slots, so the
+// next tile's loads are in flight while this one multiplies and writes y.
+// Per step one halo of x, the prologue applied once per halo element in the
+// slot (rows outside [0, M) and channels past C stay the zeros cp.async
+// wrote), and the 9 taps' weight tiles; all 9 taps read their A rows from
+// that halo, a 144-deep reduction a step. With one split, each tile's y
+// and statistics come out in the epilogue and the block's statistics over
+// all its tiles are one partial, p = g; with ksplit > 1, block (g, ot, sp)
+// walks split sp of the channel steps (ceil(csteps / ksplit) each, the last
+// shorter) and each tile's float32 products go to ypart[sp] (mgroups is
+// then every tile) for split_fixup_kernel.
+template <bool PRO, int BM>
+__global__ void __launch_bounds__(256, 2)
 c3_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w9,
               const float* __restrict__ ab, bf16* __restrict__ y,
-              float* __restrict__ partial, int B, int H, int W, int C, int Cout, int relu) {
-  __shared__ __align__(128) unsigned char tile[kStageBytes];
-  __shared__ float sRed[8][2][kBN];
-  bf16* sA = reinterpret_cast<bf16*>(tile);  // gathered xhat, sA[pixel][c]
-  bf16* sB = sA + kBM * kLdA;                // w9[tap] tile as sB[cout][c]
-  float* sC = reinterpret_cast<float*>(tile);
-  const int M = B * H * W;
-  const int ntiles = (Cout + kBN - 1) / kBN;
-  const int mt = blockIdx.x / ntiles, nt = blockIdx.x % ntiles;
-  const int m0 = mt * kBM, n0 = nt * kBN;
-  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-  // this thread gathers chunk kc of rows arow and arow + 64
-  const int arow = threadIdx.x / 4, kc = (threadIdx.x % 4) * 8;
-  int ph[2], pw[2];
-  bool pv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gm = m0 + arow + 64 * i;
-    pv[i] = gm < M;
-    pw[i] = gm % W;
-    ph[i] = (gm / W) % H;
-  }
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+              float* __restrict__ partial, int H, int W, int C, int Cout, int M, int relu,
+              int seg_rows, int nseg, int mgroups, int ksplit) {
+  constexpr int WM = BM / 32, WN = 8 / WM, NI = 64 / WN / 8;
+  constexpr int kB = 9 * 64 * kLdH, kWChunks = 9 * 64 * 2;  // weight chunks a step
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* zrow = reinterpret_cast<bf16*>(smem);
+  float* sRed = reinterpret_cast<float*>(smem + kLdH * 2);
+  bf16* ring = reinterpret_cast<bf16*>(smem + kLdH * 2 + WM * 2 * 64 * 4);
+  const int halo = nseg * seg_rows, kA = halo * kLdH, kStage = kA + kB;
+  if (threadIdx.x < kLdH / 8) store_chunk(zrow + 8 * threadIdx.x, zero_chunk());
+  for (int i = threadIdx.x; i < WM * 2 * 64; i += 256) sRed[i] = 0.0f;
+  const int otiles = cdiv(Cout, 64), mtiles = cdiv(M, BM), csteps = cdiv(C, kChunk);
+  int b = blockIdx.x;
+  const int ot = b % otiles;
+  b /= otiles;
+  const int g = b % mgroups, sp = b / mgroups;
+  const int o0 = ot * 64;
+  const int cper = cdiv(csteps, ksplit), cbegin = sp * cper;
+  const int ccount = min(cper, csteps - cbegin);  // steps of this split
+  const int nsteps = cdiv(mtiles - g, mgroups) * ccount;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, wm = warp / WN, wn = warp % WN;
+  const int cc = (threadIdx.x % 2) * 8;  // every chunk of this thread: channels c0 + cc..
+  // step q: tile u = q / ccount (pixels m0..), channels c0..
+  auto tile_of = [&](int q, int& m0, int& c0) {
+    const int u = q / ccount;
+    m0 = (g + u * mgroups) * BM;
+    c0 = (cbegin + q - u * ccount) * kChunk;
+  };
 
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int c0 = 0; c0 < C; c0 += kBK) {
-      const int gc = c0 + kc;
+  auto load = [&](int s, int q) {
+    int m0, c0;
+    tile_of(q, m0, c0);
+    bf16* sA = ring + s * kStage;
+    bf16* sB = sA + kA;
+    const bool cv = c0 + cc < C;
+    for (int c = threadIdx.x; c < halo * 2; c += 256) {
+      const int q2 = halo_pixel(c / 2, m0, W, nseg, seg_rows);
+      const bool v = q2 >= 0 && q2 < M && cv;
+      cp_async16(sA + (c / 2) * kLdH + cc, x + (v ? (long long)q2 * C + c0 + cc : 0), v);
+    }
+#pragma unroll
+    for (int u = 0; u < (kWChunks + 255) / 256; ++u) {
+      const int c = threadIdx.x + 256 * u, tap = c / 128, row = (c % 128) / 2;
+      if (c < kWChunks) {
+        const bool v = o0 + row < Cout && cv;
+        cp_async16(sB + (tap * 64 + row) * kLdH + cc,
+                   w9 + (v ? ((long long)tap * Cout + o0 + row) * C + c0 + cc : 0), v);
+      }
+    }
+  };
+  // xhat in place on the halo's chunks that hold pixels of x
+  auto transform = [&](int s, int q) {
+    int m0, c0;
+    tile_of(q, m0, c0);
+    if (c0 + cc >= C) return;
+    bf16* sA = ring + s * kStage;
+    const Ab8 abc = load_ab8(ab, C, c0 + cc);
+    for (int c = threadIdx.x; c < halo * 2; c += 256) {
+      const int q2 = halo_pixel(c / 2, m0, W, nseg, seg_rows);
+      if (q2 >= 0 && q2 < M) {
+        bf16* p = sA + (c / 2) * kLdH + cc;
+        store_chunk(p, prologue8(load_chunk(p), abc, relu));
+      }
+    }
+  };
+
+  // this lane's A rows (one per m16 tile) and, per tile, the taps whose
+  // neighbour p + dy W + dx lies inside the image (a masked tap reads the
+  // zero row: the padding comes after the prologue)
+  const int arow = wm * 32 + a_row(lane);  // + 16 i
+  unsigned amask[2] = {0u, 0u};
+  float acc[2][NI][4];
+  zero_acc(acc);
+
+  for (int s = 0; s < kFwdStages - 1; ++s) {
+    if (s < nsteps) load(s, s);
+    cp_async_commit();
+  }
+  for (int q = 0; q < nsteps; ++q) {
+    cp_async_wait<kFwdStages - 2>();
+    const int s = q % kFwdStages;
+    if (PRO) transform(s, q);
+    __syncthreads();
+    if (q + kFwdStages - 1 < nsteps) {
+      load((q + kFwdStages - 1) % kFwdStages, q + kFwdStages - 1);
+    }
+    cp_async_commit();
+    int m0, c0;
+    tile_of(q, m0, c0);
+    if (q % ccount == 0) {  // a new tile
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int hh = ph[i] + dy, ww = pw[i] + dx;
-        Chunk v = zero_chunk();
-        if (pv[i] && gc < C && hh >= 0 && hh < H && ww >= 0 && ww < W) {
-          const long long src = (long long)(m0 + arow + 64 * i) + dy * W + dx;
-          v = load_chunk(x + src * C + gc);
-          if (PRO) v = prologue_chunk(v, ab, C, gc, relu);
+        const int p = m0 + arow + 16 * i, hp = (p / W) % H, wp = p % W;
+        amask[i] = 0u;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+          if (p < M && hp + dy >= 0 && hp + dy < H && wp + dx >= 0 && wp + dx < W) {
+            amask[i] |= 1u << tap;
+          }
         }
-        store_chunk(sA + (arow + 64 * i) * kLdA + kc, v);
       }
-      {
-        const int gn = n0 + arow;  // 64 rows of couts, same chunk split
-        store_chunk(sB + arow * kLdA + kc,
-                    (gn < Cout && gc < C)
-                        ? load_chunk(w9 + ((long long)tap * Cout + gn) * C + gc)
-                        : zero_chunk());
+    }
+    const bf16* sA = ring + s * kStage;
+    const bf16* sB = sA + kA;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      // halo row of the neighbour p + dy W + dx: seg + (p - m0) + dx
+      const int seg = nseg == 1 ? (W + 1) + dy * W : (dy + 1) * seg_rows + 1;
+      unsigned a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bf16* row =
+            (amask[i] >> tap) & 1u ? sA + (seg + arow + 16 * i + dx) * kLdH : zrow;
+        ldsm_x4(a[i], row + a_col(lane));
       }
-      __syncthreads();
-      mma_step(sA, sB, acc, wm, wn);
-      __syncthreads();
+#pragma unroll
+      for (int jj = 0; jj < NI / 2; ++jj) {  // B = w9[tap]^T, held as [cout][c]
+        unsigned r[4];
+        ldsm_x4(r, sB + (tap * 64 + wn * 8 * NI + jj * 16 + b_row(lane)) * kLdH + b_col(lane));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma16816(acc[i][2 * jj], a[i], r[0], r[1]);
+          mma16816(acc[i][2 * jj + 1], a[i], r[2], r[3]);
+        }
+      }
+    }
+    if ((q + 1) % ccount == 0) {  // the tile's last step of this split
+      if (ksplit == 1) {
+        y_stats_tile<NI, 64>(acc, y, sRed, wm, wm * 32, wn * 8 * NI, m0, o0, M, Cout);
+      } else {
+        store_acc_f32<NI>(acc, partial + (long long)sp * M * Cout, m0 + wm * 32,
+                          o0 + wn * 8 * NI, M, Cout);
+      }
+      zero_acc(acc);
     }
   }
-  stage_tile(sC, acc, wm, wn);
+  cp_async_wait<0>();
+  if (ksplit > 1) return;
   __syncthreads();
-  epilogue_y_stats(sC, sRed, y, partial, mt, m0, n0, M, Cout);
+  write_stats_partial<WM, 64>(sRed, partial, g, o0, Cout);
+}
+
+template <bool PRO>
+cudaError_t launch_c3_fwd(cudaStream_t st, const bf16* x, const bf16* w9, const float* ab,
+                          bf16* y, float* partial, int H, int W, int C, int Cout, int M,
+                          int relu, int bm, int nseg, int seg_rows, int mgroups, int ksplit) {
+  const int csteps = cdiv(C, kChunk);
+  if ((bm != 128 && bm != 256) || mgroups < 1 || mgroups > cdiv(M, bm) || ksplit < 1 ||
+      (ksplit > 1 && (mgroups != cdiv(M, bm) || (ksplit - 1) * cdiv(csteps, ksplit) >= csteps)) ||
+      !((nseg == 1 && seg_rows == bm + 2 * W + 2) || (nseg == 3 && seg_rows == bm + 2))) {
+    return cudaErrorInvalidValue;
+  }
+  const int steps = cdiv(cdiv(M, bm), mgroups) * cdiv(csteps, ksplit);
+  const int smem = c3_fwd_smem(bm, nseg * seg_rows, steps);
+  const unsigned int grid = (unsigned int)ksplit * mgroups * cdiv(Cout, 64);
+  cudaError_t err;
+  if (bm == 256) {
+    err = allow_smem(c3_fwd_kernel<PRO, 256>, smem);
+    if (err != cudaSuccess) return err;
+    c3_fwd_kernel<PRO, 256><<<grid, 256, smem, st>>>(x, w9, ab, y, partial, H, W, C, Cout, M,
+                                                     relu, seg_rows, nseg, mgroups, ksplit);
+  } else {
+    err = allow_smem(c3_fwd_kernel<PRO, 128>, smem);
+    if (err != cudaSuccess) return err;
+    c3_fwd_kernel<PRO, 128><<<grid, 256, smem, st>>>(x, w9, ab, y, partial, H, W, C, Cout, M,
+                                                     relu, seg_rows, nseg, mgroups, ksplit);
+  }
+  return cudaGetLastError();
 }
 
 // ---- backward ---------------------------------------------------------------
 
-using namespace mmr::sm90;
-
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-constexpr int kLd64 = 72;  // pitch of a 64-channel tile
-constexpr int kChunk = 16;             // output channels of one dx ring step
-constexpr int kLdH = kChunk + 8;       // pitch of the dx kernel's halo tile
 constexpr int kPix = 64;   // pixels of one dw ring step
 constexpr int kDwThreads = 256;
 constexpr int kDwStage = (2 * kPix + kPix + 2) * kLd64;  // gy (-> gy_eff), y, x window
@@ -494,29 +672,37 @@ cudaError_t launch_c3_bwd(cudaStream_t st, const bf16* gy, const bf16* y, const 
 }  // namespace
 
 // x (B, H, W, C), w9 (9, Cout, C) bf16; ab (2, C) float32 or null; y
-// (B, H, W, Cout) bf16; partial (ceil(B*H*W / 128), 2, Cout) float32
-// scratch; sums (2, Cout) float32. Returns the first CUDA error.
+// (B, H, W, Cout) bf16; partial (mgroups, 2, Cout) float32 scratch; sums
+// (2, Cout) float32. bm in {128, 256} pixels a tile; the halo is nseg == 1
+// segment of bm + 2 W + 2 rows or
+// nseg == 3 of bm + 2 (seg_rows); mgroups (1 .. ceil(B*H*W / bm)) blocks
+// per 64 output channels, each taking every mgroups-th tile; ksplit the
+// splits of C (1, or with mgroups = ceil(B*H*W / bm) up to one per 16
+// channels, none empty). Scratch `partial`: (mgroups, 2, Cout) float32 with
+// one split, else (ksplit, B*H*W, Cout) float32. Two launches. Returns the
+// first CUDA error.
 extern "C" int mmr_c3_fwd(const void* x, const void* w9, const void* ab, void* y,
                           void* partial, void* sums, int B, int H, int W, int C, int Cout,
-                          int relu, int device, void* stream) {
+                          int relu, int bm, int nseg, int seg_rows, int mgroups, int ksplit,
+                          int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const int M = B * H * W;
-  const int mtiles = (M + kBM - 1) / kBM, ntiles = (Cout + kBN - 1) / kBN;
-  const unsigned int grid = (unsigned int)mtiles * ntiles;
   if (ab != nullptr) {
-    c3_fwd_kernel<true><<<grid, kThreads, 0, st>>>(
-        (const bf16*)x, (const bf16*)w9, (const float*)ab, (bf16*)y, (float*)partial, B, H, W,
-        C, Cout, relu);
+    err = launch_c3_fwd<true>(st, (const bf16*)x, (const bf16*)w9, (const float*)ab, (bf16*)y,
+                              (float*)partial, H, W, C, Cout, M, relu, bm, nseg,
+                              seg_rows, mgroups, ksplit);
   } else {
-    c3_fwd_kernel<false><<<grid, kThreads, 0, st>>>(
-        (const bf16*)x, (const bf16*)w9, nullptr, (bf16*)y, (float*)partial, B, H, W, C, Cout,
-        0);
+    err = launch_c3_fwd<false>(st, (const bf16*)x, (const bf16*)w9, nullptr, (bf16*)y,
+                               (float*)partial, H, W, C, Cout, M, 0, bm, nseg,
+                               seg_rows, mgroups, ksplit);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce_partials((const float*)partial, (float*)sums, mtiles, 2LL * Cout, st);
+  if (ksplit == 1) {
+    return (int)reduce_partials((const float*)partial, (float*)sums, mgroups, 2LL * Cout, st);
+  }
+  return (int)split_fixup((const float*)partial, (bf16*)y, (float*)sums, M, Cout, ksplit, st);
 }
 
 // gy, y (B, H, W, Cout), x (B, H, W, C), w9 (9, Cout, C) bf16; gs (2, Cout)

@@ -16,10 +16,46 @@
 // (N, K) float32 in the same layout; ab (2, K), gs and sums (2, N), dab
 // (2, K) float32. K and N are multiples of 8; M is any positive number.
 //
-// Forward design: one 128 x 64 output tile per block (wmma, the reduction
-// tiled by 32), prologue applied while the operand tile is loaded, epilogue
-// on the float32 tile staged in shared memory; per-block statistics summed
-// in a fixed order by reduce_partials_kernel. Not yet: pipelining, wgmma.
+// Forward, bound on the H100: memory for the shapes of layer1-3 (x read, y
+// written once: 2 M K + 2 M N bytes against 2 M N K operations, e.g. M
+// 150528, K 64, N 256: 96 MB, 0.0288 ms) and operations at layer4 (M 2352).
+// Two launches (sm90_tiles.cuh: a cp.async ring of 64-deep steps, ldmatrix +
+// mma.sync m16n8k16):
+//   1. mm_stats_kernel: y tiles of BM x BN (128 x 64 for N <= 64, 64 x 256
+//      where K is one step and N >= 256, else 128 x 128; chosen by the
+//      wrapper). A block walks every mgroups-th M tile of one N tile, so a
+//      grid of at most 264 blocks (2 an SM) covers any M, and its ring runs
+//      over all its (tile, step) pairs: the next tile's loads fly while this
+//      one multiplies and writes y. Where K is one step, w is loaded once
+//      and the slots hold x alone. xhat is formed in the ring slot by the
+//      thread that copied each chunk of x, once per element per N tile:
+//      once at layer1's N 256. y is rounded to bf16 in registers and
+//      written straight from them in 16-byte chunks (a quad of lanes swaps
+//      its pairs so that two lanes write one 32-byte sector); each tile's
+//      (sum y, sum y^2) of the rounded values goes by xor shuffles within a
+//      warp into running per-warp sums in shared memory, and the block
+//      writes one partial, its warps summed in order.
+//   2. reduce_partials_kernel sums the (at most 264) partials in a fixed
+//      order.
+//   Where the tiles are fewer than the SMs (layer4's 2048 -> 512: 76 tiles
+//   of 128 x 128), K is split to fill the card (3 splits there): launch 1
+//   writes each split's float32 products (ksplit M N floats of scratch,
+//   14.5 MB at layer4, mostly in L2), and launch 2 is split_fixup_kernel
+//   (fused_tiles.cuh), which sums them in split order, rounds once, writes
+//   y in 16-byte chunks and takes the sums of the rounded y in a fixed
+//   order.
+// Per block (ptxas -v, sm_90a; registers with / without the prologue):
+//   BM x BN     threads  shared memory: a ring slot; + statistics   registers
+//   128 x 64    256      27,648 B (one-step K: 18,432 + w 9,216); 2,048 B   107 / 97
+//   128 x 128   256      36,864 B; 4,096 B                          128 / 128
+//   64 x 256    256      46,080 B (one-step K: 9,216 + w 36,864); 4,096 B  128 / 128
+//   split_fixup_kernel 1024 threads, 56 registers, 2,048 B static
+// with 3 slots (fewer where the block has fewer steps; two blocks an SM at
+// every tile); no spills. Bytes from device memory, at least: x once
+// (the N tiles of one M tile run at the same time and share it through
+// L2), w from L2, y once: the bound's 2 M K + 2 M N, plus 8 N per block of
+// partials. Not yet: wgmma, TMA, a stream-K split that evens out the last
+// wave (at 592 tiles on 264 blocks, some blocks walk 3 tiles, most 2).
 //
 // Backward, bound on the H100: memory for the shapes of layer1-3 (gy, y, x
 // read and dx written once: 4 M N + 4 M K bytes against 4 M N K operations,
@@ -70,69 +106,213 @@
 namespace {
 
 using namespace mmr;
+using namespace mmr::sm90;
 
-// Load the (128 x 32) tile of x at (m0, k0) into sA, prologue applied.
-template <bool PRO>
-__device__ __forceinline__ void load_x_tile(bf16* sA, const bf16* __restrict__ x,
-                                            const float* __restrict__ ab, int m0, int k0, int M,
-                                            int K, int relu) {
-  for (int c = threadIdx.x; c < kBM * (kBK / 8); c += kThreads) {
-    const int row = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-    const int gm = m0 + row, gk = k0 + kc;
-    Chunk v = zero_chunk();
-    if (gm < M && gk < K) {
-      v = load_chunk(x + (long long)gm * K + gk);
-      if (PRO) v = prologue_chunk(v, ab, K, gk, relu);
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+constexpr int kLd64 = 72;  // pitch of a 64-column tile
+constexpr int kSteps = 64;  // depth of one ring step
+
+// ---- forward ----------------------------------------------------------------
+
+// The forward's BM x BN tile: WM = BM / 32 warps along M, WN = 8 / WM along
+// N, each warp 32 rows x (BN / WN) columns. A ring slot holds 64 channels
+// of BM rows of x (-> xhat) and, unless K is one step, of BN rows of w;
+// after the ring, w when K is one step (the same for every tile of the
+// block, so loaded once) and the warps' running statistics (WM x 2 x BN
+// floats).
+template <int BM, int BN>
+struct FwdTile {
+  static constexpr int kWM = BM / 32, kWN = 8 / kWM;
+  static constexpr int kNI = BN / kWN / 8;
+  static constexpr int kA = BM * kLd64, kB = BN * kLd64;
+  static constexpr int kRed = kWM * 2 * BN * 4;
+};
+
+// Dynamic shared memory of one forward block that runs `steps` ring steps
+// of a K of ksteps 64-deep steps: the slots the ring uses (kStages, or
+// fewer where the block has fewer steps), w once when K is one step, and
+// the running statistics. At every tile kStages slots keep two blocks an
+// SM (84,992 B at most, 128 x 128).
+template <int BM, int BN>
+int fwd_smem(int steps, int ksteps) {
+  using T = FwdTile<BM, BN>;
+  const int slots = kStages < steps ? kStages : steps;
+  const int ring = ksteps == 1 ? slots * T::kA + T::kB : slots * (T::kA + T::kB);
+  return ring * 2 + T::kRed;
+}
+
+// Block (g, nt, sp) owns columns n0 = nt BN.. of y, the M tiles g, g +
+// mgroups, g + 2 mgroups, .., and split sp of the K steps (ksplit splits,
+// each ceil(ksteps / ksplit) steps, the last shorter). The ring runs over
+// the block's (tile, 64-deep step) pairs in order through kStages slots,
+// so the next tile's loads are in flight while this one multiplies and
+// writes y. xhat is formed in the slot by the thread that copied each
+// chunk, once per element per N tile. With one split, each tile's y and
+// statistics come out in the epilogue and the block's statistics over all
+// its tiles are one partial, p = g; with ksplit > 1, each tile's float32
+// products over the split go to ypart[sp] (mgroups is then every M tile)
+// for split_fixup_kernel.
+template <bool PRO, int BM, int BN>
+__global__ void __launch_bounds__(256, 2)
+mm_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                const float* __restrict__ ab, bf16* __restrict__ y,
+                float* __restrict__ partial, int M, int K, int N, int relu, int mgroups,
+                int ksplit) {
+  using T = FwdTile<BM, BN>;
+  constexpr int NI = T::kNI;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int ntiles = cdiv(N, BN), mtiles = cdiv(M, BM), ksteps = cdiv(K, kSteps);
+  int b = blockIdx.x;
+  const int nt = b % ntiles;
+  b /= ntiles;
+  const int g = b % mgroups, sp = b / mgroups;
+  const int n0 = nt * BN;
+  const int kper = cdiv(ksteps, ksplit), kbegin = sp * kper;
+  const int kcount = min(kper, ksteps - kbegin);  // steps of this split
+  const int nsteps = cdiv(mtiles - g, mgroups) * kcount;
+  const int slots = kStages < nsteps ? kStages : nsteps;
+  const bool wonce = ksteps == 1;  // w the same for every step: loaded once
+  const int stage = wonce ? T::kA : T::kA + T::kB;
+  bf16* wres = ring + slots * stage;
+  float* sRed = reinterpret_cast<float*>(wres + (wonce ? T::kB : 0));
+  for (int i = threadIdx.x; i < T::kWM * 2 * BN; i += 256) sRed[i] = 0.0f;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / T::kWN, wn = warp % T::kWN;
+  const int ck = (threadIdx.x % 8) * 8;  // every chunk of this thread: channels k0 + ck..
+  // step q: tile u = q / kcount (rows m0..), channels k0..
+  auto tile_of = [&](int q, int& m0, int& k0) {
+    const int u = q / kcount;
+    m0 = (g + u * mgroups) * BM;
+    k0 = (kbegin + q - u * kcount) * kSteps;
+  };
+  auto load_w = [&](bf16* sB, int k0) {
+    const bool kv = k0 + ck < K;
+#pragma unroll
+    for (int u = 0; u < BN * 8 / 256; ++u) {
+      const int row = (threadIdx.x + 256 * u) / 8, gn = n0 + row;
+      const bool v = gn < N && kv;
+      cp_async16(sB + row * kLd64 + ck, w + (v ? (long long)gn * K + k0 + ck : 0), v);
     }
-    store_chunk(sA + row * kLdA + kc, v);
+  };
+  auto load = [&](int s, int q) {
+    int m0, k0;
+    tile_of(q, m0, k0);
+    bf16* sA = ring + s * stage;
+    const bool kv = k0 + ck < K;
+#pragma unroll
+    for (int u = 0; u < BM * 8 / 256; ++u) {
+      const int row = (threadIdx.x + 256 * u) / 8, gm = m0 + row;
+      const bool v = gm < M && kv;
+      cp_async16(sA + row * kLd64 + ck, x + (v ? (long long)gm * K + k0 + ck : 0), v);
+    }
+    if (!wonce) load_w(sA + T::kA, k0);
+  };
+  // xhat in place; chunks outside x stay the zeros cp.async wrote
+  auto transform = [&](int s, int q) {
+    int m0, k0;
+    tile_of(q, m0, k0);
+    if (k0 + ck >= K) return;
+    bf16* sA = ring + s * stage;
+    const Ab8 abc = load_ab8(ab, K, k0 + ck);
+#pragma unroll
+    for (int u = 0; u < BM * 8 / 256; ++u) {
+      const int row = (threadIdx.x + 256 * u) / 8;
+      if (m0 + row < M) {
+        store_chunk(sA + row * kLd64 + ck, prologue8(load_chunk(sA + row * kLd64 + ck), abc, relu));
+      }
+    }
+  };
+
+  float acc[2][NI][4];
+  zero_acc(acc);
+
+  if (wonce) load_w(wres, 0);  // in the first group, with step 0
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) load(s, s);
+    cp_async_commit();
   }
+  for (int q = 0; q < nsteps; ++q) {
+    cp_async_wait<kStages - 2>();
+    const int s = q % kStages;
+    if (PRO) transform(s, q);
+    __syncthreads();
+    if (q + kStages - 1 < nsteps) load((q + kStages - 1) % kStages, q + kStages - 1);
+    cp_async_commit();
+    const bf16* sA = ring + s * stage;
+    const bf16* sB = wonce ? wres : sA + T::kA;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; kk += 16) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ldsm_x4(a[i], sA + (wm * 32 + i * 16 + a_row(lane)) * kLd64 + kk + a_col(lane));
+      }
+#pragma unroll
+      for (int jj = 0; jj < NI / 2; ++jj) {  // B = w^T, held as w[n][k]
+        unsigned r[4];
+        ldsm_x4(r, sB + (wn * 8 * NI + jj * 16 + b_row(lane)) * kLd64 + kk + b_col(lane));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma16816(acc[i][2 * jj], a[i], r[0], r[1]);
+          mma16816(acc[i][2 * jj + 1], a[i], r[2], r[3]);
+        }
+      }
+    }
+    if ((q + 1) % kcount == 0) {  // the tile's last step of this split
+      int m0, k0;
+      tile_of(q, m0, k0);
+      if (ksplit == 1) {
+        y_stats_tile<NI, BN>(acc, y, sRed, wm, wm * 32, wn * 8 * NI, m0, n0, M, N);
+      } else {
+        store_acc_f32<NI>(acc, partial + (long long)sp * M * N, wm * 32 + m0,
+                          wn * 8 * NI + n0, M, N);
+      }
+      zero_acc(acc);
+    }
+  }
+  cp_async_wait<0>();
+  if (ksplit > 1) return;
+  __syncthreads();
+  write_stats_partial<T::kWM, BN>(sRed, partial, g, n0, N);
+}
+
+template <bool PRO, int BM, int BN>
+cudaError_t launch_mm_fwd(cudaStream_t st, const bf16* x, const bf16* w, const float* ab,
+                          bf16* y, float* partial, int M, int K, int N, int relu, int mgroups,
+                          int ksplit) {
+  const int ksteps = cdiv(K, kSteps);
+  const int steps = cdiv(cdiv(M, BM), mgroups) * cdiv(ksteps, ksplit);
+  const int smem = fwd_smem<BM, BN>(steps, ksteps);
+  cudaError_t err = allow_smem(mm_stats_kernel<PRO, BM, BN>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned int grid = (unsigned int)ksplit * mgroups * cdiv(N, BN);
+  mm_stats_kernel<PRO, BM, BN><<<grid, 256, smem, st>>>(x, w, ab, y, partial, M, K, N, relu,
+                                                        mgroups, ksplit);
+  return cudaGetLastError();
 }
 
 template <bool PRO>
-__global__ void __launch_bounds__(kThreads)
-mm_stats_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const float* __restrict__ ab, bf16* __restrict__ y,
-                float* __restrict__ partial, int M, int K, int N, int relu) {
-  __shared__ __align__(128) unsigned char tile[kStageBytes];
-  __shared__ float sRed[8][2][kBN];
-  bf16* sA = reinterpret_cast<bf16*>(tile);
-  bf16* sB = sA + kBM * kLdA;  // w tile as sB[n][k]
-  float* sC = reinterpret_cast<float*>(tile);
-  const int ntiles = (N + kBN - 1) / kBN;
-  const int mt = blockIdx.x / ntiles, nt = blockIdx.x % ntiles;
-  const int m0 = mt * kBM, n0 = nt * kBN;
-  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    load_x_tile<PRO>(sA, x, ab, m0, k0, M, K, relu);
-    {
-      const int n = threadIdx.x / 4, kc = (threadIdx.x % 4) * 8;
-      const int gn = n0 + n, gk = k0 + kc;
-      store_chunk(sB + n * kLdA + kc,
-                  (gn < N && gk < K) ? load_chunk(w + (long long)gn * K + gk) : zero_chunk());
-    }
-    __syncthreads();
-    mma_step(sA, sB, acc, wm, wn);
-    __syncthreads();
+cudaError_t launch_mm_stats(cudaStream_t st, const bf16* x, const bf16* w, const float* ab,
+                            bf16* y, float* partial, int M, int K, int N, int relu, int bm,
+                            int bn, int mgroups, int ksplit) {
+#define MMR_MM_FWD(BM, BN) \
+  launch_mm_fwd<PRO, BM, BN>(st, x, w, ab, y, partial, M, K, N, relu, mgroups, ksplit)
+  const int ksteps = cdiv(K, kSteps);
+  if (mgroups < 1 || mgroups > cdiv(M, bm) || ksplit < 1 ||
+      (ksplit > 1 && (mgroups != cdiv(M, bm) || (ksplit - 1) * cdiv(ksteps, ksplit) >= ksteps))) {
+    return cudaErrorInvalidValue;
   }
-  stage_tile(sC, acc, wm, wn);
-  __syncthreads();
-  epilogue_y_stats(sC, sRed, y, partial, mt, m0, n0, M, N);
+  if (bm == 128 && bn == 64) return MMR_MM_FWD(128, 64);
+  if (bm == 128 && bn == 128) return MMR_MM_FWD(128, 128);
+  if (bm == 64 && bn == 256) return MMR_MM_FWD(64, 256);
+#undef MMR_MM_FWD
+  return cudaErrorInvalidValue;
 }
 
 // ---- backward ---------------------------------------------------------------
 
-using namespace mmr::sm90;
-
-__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-constexpr int kLd64 = 72;  // pitch of a 64-column tile
-constexpr int kSteps = 64;  // depth of one ring step
 // The dw kernel's tile: TN output channels x TK input channels (64 or 128
 // each), by WK = TK / 32 warps along K and WN = min(TN / 32, 8 / WK) along
 // N; each warp owns (TN / WN) x 32.
@@ -465,27 +645,30 @@ cudaError_t launch_mm_bwd(cudaStream_t st, const bf16* gy, const bf16* y, const 
 }  // namespace
 
 // x (M, K), w (N, K) bf16; ab (2, K) float32 or null (no prologue); y (M, N)
-// bf16; partial (ceil(M / 128), 2, N) float32 scratch; sums (2, N) float32.
-// Returns the first CUDA error (0 on success).
+// bf16; sums (2, N) float32. The tile bm x bn is 128 x 64, 128 x 128 or
+// 64 x 256; mgroups (1 .. ceil(M / bm)) blocks per N tile, each taking
+// every mgroups-th M tile; ksplit the splits of K (1, or with mgroups = ceil(M / bm) up to one per
+// 64-deep step, none empty). Scratch `partial`: (mgroups, 2, N) float32
+// with one split, else (ksplit, M, N) float32. Two launches. Returns the
+// first CUDA error (0 on success).
 extern "C" int mmr_mm_stats(const void* x, const void* w, const void* ab, void* y,
-                            void* partial, void* sums, int M, int K, int N, int relu,
-                            int device, void* stream) {
+                            void* partial, void* sums, int M, int K, int N, int relu, int bm,
+                            int bn, int mgroups, int ksplit, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const int mtiles = (M + kBM - 1) / kBM, ntiles = (N + kBN - 1) / kBN;
-  const unsigned int grid = (unsigned int)mtiles * ntiles;
   if (ab != nullptr) {
-    mm_stats_kernel<true><<<grid, kThreads, 0, st>>>(
-        (const bf16*)x, (const bf16*)w, (const float*)ab, (bf16*)y, (float*)partial, M, K, N,
-        relu);
+    err = launch_mm_stats<true>(st, (const bf16*)x, (const bf16*)w, (const float*)ab, (bf16*)y,
+                                (float*)partial, M, K, N, relu, bm, bn, mgroups, ksplit);
   } else {
-    mm_stats_kernel<false><<<grid, kThreads, 0, st>>>(
-        (const bf16*)x, (const bf16*)w, nullptr, (bf16*)y, (float*)partial, M, K, N, 0);
+    err = launch_mm_stats<false>(st, (const bf16*)x, (const bf16*)w, nullptr, (bf16*)y,
+                                 (float*)partial, M, K, N, 0, bm, bn, mgroups, ksplit);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce_partials((const float*)partial, (float*)sums, mtiles, 2LL * N, st);
+  if (ksplit == 1) {
+    return (int)reduce_partials((const float*)partial, (float*)sums, mgroups, 2LL * N, st);
+  }
+  return (int)split_fixup((const float*)partial, (bf16*)y, (float*)sums, M, N, ksplit, st);
 }
 
 // gy, y (M, N), x (M, K), w (N, K) bf16; gs (2, N) float32; ab (2, K) float32

@@ -1,28 +1,34 @@
-// Building blocks of the fused conv+BN backward kernels (fused_mm.cu,
-// fused_c3.cu): a cp.async ring of shared-memory tiles, ldmatrix fragment
-// loads, mma.sync m16n8k16 bf16 products with float32 accumulation, the dx
+// Building blocks of the fused conv+BN kernels (fused_mm.cu, fused_c3.cu),
+// forward and backward: a cp.async ring of shared-memory tiles, ldmatrix
+// fragment loads, mma.sync m16n8k16 bf16 products with float32
+// accumulation, the forward's y + statistics epilogue, the backward's dx
 // epilogue, and fixed-order reductions across blocks.
 //
 //   ring       each operand tile is copied global -> shared by cp.async (16
 //              bytes a thread, zero-filled where the chunk lies outside the
-//              matrix) into one of kStages slots; loads of step k + 2 are in
-//              flight while step k multiplies. A tile that needs a transform
-//              (gy_eff from gy and y, the BN prologue on x) is transformed in
-//              place by the threads that copied it, before the barrier that
-//              hands the slot to the products.
+//              matrix) into one of kStages slots: loads of step k + 2 are
+//              in flight while step k multiplies (the 3x3 forward has 2
+//              slots, so that two of its blocks fit an SM: step k + 1's
+//              loads fly). A tile that needs a transform (gy_eff from gy
+//              and y, the BN prologue on x) is transformed in place by the
+//              threads that copied it, after their own wait and before the
+//              barrier that hands the slot to the products, so each element
+//              is transformed once per slot, never once per product.
 //   fragments  every operand goes through ldmatrix with one row address per
 //              lane, so a shifted (3x3 tap) or masked row costs nothing: a
 //              masked row points at a row of zeros in shared memory.
 //   reductions per-block partials summed in a fixed order, never float
-//              atomics: either by all blocks of the next launch, each a
-//              range (dw over M splits), or by the blocks that arrive last
-//              (da, db), counted with integer atomics; the order of the sums
-//              does not depend on the order of arrival, so every run gives
-//              the same bits.
+//              atomics: within a block by xor shuffles and then warps in
+//              order (forward statistics), across blocks by all blocks of
+//              the next launch, each a range (forward statistics, dw over
+//              M splits), or by the blocks that arrive last (da, db),
+//              counted with integer atomics; the order of the sums does not
+//              depend on the order of arrival, so every run gives the same
+//              bits.
 //
 // Tiles in shared memory are row-major bf16 with a row pitch of (cols + 8)
-// elements: 144 bytes for 64 columns, 80 for 32, so the 8 rows one ldmatrix
-// reads fall on 8 different 16-byte bank groups.
+// elements: 144 bytes for 64 columns, 80 for 32, 48 for 16, so the 8 rows
+// one ldmatrix reads fall on 8 different 16-byte bank groups.
 #pragma once
 
 #include <mutex>
@@ -88,12 +94,16 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4], 
 //   A from [k][m] (ldsm_x4_t):    row k, column m
 //   two B tiles from [k][n] (ldsm_x4_t): row k, column n; r[0], r[1] are
 //   b0, b1 of columns 0-7, r[2], r[3] of columns 8-15
+//   two B tiles from [n][k] (ldsm_x4):   row n, column k; r[0], r[1] are
+//   b0, b1 of columns 0-7, r[2], r[3] of columns 8-15
 __device__ __forceinline__ int a_row(int lane) { return lane % 16; }
 __device__ __forceinline__ int a_col(int lane) { return 8 * (lane / 16); }
 __device__ __forceinline__ int at_row(int lane) { return lane % 8 + 8 * (lane / 16); }
 __device__ __forceinline__ int at_col(int lane) { return 8 * ((lane / 8) % 2); }
 __device__ __forceinline__ int bt_row(int lane) { return lane % 8 + 8 * ((lane / 8) % 2); }
 __device__ __forceinline__ int bt_col(int lane) { return 8 * (lane / 16); }
+__device__ __forceinline__ int b_row(int lane) { return lane % 8 + 8 * (lane / 16); }
+__device__ __forceinline__ int b_col(int lane) { return 8 * ((lane / 8) % 2); }
 
 // gs (2, N) of the 8 channels from n, loaded once per block (a thread's
 // chunks keep their channels from one ring step to the next); zeros past N.
@@ -124,7 +134,7 @@ __device__ __forceinline__ Chunk gy_eff8(const Chunk& gy, const Chunk& y, const 
 }
 
 // The prologue's a, b (rounded to bf16) of the 8 channels from k, loaded
-// once per block; prologue8 gives the bits of prologue_chunk.
+// once per block.
 struct Ab8 {
   __nv_bfloat162 a[4], b[4];
 };
@@ -141,6 +151,10 @@ __device__ __forceinline__ Ab8 load_ab8(const float* __restrict__ ab, int K, int
   return p;
 }
 
+// The prologue on 8 channels. Packed bf16 arithmetic: a bf16 product is
+// exact in float32 and a bf16 sum cannot land on a rounding boundary that
+// float32 moves, so one rounding to bf16 (mul.rn.bf16x2, add.rn.bf16x2; the
+// _rn forms are never contracted into an FMA) gives the bits of prologue_z.
 __device__ __forceinline__ Chunk prologue8(Chunk c, const Ab8& p, int relu) {
   __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(c.v);
   const __nv_bfloat162 zero = __floats2bfloat162_rn(0.0f, 0.0f);
@@ -151,6 +165,149 @@ __device__ __forceinline__ Chunk prologue8(Chunk c, const Ab8& p, int relu) {
     v[j] = z;
   }
   return c;
+}
+
+template <int MI, int NI>
+__device__ __forceinline__ void zero_acc(float (&acc)[MI][NI][4]) {
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+}
+
+// a[idx] for idx in 0..3 held in registers (no local-memory indexing).
+__device__ __forceinline__ unsigned sel4(unsigned a0, unsigned a1, unsigned a2, unsigned a3,
+                                         int idx) {
+  return idx == 0 ? a0 : idx == 1 ? a1 : idx == 2 ? a2 : a3;
+}
+
+// The forward's per-tile epilogue, for a warp that holds rows r0.. (32 of
+// them, MI = 2 m16 tiles) and columns c0.. (8 NI) of the BM x BN tile at
+// (m0, n0) of the (M, N) output as acc[2][NI][4]:
+//   y = bf16(acc), rounded in registers and written in 16-byte chunks
+//   straight from them: for each m16 tile and pair of n8 tiles, the 4
+//   lanes of a quad swap their bf16 pairs (3 xor shuffles) so that lanes
+//   0, 1 hold the two halves of one row's 32-byte sector and lanes 2, 3 the
+//   row 8 below (rows < M, columns < N);
+//   the tile's (sum y, sum y^2) of the ROUNDED values per column, over the
+//   warp's rows in order and across its 8 row groups by xor shuffles (every
+//   lane ends with the same bits), added to this warp's running sums
+//   sRed[wr][2][BN] by the one lane that owns each column (no other thread
+//   touches it): the same bits on every run.
+template <int NI, int BN>
+__device__ __forceinline__ void y_stats_tile(const float (&acc)[2][NI][4], bf16* __restrict__ y,
+                                             float* sRed, int wr, int r0, int c0, int m0,
+                                             int n0, int M, int N) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < NI; ++j) {
+    float s0 = 0.0f, s1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m16 tile
+        if (m0 + r0 + 16 * i + 8 * h + g < M) {
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          const float y0 = __low2float(v), y1 = __high2float(v);
+          s0 += y0;
+          s1 += y1;
+          q0 += y0 * y0;
+          q1 += y1 * y1;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off *= 2) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+    }
+    if (g == 0) {
+      float2* ps = reinterpret_cast<float2*>(sRed + (wr * 2 + 0) * BN + c0 + 8 * j + 2 * t);
+      float2* pq = reinterpret_cast<float2*>(sRed + (wr * 2 + 1) * BN + c0 + 8 * j + 2 * t);
+      const float2 a = *ps, b = *pq;
+      *ps = make_float2(a.x + s0, a.y + s1);
+      *pq = make_float2(b.x + q0, b.y + q1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < NI / 2; ++jj) {
+      // item e = 2 h + js: row r0 + 16 i + 8 h + g, columns c0 + 8 (2 jj + js)
+      // + 2 t, +1 in this lane; after the swap, lane t holds all 8 columns
+      // of item t
+      unsigned v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(acc[i][2 * jj + e % 2][2 * (e / 2)],
+                                                       acc[i][2 * jj + e % 2][2 * (e / 2) + 1]);
+        v[e] = *reinterpret_cast<const unsigned*>(&b);
+      }
+      unsigned r[4];  // r[k]: columns 2 (t ^ k).. of item t, from lane t ^ k
+      r[0] = sel4(v[0], v[1], v[2], v[3], t);
+#pragma unroll
+      for (int k = 1; k < 4; ++k) {
+        r[k] = __shfl_xor_sync(0xffffffffu, sel4(v[0], v[1], v[2], v[3], t ^ k), k);
+      }
+      const int row = m0 + r0 + 16 * i + 8 * (t / 2) + g;
+      const int col = n0 + c0 + 8 * (2 * jj + t % 2);
+      if (row < M && col < N) {
+        uint4 out;
+        out.x = sel4(r[0], r[1], r[2], r[3], 0 ^ t);
+        out.y = sel4(r[0], r[1], r[2], r[3], 1 ^ t);
+        out.z = sel4(r[0], r[1], r[2], r[3], 2 ^ t);
+        out.w = sel4(r[0], r[1], r[2], r[3], 3 ^ t);
+        *reinterpret_cast<uint4*>(y + (long long)row * N + col) = out;
+      }
+    }
+  }
+}
+
+// A warp's acc[2][NI][4] (rows r0 + 16 i + g and + 8, columns c0 + 8 j +
+// 2 t, +1) as float32 into out (M, N), rows < M; N is a multiple of 8.
+template <int NI>
+__device__ __forceinline__ void store_acc_f32(const float (&acc)[2][NI][4],
+                                              float* __restrict__ out, int r0, int c0, int M,
+                                              int N) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < NI; ++j) {
+      const int row = r0 + 16 * i + g, col = c0 + 8 * j + 2 * t;
+      if (col >= N) continue;
+      if (row < M) {
+        *reinterpret_cast<float2*>(out + (long long)row * N + col) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      }
+      if (row + 8 < M) {
+        *reinterpret_cast<float2*>(out + (long long)(row + 8) * N + col) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+      }
+    }
+  }
+}
+
+// The block's statistics partial: the WR warps' running sums sRed[WR][2][BN]
+// summed in order into partial[(p * 2 + which) * N + n0 + col], 256
+// threads, after a barrier that follows the last y_stats_tile.
+template <int WR, int BN>
+__device__ __forceinline__ void write_stats_partial(const float* sRed, float* __restrict__ partial,
+                                                    int p, int n0, int N) {
+  for (int i = threadIdx.x; i < 2 * BN; i += 256) {
+    const int which = i / BN, col = i % BN;
+    if (n0 + col < N) {
+      float s = 0.0f;
+#pragma unroll
+      for (int r = 0; r < WR; ++r) s += sRed[(r * 2 + which) * BN + col];
+      partial[((long long)p * 2 + which) * N + n0 + col] = s;
+    }
+  }
 }
 
 // Stage a warp's accumulators acc[MI][NI][4] (m16 x n8 tiles at rows r0 +

@@ -52,13 +52,15 @@ _SIGNATURES = {
     "mmr_stem_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # g, y, a, b, dy, arg, partial, dab, B, H, W, C, nblk, is_bf16, device, stream
     "mmr_stem_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, ab|null, y, partial, sums, M, K, N, relu, device, stream
-    "mmr_mm_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, ab|null, y, partial, sums, M, K, N, relu, bm, bn, mgroups,
+    # ksplit, device, stream
+    "mmr_mm_stats": [_P] * 6 + [_I] * 9 + [_P],
     # gy, y, x, w, gs, ab|null, dx, dw, dab, ge, part_dw, part_ab, gsum_ab,
     # cnt, M, K, N, relu, splits, rows_per_split, bm, bn, tn, tk, device, stream
     "mmr_mm_stats_bwd": [_P] * 14 + [_I] * 11 + [_P],
-    # x, w9, ab|null, y, partial, sums, B, H, W, C, Cout, relu, device, stream
-    "mmr_c3_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w9, ab|null, y, partial, sums, B, H, W, C, Cout, relu, bm, nseg,
+    # seg_rows, mgroups, ksplit, device, stream
+    "mmr_c3_fwd": [_P] * 6 + [_I] * 12 + [_P],
     # gy, y, x, w9, gs, ab|null, dx, dw9, dab, ge, part_dw, part_ab, gsum_ab,
     # cnt, B, H, W, C, Cout, relu, splits, rows_per_split, bm, nseg, seg_rows,
     # device, stream

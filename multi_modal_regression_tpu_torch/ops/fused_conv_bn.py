@@ -43,6 +43,7 @@ are multiples of 8 and any number of rows.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -58,12 +59,17 @@ mm_bwd_launches = 0  # _mm_stats_bwd
 c3_launches = 0  # _c3_fwd (3x3 forward)
 c3_bwd_launches = 0  # _c3_bwd
 
-# tiles of the kernels: forward blocks own 128 rows (csrc/fused_tiles.cuh);
-# a backward dw block owns a tile of dw (the 3x3: 64 x 64, of one row of 3
-# taps) over a split of the rows, fed 64 rows a ring step; partials of da,
-# db are summed in groups of 16 (csrc/sm90_tiles.cuh); 264 blocks, 2 per SM
-# of the H100's 132, fill the card
-_BM, _DW_TILE, _STEP, _GROUP, _FILL = 128, 64, 64, 16, 2 * 132
+# tiles of the kernels: a backward dw block owns a tile of dw (the 3x3:
+# 64 x 64, of one row of 3 taps) over a split of the rows, fed 64 rows a ring
+# step; partials of da, db are summed in groups of 16 (csrc/sm90_tiles.cuh);
+# 264 blocks, 2 per SM of the H100's 132, fill the card, and a block may take
+# _SMEM_HALF bytes of shared memory for two to fit an SM (228 KB, 1 KB of it
+# reserved per block)
+_DW_TILE, _STEP, _GROUP, _FILL = 64, 64, 16, 2 * 132
+_SMEM_HALF = 113 * 1024
+# cp.async ring slots of the forward kernels, fixed in their sources
+# (csrc/sm90_tiles.cuh kStages, csrc/fused_c3.cu kFwdStages)
+_MM_FWD_SLOTS, _C3_FWD_SLOTS = 3, 2
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -252,13 +258,98 @@ def _mm_bwd_plan(m: int, k: int, n: int) -> BwdPlan:
 def _c3_bwd_plan(bsz: int, h: int, w: int, c: int, cout: int) -> BwdPlan:
     """Kernel #7: dx tiles of 128 (or, short of filling the card, 64) pixels
     x 64 channels. The halo of gy_eff a tile reads is one run of bm + 2 w + 2
-    pixels, or, where that is longer, three runs of bm + 2 around the rows
-    above, at and below the tile (so any W fits in shared memory)."""
+    pixels, or three runs of bm + 2 (`_halo`)."""
     m = bsz * h * w
     bm = 128 if _cdiv(m, 128) * _cdiv(c, 64) >= _FILL else 64
-    nseg, seg_rows = (1, bm + 2 * w + 2) if 2 * w <= 2 * bm + 4 else (3, bm + 2)
+    nseg, seg_rows = _halo(bm, w)
     splits, rows = _dw_splits(m, 3 * _cdiv(cout, _DW_TILE) * _cdiv(c, _DW_TILE))
     return BwdPlan(bm, 64, splits, rows, nseg=nseg, seg_rows=seg_rows)
+
+
+class FwdPlan(NamedTuple):
+    """Launch shape of a forward call: the y tile (bm rows x bn channels),
+    the blocks per column tile (mgroups, each taking every mgroups-th row
+    tile, one statistics partial each), the splits of the reduction
+    (ksplit: of K for the 1x1, of C for the 3x3), for the 3x3 the halo
+    (nseg segments of seg_rows)."""
+
+    bm: int
+    bn: int
+    mgroups: int
+    ksplit: int = 1
+    nseg: int = 0
+    seg_rows: int = 0
+
+
+def _mgroups(mtiles: int, ntiles: int) -> int:
+    """Blocks per column tile: one per row tile, or as many as fill the
+    card (two an SM) when there are more tiles, each then walking several
+    row tiles through one ring."""
+    return min(mtiles, max(1, _FILL // ntiles))
+
+
+def _ksplit(tiles: int, steps: int) -> int:
+    """Splits of the reduction's `steps` ring steps: 1, or, where the tiles
+    are fewer than the SMs (2 tiles <= 264 blocks), as many as fill the card
+    with at least 2 steps a split. The splits' float32 products are then
+    summed in a fixed order before the one rounding (a second pass over
+    ksplit M N floats, in place of the statistics' partials)."""
+    if 2 * tiles > _FILL:
+        return 1
+    return max(1, min(steps // 2, _FILL // tiles))
+
+
+@functools.lru_cache(maxsize=None)  # a wrapper call costs the host only a lookup
+def _mm_fwd_plan(m: int, k: int, n: int) -> FwdPlan:
+    """Kernel #4: y tiles of 128 x 64 for N <= 64, else 128 x 128, and 64 x
+    256 where K is one ring step and N >= 256 (x read and its prologue
+    applied once per element, as at layer1); blocks to fill the card
+    (`_mgroups`), or, where the tiles would leave SMs idle (as at layer4's
+    2048 -> 512), by splitting K (`_ksplit`)."""
+    if n <= 64:
+        bm, bn = 128, 64
+    elif k <= 64 and n >= 256:
+        bm, bn = 64, 256
+    else:
+        bm, bn = 128, 128
+    mtiles, ntiles = _cdiv(m, bm), _cdiv(n, bn)
+    ksplit = _ksplit(mtiles * ntiles, _cdiv(k, _STEP))
+    mgroups = mtiles if ksplit > 1 else _mgroups(mtiles, ntiles)
+    return FwdPlan(bm, bn, mgroups, ksplit)
+
+
+def _halo(bm: int, w: int) -> tuple[int, int]:
+    """(nseg, seg_rows) of a 3x3 tile of bm pixels: one run of bm + 2 w + 2
+    pixels, or, where that is longer, three runs of bm + 2 around the rows
+    above, at and below the tile (so any W fits in shared memory)."""
+    return (1, bm + 2 * w + 2) if 2 * w <= 2 * bm + 4 else (3, bm + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _c3_fwd_plan(bsz: int, h: int, w: int, c: int, cout: int) -> FwdPlan:
+    """Kernel #6: tiles of 256 pixels x 64 output channels (each weight tile
+    a ring step loads serves 256 pixels), or of 128 where a W so wide that
+    the halo of 256 would keep two blocks off an SM; per 16-channel ring
+    step one halo of x (`_halo`) and the 9 taps' 64 x 16 weight tiles in
+    each of the ring's 2 slots; blocks to fill the card (`_mgroups`), or,
+    where the tiles would leave SMs idle (as at layer4's 80 tiles), a split
+    of C (`_ksplit`)."""
+    for bm in (256, 128):
+        nseg, seg_rows = _halo(bm, w)
+        stage, other = (nseg * seg_rows + 9 * 64) * 24 * 2, 48 + (bm // 32) * 2 * 64 * 4
+        if _C3_FWD_SLOTS * stage + other <= _SMEM_HALF:
+            break
+    mtiles, otiles = _cdiv(bsz * h * w, bm), _cdiv(cout, 64)
+    ksplit = _ksplit(mtiles * otiles, _cdiv(c, 16))  # 16 channels a ring step
+    mgroups = mtiles if ksplit > 1 else _mgroups(mtiles, otiles)
+    return FwdPlan(bm, 64, mgroups, ksplit, nseg, seg_rows)
+
+
+def _fwd_scratch(plan: FwdPlan, m: int, n: int, dev) -> torch.Tensor:
+    """A forward call's float32 scratch: the statistics' partials (mgroups,
+    2, N), or, with a split, the splits' products (ksplit, M, N)."""
+    shape = (plan.mgroups, 2, n) if plan.ksplit == 1 else (plan.ksplit, m, n)
+    return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
 def _bwd_scratch(plan: BwdPlan, m: int, k: int, n: int, dw_numel: int, dev, prologue: bool):
@@ -295,11 +386,15 @@ def _mm_stats(x, wb, ab, relu):
     y = torch.empty((*x.shape[:-1], n), dtype=torch.bfloat16, device=dev)
     if m == 0:
         return y, torch.zeros((2, n), dtype=torch.float32, device=dev)
+    if m >= 2**31:
+        raise ValueError(f"M = {m} does not fit the kernels' 32-bit row index")
+    plan = _mm_fwd_plan(m, k, n)
     sums = torch.empty((2, n), dtype=torch.float32, device=dev)
-    partial = torch.empty((_cdiv(m, _BM), 2, n), dtype=torch.float32, device=dev)
+    partial = _fwd_scratch(plan, m, n, dev)
     err = _build.load().mmr_mm_stats(
         x.data_ptr(), wb.data_ptr(), _ptr(ab), y.data_ptr(), partial.data_ptr(),
-        sums.data_ptr(), m, k, n, int(relu), *_build.launch_args(x),
+        sums.data_ptr(), m, k, n, int(relu), plan.bm, plan.bn, plan.mgroups, plan.ksplit,
+        *_build.launch_args(x),
     )
     _build.check(err, "fused 1x1 forward kernel")
     mm_launches += 1
@@ -370,10 +465,12 @@ def _c3_fwd(x, wb, ab, relu):
         return y, torch.zeros((2, cout), dtype=torch.float32, device=dev)
     sums = torch.empty((2, cout), dtype=torch.float32, device=dev)
     w9 = _taps_first(wb)
-    partial = torch.empty((_cdiv(m, _BM), 2, cout), dtype=torch.float32, device=dev)
+    plan = _c3_fwd_plan(bsz, h, w, c, cout)
+    partial = _fwd_scratch(plan, m, cout, dev)
     err = _build.load().mmr_c3_fwd(
         x.data_ptr(), w9.data_ptr(), _ptr(ab), y.data_ptr(), partial.data_ptr(),
-        sums.data_ptr(), bsz, h, w, c, cout, int(relu), *_build.launch_args(x),
+        sums.data_ptr(), bsz, h, w, c, cout, int(relu), plan.bm, plan.nseg, plan.seg_rows,
+        plan.mgroups, plan.ksplit, *_build.launch_args(x),
     )
     _build.check(err, "fused 3x3 forward kernel")
     c3_launches += 1

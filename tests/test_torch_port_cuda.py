@@ -341,6 +341,69 @@ def test_fused_c3_backward_tiling(dev, shape):
                       ("c3_launches", "c3_bwd_launches"), *args)
 
 
+def _check_forward_nan(fwd, x, wb, ab):
+    """One NaN in x: the kernel's y is NaN exactly at the outputs that read
+    that pixel (the prologue keeps NaN; a 3x3 spreads it to the neighbours
+    inside the image only, not across a border or seam), every other element
+    has the bits of the run without the NaN, and every column's sums are
+    NaN. The NaN positions come from the shapes alone, not from a library
+    convolution, which may spread NaN further."""
+    relu = ab is not None
+    clean, _ = fwd(x, wb, ab, relu)
+    x = x.clone()
+    flat = x.view(-1, x.shape[-1])
+    flat[flat.shape[0] // 2, 0] = float("nan")
+    y, s = fwd(x, wb, ab, relu)
+    hit = x.isnan().any(dim=-1)
+    if x.ndim == 4:  # the 3x3 neighbourhood of the pixel, inside its image
+        hit = torch.nn.functional.max_pool2d(hit[:, None].float(), 3, 1, 1)[:, 0] > 0
+    want = hit[..., None].expand_as(y)
+    assert torch.equal(y.isnan(), want)
+    assert torch.equal(y[~want], clean[~want])
+    assert bool(s.isnan().all())
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("mkn", [(40, 64, 64), (2352, 2048, 512), (500, 8, 64),
+                                 (700, 264, 1000), (300, 512, 2048), (1000, 64, 256),
+                                 (40000, 128, 64)], ids=str)
+def test_fused_mm_forward_tiling(dev, mkn, prologue):
+    """Kernel #4 where its tiling is stressed: M under one tile; layer4's
+    2048-deep reduction, split in 3 and summed by the fixed-order second
+    launch; K = 8 (one ring step, most of it zeros, w loaded once); K 264
+    and N 1000 (ragged ring steps and tiles, split in 2); N 2048 (split in
+    4); the 64 x 256 tile over a ragged M; 313 row tiles, more than the
+    264 blocks, so blocks walk two tiles through one ring. Against the plain
+    version, two runs bit-equal, one count per call, and a NaN in x kept."""
+    m, k, n = mkn
+    args = _fused_inputs((m, k), (n, k), dev, sum(mkn), prologue)
+    _check_fused_pair(fcb._mm_stats, fcb._mm_plain, fcb._mm_stats_bwd, fcb._mm_bwd_plain,
+                      ("mm_launches", "mm_bwd_launches"), *args)
+    _check_forward_nan(fcb._mm_stats, *args[:3])
+
+
+@pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
+@pytest.mark.parametrize("shape", [(1, 3, 150, 16, 16), (1, 3, 300, 16, 16), (2, 7, 7, 512, 512),
+                                   (3, 9, 13, 32, 32), (2, 5, 7, 8, 24), (8, 96, 97, 16, 24)],
+                         ids=str)
+def test_fused_c3_forward_tiling(dev, shape, prologue):
+    """Kernel #6 where its halo tiles are stressed: W 150 (a halo of one run
+    of 558 pixels) and W 300 (three runs), C = Cout = 512 at 7 x 7 (C split
+    in 16, 8 output-channel tiles), image seams inside a tile with odd H and
+    W, C = 8 (half of a 16-channel step zeros), 291 tiles of one ring step
+    each, more than the 264 blocks, so blocks walk two tiles through one
+    ring. b > 0 on some channels, so padding before the prologue would show;
+    against the plain version, two runs bit-equal, one count per call, and a
+    NaN in x spread to its neighbours inside the image only."""
+    b, h, w, c, cout = shape
+    args = _fused_inputs((b, h, w, c), (cout, c, 3, 3), dev, sum(shape), prologue)
+    if prologue:
+        assert bool((args[2][1] > 0).any())
+    _check_fused_pair(fcb._c3_fwd, fcb._c3_plain, fcb._c3_bwd, fcb._c3_bwd_plain,
+                      ("c3_launches", "c3_bwd_launches"), *args)
+    _check_forward_nan(fcb._c3_fwd, *args[:3])
+
+
 def test_fused_kernels_reject_what_they_do_not_take(dev):
     x = torch.zeros((16, 12), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="multiples of 8"):

@@ -572,6 +572,93 @@ def test_c3_bwd_plan(shape):
     _check_splits(plan, m)
 
 
+def _ring_fits(slots, stage_bytes, other_bytes):
+    """The kernel's fixed ring of `slots` slots keeps two blocks an SM."""
+    assert slots * stage_bytes + other_bytes <= fcb._SMEM_HALF
+
+
+def _check_blocks(plan, mtiles, ntiles, steps):
+    """Every row tile in exactly one block's walk (g, g + mgroups, ..), as
+    many blocks per column tile as fill the card or one per row tile; the
+    reduction's steps split only where the tiles are fewer than the SMs,
+    into splits of at least 2 steps that cover every step exactly once; at
+    least one block an SM unless the reduction is too short to split."""
+    walks = [t for g in range(plan.mgroups) for t in range(g, mtiles, plan.mgroups)]
+    assert sorted(walks) == list(range(mtiles))
+    tiles = mtiles * ntiles
+    if plan.ksplit == 1:
+        assert plan.mgroups == min(mtiles, max(1, fcb._FILL // ntiles))
+        assert 2 * tiles > fcb._FILL or steps < 4
+    else:
+        assert plan.mgroups == mtiles and 2 * tiles <= fcb._FILL
+        assert plan.ksplit == min(steps // 2, fcb._FILL // tiles)
+        per = -(-steps // plan.ksplit)  # the kernels' steps a split
+        covered = [q for sp in range(plan.ksplit)
+                   for q in range(sp * per, min(steps, sp * per + per))]
+        assert covered == list(range(steps)) and (plan.ksplit - 1) * per < steps
+        assert per >= 2
+    blocks = plan.ksplit * plan.mgroups * ntiles
+    assert blocks >= fcb._FILL // 2 or plan.ksplit == max(1, steps // 2)
+
+
+@pytest.mark.parametrize("mkn", _MM_PLAN_SHAPES, ids=str)
+def test_mm_fwd_plan(mkn):
+    """Kernel #4's launch shape: a y tile of the allowed set (at most 64
+    accumulators a thread): 128 x 64 for N <= 64, 64 x 256 where K is one
+    ring step and N >= 256, else 128 x 128; the 3 ring slots keep two
+    blocks on an SM at that tile. The card is filled: by blocks that each walk several row
+    tiles, or, where the tiles are fewer than the SMs, by splitting K (at
+    least 2 steps a split) unless K is too short; every row tile and every
+    64-deep step of K is covered exactly once."""
+    m, k, n = mkn
+    plan = fcb._mm_fwd_plan(m, k, n)
+    if n <= 64:
+        assert (plan.bm, plan.bn) == (128, 64)
+    elif k <= 64 and n >= 256:
+        assert (plan.bm, plan.bn) == (64, 256)
+    else:
+        assert (plan.bm, plan.bn) == (128, 128)
+    mtiles, ntiles, ksteps = -(-m // plan.bm), -(-n // plan.bn), -(-k // 64)
+    one = ksteps == 1  # one step: the ring holds x alone, w is loaded once
+    _ring_fits(fcb._MM_FWD_SLOTS, (plan.bm + (0 if one else plan.bn)) * 72 * 2,
+               (plan.bn * 72 * 2 if one else 0) + plan.bm // 32 * 2 * plan.bn * 4)
+    _check_blocks(plan, mtiles, ntiles, ksteps)
+
+
+@pytest.mark.parametrize("shape", _C3_PLAN_SHAPES + [(1, 3, 300, 16, 16)], ids=str)
+def test_c3_fwd_plan(shape):
+    """Kernel #6's launch shape: tiles of 256 pixels x 64 output channels,
+    or of 128 where the halo of 256 would keep two blocks off an SM; the x
+    halo a tile reads is one run of bm + 2 W + 2 pixels or three of bm + 2,
+    whichever is shorter, and holds every neighbour of every pixel of the
+    tile exactly once (each segment a run of consecutive pixels, the runs
+    disjoint); the 2 ring slots keep two blocks on an SM; the card filled by
+    blocks that walk several tiles or by a split of C."""
+    b, h, w, c, cout = shape
+    m = b * h * w
+    plan = fcb._c3_fwd_plan(b, h, w, c, cout)
+    assert plan.bm in (128, 256) and plan.bn == 64
+    halo256 = min(256 + 2 * w + 2, 3 * 258)
+    assert (plan.bm == 256) == (
+        fcb._C3_FWD_SLOTS * (halo256 + 9 * 64) * 48 + 48 + 4096 <= fcb._SMEM_HALF)
+    one, three = plan.bm + 2 * w + 2, plan.bm + 2
+    assert (plan.nseg, plan.seg_rows) == ((1, one) if one <= 3 * three else (3, three))
+    # the halo rows' pixels, relative to the tile's first pixel
+    if plan.nseg == 1:
+        rows = [j - w - 1 for j in range(plan.seg_rows)]
+    else:
+        rows = [(s - 1) * w - 1 + t for s in range(3) for t in range(plan.seg_rows)]
+    assert len(set(rows)) == len(rows)  # no pixel held twice
+    held = set(rows)
+    for p in range(plan.bm):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                assert p + dy * w + dx in held
+    _ring_fits(fcb._C3_FWD_SLOTS, (plan.nseg * plan.seg_rows + 9 * 64) * 24 * 2,
+               48 + plan.bm // 32 * 2 * 64 * 4)
+    _check_blocks(plan, -(-m // plan.bm), -(-cout // 64), -(-c // 16))
+
+
 @pytest.mark.parametrize("prologue", [True, False], ids=["prologue", "no_prologue"])
 @pytest.mark.parametrize("mkn", [(20000, 64, 64), (300, 512, 2048), (9413, 264, 1000)],
                          ids=str)
