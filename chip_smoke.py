@@ -12,12 +12,19 @@ line each (or more), in order:
   1  build: compiles multi_modal_regression_tpu_torch/csrc/*.cu (ops/_build.py)
   2  normalize kernel vs its plain version on the card: f32 within
      rtol 1e-6 / atol 1e-6, bf16 within 1 ulp; times of both
-  3  stem kernel vs its plain version: f32 and bf16, bit-exact; times of both
+  3  stem kernel vs its plain version at (64|48|17, 64, 112, 112): f32 and
+     bf16, bit-exact; times of both; in bf16 at 64 (a request) and 48 (each
+     of a training step's 2 calls) its device time against its bound, and
+     the pooling alone (F.max_pool2d on z formed beforehand) as a yardstick
+     on both timers; step sums (time x 2 calls at 48)
   3b stem backward kernel vs its plain version (the autograd vjp of the
      three eager ops) at (96|48, 64, 112, 112): f32 within rtol/atol 1e-6
      (dy) and 1e-5 of the largest |da|, |db|; bf16 within the tie tolerance
      (under 1% of dy rerouted, per-channel sums of dy and da, db within 2e-2
-     of their largest magnitude); a NaN input; two runs bit-equal; times
+     of their largest magnitude); a NaN input; two runs bit-equal; times; in
+     bf16 its device time against its bound and the pooling's backward alone
+     (aten.max_pool2d_with_indices_backward with the forward's indices) as a
+     yardstick on both timers; the record and step sums at 48
   4  serving: the full-width geodesic_bd slice (ResNet50 to layer4, N1 1000,
      N2 500, K 200, 12 classes, 224 px, bf16, stem_pool='kernel') with
      weights from seed 0, random BN running statistics and a 200-atom
@@ -111,6 +118,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -287,10 +295,30 @@ def phase_normalize(dev, flush) -> dict:
     return rec
 
 
+def _stem_z(y, a, b) -> torch.Tensor:
+    """relu(y * a + b) as `_composite` forms it, channels-last: the input of
+    the pooling yardsticks."""
+    dt = y.dtype
+    z = torch.relu(y * a.to(dt)[:, None, None] + b.to(dt)[:, None, None])
+    return z.contiguous(memory_format=torch.channels_last)
+
+
+def step_sums(rec: dict, calls: int, keys) -> dict:
+    """{"step_<key>": calls x rec[key]}: a kernel's sums over the step's calls."""
+    return {f"step_{key}": calls * rec[key] for key in keys}
+
+
 def phase_stem(dev, flush) -> dict:
+    """[3]: the stem forward kernel at a request's (64 and 17 images) and a
+    training stream's (48) shapes, f32 and bf16, bit-exact; times of both.
+    In bf16 at 64 and 48 also its device time, its bound and a yardstick on
+    both timers: F.max_pool2d on z formed beforehand, one library call for
+    the pooling alone (not the same function: no affine, no ReLU; used
+    nowhere in the port). Returns the record at 64 with the step sums (2
+    calls at 48)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    rec = {}
-    for shape in ((64, 64, 112, 112), (17, 64, 112, 112)):
+    rec, step = {}, {}
+    for shape in ((64, 64, 112, 112), (48, 64, 112, 112), (17, 64, 112, 112)):
         c = shape[1]
         y32 = torch.randn(shape, device=dev, generator=gen).to(
             memory_format=torch.channels_last
@@ -313,14 +341,38 @@ def phase_stem(dev, flush) -> dict:
                 f"[3] stem {shape} {str(dtype)[6:]}: bit-exact, "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             )
-            if shape[0] == 64 and dtype == torch.bfloat16:
-                # y read, p written; 9 taps x (multiply, add, ReLU, max) per output
-                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **device_ms(lambda: stem_pool.stem_bn_relu_pool(y, a, b, "kernel"), flush),
-                       **device_ms(lambda: stem_pool._composite(y, a, b), flush,
-                                   "plain_device_ms"),
-                       **bound(2 * (y.numel() + got.numel()), 36 * got.numel(), PEAK_F32)}
-    return rec
+            if dtype != torch.bfloat16 or shape[0] == 17:
+                continue
+            z = _stem_z(y, a, b)
+            pool = lambda: F.max_pool2d(z, 3, stride=2, padding=1)  # noqa: E731
+            # y read, p written; 9 taps x (multiply, add, ReLU, max) per output
+            timed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **device_ms(lambda: stem_pool.stem_bn_relu_pool(y, a, b, "kernel"), flush),
+                     **device_ms(lambda: stem_pool._composite(y, a, b), flush,
+                                 "plain_device_ms"),
+                     "pool_only_ms": cuda_ms(pool, flush),
+                     **device_ms(pool, flush, "pool_only_device_ms"),
+                     **bound(2 * (y.numel() + got.numel()), 36 * got.numel(), PEAK_F32)}
+            del z
+            print(
+                f"[3] stem {shape} bf16: kernel device {timed['device_ms']:.4f} ms against its "
+                f"bound {timed['bound_ms']:.4f} ms ({timed['bound_by']}); plain device "
+                f"{timed['plain_device_ms']:.4f} ms; pooling alone (F.max_pool2d on z, a "
+                f"yardstick) {timed['pool_only_ms']:.4f} ms (device "
+                f"{timed['pool_only_device_ms']:.4f})"
+            )
+            if shape[0] == 64:
+                rec = timed
+            else:  # a training step's 2 calls, one a stream
+                step = step_sums(timed, 2, ("ms", "device_ms", "bound_ms", "pool_only_ms",
+                                            "pool_only_device_ms"))
+    print(
+        f"[3] stem step sums over 2 calls at 48 images (ms x calls): kernel "
+        f"{step['step_ms']:.4f} ms (device {step['step_device_ms']:.4f}) against its bound "
+        f"{step['step_bound_ms']:.4f} ms; pooling alone {step['step_pool_only_ms']:.4f} ms "
+        f"(device {step['step_pool_only_device_ms']:.4f})"
+    )
+    return {**rec, **step}
 
 
 def _stem_bwd_inputs(shape, dev, gen):
@@ -367,6 +419,13 @@ def check_stem_bwd(tag, got, want, dtype) -> float:
 
 
 def phase_stem_bwd(dev, flush) -> dict:
+    """[3b]: the stem backward kernel at (96|48, 64, 112, 112) against the
+    plain vjp; in bf16 also its device time, its bound and a yardstick on
+    both timers: aten.max_pool2d_with_indices_backward with the forward's
+    indices, one library call for the pooling's backward alone (not the
+    same function: no mask, no a, no da, db; used nowhere in the port).
+    Returns the record at 48, the shape of each of a training step's 2
+    calls, with the step sums."""
     gen = torch.Generator(device=dev).manual_seed(3)
     rec = {}
     for shape in ((96, 64, 112, 112), (48, 64, 112, 112)):
@@ -381,17 +440,42 @@ def phase_stem_bwd(dev, flush) -> dict:
             err = check_stem_bwd(tag, got, want, dtype)
             if not all(torch.equal(u, v) for u, v in zip(got, again)):
                 raise AssertionError(f"{tag}: two runs differ")
+            del got, want, again
             ms = cuda_ms(lambda: stem_pool.stem_pool_bwd(g, y, a, b), flush)
             plain_ms = cuda_ms(lambda: stem_pool._plain_bwd(g, y, a, b), flush)
             print(f"[3b] {tag}: two runs bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            if shape[0] == 96 and dtype == torch.bfloat16:
-                # g and y read, dy written; per input element the affine, the
-                # mask, up to 4 window compares and 3 multiply-adds
-                rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **device_ms(lambda: stem_pool.stem_pool_bwd(g, y, a, b), flush),
-                       **device_ms(lambda: stem_pool._plain_bwd(g, y, a, b), flush,
-                                   "plain_device_ms"),
-                       **bound(2 * (g.numel() + 2 * y.numel()), 14 * y.numel(), PEAK_F32)}
+            if dtype != torch.bfloat16:
+                continue
+            z = _stem_z(y, a, b)
+            _, idx = F.max_pool2d(z, 3, stride=2, padding=1, return_indices=True)
+            pool = lambda: torch.ops.aten.max_pool2d_with_indices_backward(  # noqa: E731
+                g, z, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)
+            # g and y read, dy written; per input element the affine, the
+            # mask, up to 4 window compares and 3 multiply-adds
+            timed = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **device_ms(lambda: stem_pool.stem_pool_bwd(g, y, a, b), flush),
+                     **device_ms(lambda: stem_pool._plain_bwd(g, y, a, b), flush,
+                                 "plain_device_ms"),
+                     "pool_only_ms": cuda_ms(pool, flush),
+                     **device_ms(pool, flush, "pool_only_device_ms"),
+                     **bound(2 * (g.numel() + 2 * y.numel()), 14 * y.numel(), PEAK_F32)}
+            del z, idx
+            print(
+                f"[3b] {tag}: kernel device {timed['device_ms']:.4f} ms against its bound "
+                f"{timed['bound_ms']:.4f} ms ({timed['bound_by']}); plain device "
+                f"{timed['plain_device_ms']:.4f} ms; pooling's backward alone "
+                f"(max_pool2d_with_indices_backward, a yardstick) {timed['pool_only_ms']:.4f} ms "
+                f"(device {timed['pool_only_device_ms']:.4f})"
+            )
+            if shape[0] == 48:  # each of a training step's 2 calls
+                rec = {**timed, **step_sums(timed, 2, (
+                    "ms", "device_ms", "bound_ms", "pool_only_ms", "pool_only_device_ms"))}
+    print(
+        f"[3b] stem bwd step sums over 2 calls at 48 images (ms x calls): kernel "
+        f"{rec['step_ms']:.4f} ms (device {rec['step_device_ms']:.4f}) against its bound "
+        f"{rec['step_bound_ms']:.4f} ms; pooling's backward alone {rec['step_pool_only_ms']:.4f} "
+        f"ms (device {rec['step_pool_only_device_ms']:.4f})"
+    )
     # NaN inputs: NaN wins its windows in both, and propagates into da
     y, g, a, b = _stem_bwd_inputs((4, 8, 16, 12), dev, gen)
     y[0, 0, 5, 5] = y[1, 3, 0, 0] = y[2, 7, 15, 11] = float("nan")

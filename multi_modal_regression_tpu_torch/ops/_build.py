@@ -48,10 +48,12 @@ _SIGNATURES = {
     # x, out, n, out_bf16, scale[3], offset[3], device, stream
     "mmr_normalize_u8": [_P, _P, ctypes.c_longlong, _I, _F, _F, _F, _F, _F, _F,
                          _I, _P],
-    # y, a, b, out, B, H, W, C, is_bf16, device, stream
-    "mmr_stem_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # g, y, a, b, dy, arg, partial, dab, B, H, W, C, nblk, is_bf16, device, stream
-    "mmr_stem_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # y, a, b, out, B, H, W, C, is_bf16, vec, cc, th, tw, threads, blocks,
+    # device, stream
+    "mmr_stem_fwd": [_P] * 4 + [_I] * 12 + [_P],
+    # g, y, a, b, dy, partial, dab, B, H, W, C, is_bf16, vec, cc, th, tw,
+    # threads, blocks, device, stream
+    "mmr_stem_bwd": [_P] * 7 + [_I] * 12 + [_P],
     # x, w, ab|null, y, partial, sums, M, K, N, relu, bm, bn, mgroups,
     # ksplit, device, stream
     "mmr_mm_stats": [_P] * 6 + [_I] * 9 + [_P],

@@ -1,4 +1,4 @@
-"""Time the fused conv+BN kernels at the ResNet50 trunk's shapes on the card.
+"""Time the fused conv+BN and stem kernels at the ResNet50 trunk's shapes on the card.
 
     python3 multi_modal_regression_tpu_torch/tools/time_fused.py [--root DIR]
     python3 multi_modal_regression_tpu_torch/tools/time_fused.py --against DIR
@@ -7,12 +7,15 @@ The first form times the four kernels of `ops/fused_conv_bn` (#4 `_mm_stats`,
 #5 `_mm_stats_bwd`, #6 `_c3_fwd`, #7 `_c3_bwd`) of the port found under
 --root (default: the checkout that holds this file) at every shape that one
 fused training step of the `geodesic_bd` preset gives them (two 48-image
-streams, `MM_SHAPES` and `C3_SHAPES`), and prints one JSON line: per shape
-and kernel the CUDA-event medians `ms` (the events also take in the host's
-gaps between launches) and `device_ms` (the card asleep while the host
-enqueues the call), and `host_ms`, the host's time for one call; per kernel
-the step sums of each (ms x calls per step). Inputs come from a seed, the
-same in every run.
+streams, `MM_SHAPES` and `C3_SHAPES`), and the two stem kernels of
+`ops/stem_pool` (#2 forward, #8 backward, bf16) at theirs (`STEM_SHAPES`:
+each stream's (48, 64, 112, 112), and a 64-image request's, which counts
+in no step sum), and prints one JSON line: per shape and kernel the
+CUDA-event medians `ms` (the events also take in the host's gaps between
+launches) and `device_ms` (the card asleep while the host enqueues the
+call), and `host_ms`, the host's time for one call; per kernel the step
+sums of each (ms x calls per step). Inputs come from a seed, the same in
+every run.
 
 --against DIR compares two checkouts on one card: it runs the first form for
 DIR, this checkout, this checkout and DIR, in that order, each in a process
@@ -47,6 +50,10 @@ MM_SHAPES = (
 )
 C3_SHAPES = (((48, 56, 56, 64), 6), ((48, 28, 28, 128), 6), ((48, 14, 14, 256), 10),
              ((48, 7, 7, 512), 4))
+# ((B, C, H, W), calls per training step, kernels) of the stem tail, bf16:
+# a training stream's forward and backward, a serving request's forward
+STEM_SHAPES = (((48, 64, 112, 112), 2, ("stem_pool", "stem_pool_bwd")),
+               ((64, 64, 112, 112), 0, ("stem_pool",)))
 REPS = 30
 # ~1 ms of device time at the H100's clocks: longer than the host takes to
 # enqueue one call of a wrapper
@@ -142,7 +149,31 @@ def time_all(reps: int) -> dict:
                 step[key] += calls * v
         rows.append(row)
         del x, wb, ab, gy, gs, y
+    for shape, calls, names in STEM_SHAPES:
+        row = {"shape": f"stem {shape} bf16{'' if calls else ' (a request)'}", "calls": calls}
+        for name, fn in zip(names, stem_calls(shape, dev, gen)):
+            row[name] = time_call(fn, flush, reps)
+            step = sums.setdefault(name, dict.fromkeys(row[name], 0.0))
+            for key, v in row[name].items():
+                step[key] += calls * v
+        rows.append(row)
     return {"device": torch.cuda.get_device_name(0), "shapes": rows, "step_ms": sums}
+
+
+def stem_calls(shape, dev, gen):
+    """(forward, backward) calls of the stem kernels on bf16 y ~ N(0, 1)
+    (channels-last), a BN-like affine and g ~ N(0, 1)."""
+    from multi_modal_regression_tpu_torch.ops import stem_pool
+
+    bsz, c, h, w = shape
+    cl = torch.channels_last
+    y = torch.randn(shape, device=dev, generator=gen).bfloat16().contiguous(memory_format=cl)
+    g = torch.randn((bsz, c, h // 2, w // 2), device=dev, generator=gen).bfloat16()
+    g = g.contiguous(memory_format=cl)
+    a = torch.rand(c, device=dev, generator=gen) * 1.5 + 0.5
+    b = torch.randn(c, device=dev, generator=gen) * 0.1
+    return (lambda: stem_pool.stem_bn_relu_pool(y, a, b, "kernel"),
+            lambda: stem_pool.stem_pool_bwd(g, y, a, b))
 
 
 def run_one(root: Path, reps: int) -> dict:

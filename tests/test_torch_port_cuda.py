@@ -137,6 +137,12 @@ def test_stem_backward_kernel(dev, shape, dtype):
     again = stem_pool.stem_pool_bwd(g, y, a, b)
     want = stem_pool._plain_bwd(g, y, a, b)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
+    _assert_stem_bwd_close(got, want, dtype)
+
+
+def _assert_stem_bwd_close(got, want, dtype):
+    """test_stem_backward_kernel's tolerances for the kernel's (dy, da, db)
+    against the plain vjp's."""
     dy, da, db = got
     assert dy.dtype == dtype and dy.is_contiguous(memory_format=torch.channels_last)
     assert da.dtype == db.dtype == torch.float32
@@ -177,6 +183,80 @@ def test_stem_backward_takes_any_gradient_layout(dev):
         stem_pool.stem_pool_bwd(g[:, :, :2], y, a, b)
     with pytest.raises(ValueError, match="g must be"):
         stem_pool.stem_pool_bwd(g.to(torch.bfloat16), y, a, b)
+
+
+def _stem_forward_equal(y, a, b):
+    """The forward kernel against `_composite`, bit for bit (NaN where it
+    has NaN), one launch counted."""
+    before = stem_pool.launches
+    got = stem_pool.stem_bn_relu_pool(y, a, b, "kernel")
+    assert stem_pool.launches == before + 1
+    want = stem_pool._composite(y, a, b)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+def _stem_backward_twice(g, y, a, b):
+    """Two runs of the backward kernel, bit-equal, one launch counted each."""
+    before = stem_pool.bwd_launches
+    got = stem_pool.stem_pool_bwd(g, y, a, b)
+    again = stem_pool.stem_pool_bwd(g, y, a, b)
+    assert stem_pool.bwd_launches == before + 2
+    for u, v in zip(got, again):
+        assert torch.equal(u.isnan(), v.isnan())
+        assert torch.equal(u.nan_to_num(), v.nan_to_num())
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 34, 50), (3, 40, 18, 130), (1, 64, 112, 112)],
+                         ids=str)
+def test_stem_kernels_across_tiles(dev, shape, dtype):
+    """Tiles ragged in both axes (17 x 25 and 9 x 65 pooled positions) and one
+    whole stem map: the forward bit-exact, the backward within
+    test_stem_backward_kernel's tolerances, one launch counted a call, two
+    runs bit-equal."""
+    y, g, a, b = _stem_bwd_inputs(shape, dtype, dev, sum(shape))
+    _stem_forward_equal(y, a, b)
+    got = _stem_backward_twice(g, y, a, b)
+    _assert_stem_bwd_close(got, stem_pool._plain_bwd(g, y, a, b), dtype)
+
+
+def test_stem_backward_ties_across_tile_seams(dev):
+    """f32 y constant over 5 x 5 blocks of four values (negative ones too),
+    so most windows hold ties, many of them across the seams of the tiles
+    (every 8 input rows and columns): dy within the f32 tolerance of the
+    plain vjp, so each tie is routed to the same tap as max_pool2d's
+    backward routes it (a misrouted g would be off by its own size)."""
+    rng = np.random.default_rng(12)
+    levels = np.array([-1.0, 0.5, 1.0, 2.0], np.float32)
+    blocks = levels[rng.integers(0, 4, (2, 64, 8, 15))].repeat(5, axis=2).repeat(5, axis=3)
+    y = torch.from_numpy(np.ascontiguousarray(blocks[..., :74])).to(dev)  # (2, 64, 40, 74)
+    y = y.contiguous(memory_format=torch.channels_last)
+    _, g, a, b = _stem_bwd_inputs(tuple(y.shape), torch.float32, dev, 13)
+    _stem_forward_equal(y, a, b)
+    got = _stem_backward_twice(g, y, a, b)
+    _assert_stem_bwd_close(got, stem_pool._plain_bwd(g, y, a, b), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_nan_on_tile_seams(dev, dtype):
+    """NaN at pixels on and beside the tiles' seams (input rows and columns
+    7, 8, 15, 16, 31, 33): the forward bit-exact with NaN in the same
+    places; the backward's dy, da, db NaN exactly where the plain vjp's are
+    and, with NaN zeroed, within test_stem_backward_kernel's tolerances."""
+    y, g, a, b = _stem_bwd_inputs((2, 64, 34, 50), dtype, dev, 14)
+    for n, ch, hh, ww in ((0, 0, 7, 15), (0, 5, 8, 16), (1, 9, 15, 31), (1, 63, 16, 33),
+                          (0, 17, 16, 7), (1, 33, 31, 8)):
+        y[n, ch, hh, ww] = float("nan")
+    _stem_forward_equal(y, a, b)
+    got = _stem_backward_twice(g, y, a, b)
+    want = stem_pool._plain_bwd(g, y, a, b)
+    for k, w in zip(got, want):
+        assert torch.equal(k.isnan(), w.isnan())
+    assert int(got[1].isnan().sum()) > 0
+    _assert_stem_bwd_close(*(tuple(t.nan_to_num() for t in ts) for ts in (got, want)), dtype)
 
 
 def test_small_train_step_stem_kernel_matches_plain(dev):

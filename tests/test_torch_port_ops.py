@@ -183,6 +183,92 @@ def test_stem_wrapper_rejects_what_the_kernel_does_not_take():
         stem_pool.stem_bn_relu_pool(_to_port(y, torch.float32), at, bt, "pallas")
 
 
+# main-path shapes (a training step's two 48-image streams, a 64- and a
+# 17-image request) and edge cases: the smallest image, a wide one, C = 3
+# (no 16-byte chunks), C = 40, ragged tiles, one image, a B whose tensor
+# passes 2**31 elements, channel tiles (C above 32 chunks)
+_STEM_PLAN_SHAPES = [(48, 64, 112, 112), (64, 64, 112, 112), (17, 64, 112, 112),
+                     (1, 64, 2, 2), (1, 3, 2, 2), (2, 64, 112, 150), (2, 3, 16, 12),
+                     (3, 40, 18, 130), (2, 64, 34, 50), (1, 64, 112, 112),
+                     (4096, 64, 112, 112), (2, 600, 8, 8)]
+
+
+def _check_stem_axis(n: int, t: int, backward: bool) -> None:
+    """One axis of the tiling (rows, or columns), as csrc/stem_pool.cu walks
+    it: n pooled positions in tiles of t. Every input position (2n of them)
+    is owned by exactly one tile; the windows a tile needs (forward: its
+    own t outputs; backward: the t + 1 windows from its first, the <= 2
+    windows of each owned position) lie in its window range, and each of
+    their taps inside the image lies in its halo: 2 t + 1 (forward) or 2 t +
+    3 (backward) positions from 2 o0 - 1."""
+    span = 2 * t + (3 if backward else 1)
+    owners = [0] * (2 * n)
+    for o0 in range(0, n, t):
+        halo = range(2 * o0 - 1, 2 * o0 - 1 + span)
+        wins = range(o0, o0 + t + (1 if backward else 0))
+        if backward:
+            own = range(2 * o0, min(2 * (o0 + t), 2 * n))
+            needed = {k for i in own for k in (i // 2, (i + 1) // 2) if k < n}
+        else:
+            own = range(2 * o0, min(2 * (o0 + t), 2 * n))  # the input under its outputs
+            needed = set(range(o0, min(o0 + t, n)))
+        for i in own:
+            owners[i] += 1
+        for k in needed:
+            assert k in wins
+            for i in (2 * k - 1, 2 * k, 2 * k + 1):
+                assert i < 0 or i >= 2 * n or i in halo
+    assert owners == [1] * (2 * n)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", _STEM_PLAN_SHAPES, ids=str)
+def test_stem_plan(shape, itemsize):
+    """The stem kernels' launch shape (pure Python, mirrored by
+    csrc/stem_pool.cu): 16-byte chunks exactly where C * itemsize allows
+    them; whole chunk groups of threads; tiles that own every input element
+    once and hold every window they need in their halo, in both axes and
+    both directions; shared memory that keeps the planned (>= 2) blocks on
+    an SM, and at least what the kernels lay out in it; a grid in bounds,
+    no block idle, all blocks resident at once, no more walk steps than a
+    full card needs."""
+    bsz, c, h, w = shape
+    plan = stem_pool._stem_plan(bsz, h, w, c, itemsize)
+    vec = 16 // itemsize if (c * itemsize) % 16 == 0 else 1
+    assert plan.vec == vec and not stem_pool._stem_plan(bsz, h, w, c, itemsize, False).vec > 1
+    assert plan.cc % vec == 0 and plan.cc == min(c, 32 * vec)
+    nch = plan.cc // vec
+    assert plan.threads % nch == 0 and 128 <= plan.threads <= 256
+    ctiles = -(-c // plan.cc)
+    assert ctiles <= 65535
+    oh, ow = h // 2, w // 2
+    for tile, backward, per_sm in ((plan.fwd, False, 3), (plan.bwd, True, 2)):
+        assert 1 <= tile.th <= min(8, oh) and 1 <= tile.tw <= min(8, ow)
+        _check_stem_axis(oh, tile.th, backward)
+        _check_stem_axis(ow, tile.tw, backward)
+        halo_px = (2 * tile.th + (3 if backward else 1)) * (2 * tile.tw + (3 if backward else 1))
+        need = 2 * halo_px * plan.cc * itemsize  # two slots of the halo
+        if backward:  # and two slots of g, the argmax bytes, a and b
+            need += (tile.th + 1) * (tile.tw + 1) * plan.cc * (2 * itemsize + 1) + 12 * plan.cc
+            assert tile.smem >= 8 * vec * plan.threads  # the block's da, db sums
+        assert tile.smem >= need
+        assert per_sm >= 2 and per_sm * (tile.smem + 1024) <= 228 * 1024
+        if (tile.th, tile.tw) != (min(8, oh), min(8, ow)):  # a smaller tile only to fit
+            big = stem_pool._stem_smem(min(8, oh), min(8, ow), plan.cc, itemsize,
+                                       plan.threads, vec, backward)
+            assert per_sm * (big + 1024) > 228 * 1024
+        tiles = bsz * -(-oh // tile.th) * -(-ow // tile.tw)
+        assert 1 <= tile.blocks <= min(tiles, 132 * per_sm) < 2**31
+        steps = -(-tiles // tile.blocks)
+        assert (steps - 1) * tile.blocks < tiles  # every block has a tile
+        assert steps == -(-tiles // (132 * per_sm))
+    # the kernels' 32-bit tile indices and in-tile offsets
+    with pytest.raises(ValueError, match="too many tiles"):
+        stem_pool._stem_plan(2**31 // 49 + 1, 112, 112, 64, itemsize)
+    with pytest.raises(ValueError, match="32-bit"):
+        stem_pool._stem_plan(1, 2, 2**23, 64, itemsize)
+
+
 def test_fold_bn_matches_jax():
     """f32, rtol 1e-6 (rsqrt may differ by an ulp between the two libraries)."""
     rng = np.random.default_rng(7)
