@@ -10,8 +10,15 @@ line each (or more), in order:
   0  device: torch's name for card 0 and nvidia-smi's name + power limit;
      exits non-zero, printing no result, when CUDA is unavailable
   1  build: compiles multi_modal_regression_tpu_torch/csrc/*.cu (ops/_build.py)
-  2  normalize kernel vs its plain version on the card: f32 within
-     rtol 1e-6 / atol 1e-6, bf16 within 1 ulp; times of both
+  2  normalize kernel at (64|96|17, 224, 224, 3), small shapes (48-byte
+     groups and the pixels after them) and a misaligned view (x[1:] of a
+     (3, 5, 7, 3) batch): bit-equal to its arithmetic in eager ops
+     (normalize_affine_plain), and against the plain normalize_images f32
+     within rtol 1e-6 / atol 1e-6, bf16 within 1 ulp; times of both; at 64
+     (a request, bf16 and f32) and 96 (a training step's batch, bf16) its
+     device time against its bound, and in bf16 the cast alone
+     (x.to(torch.bfloat16), the same bytes without the affine) as a
+     yardstick on both timers
   3  stem kernel vs its plain version at (64|48|17, 64, 112, 112): f32 and
      bf16, bit-exact; times of both; in bf16 at 64 (a request) and 48 (each
      of a training step's 2 calls) its device time against its bound, and
@@ -69,8 +76,11 @@ line each (or more), in order:
      [5], img/s and peak memory
   3e assign kernel vs its plain version at (2,000,000, 3) x 200,
      (2,000,000, 4) x 200 and (1,000,003, 3) x 16: equal indices, two runs
-     bit-equal, a block of duplicate centers, a NaN row and a NaN center;
-     times of both, and of torch.cdist + argmin on a line of its own
+     bit-equal; times of both (device time at the two 2,000,000-row shapes),
+     and of torch.cdist + argmin on a line of its own; then rows of 2^60,
+     inf and NaN (the careful loop for their warp tiles) and a center at
+     2^61 (every row careful, timed), K (D + 1) at the limit ((100,000, 2)
+     x 4096), a block of duplicate centers, a NaN row and a NaN center
   7  the dictionary path: 2,000,000 axis-angle poses from seeded Euler
      angles; fit_kmeans(K = 200) on the card, depth cut to n_init 1 and 10
      Lloyd steps, then predict and residuals over all poses: the assign
@@ -261,14 +271,26 @@ def phase_build() -> None:
 
 
 def phase_normalize(dev, flush) -> dict:
+    """[2]: the normalize kernel bit-equal to its own arithmetic in eager ops
+    (normalize_affine_plain) and within 1e-6 / 1 bf16 ulp of the plain
+    normalize_images, at a request's (64, 17), a training step's (96) and
+    small shapes, and at a misaligned view; device times against the bound
+    and the bf16 cast alone (x.to(torch.bfloat16)) as a yardstick."""
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
-    for shape in ((64, 224, 224, 3), (17, 224, 224, 3), (3, 5, 8, 3)):
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+    full = torch.randint(0, 256, (3, 5, 7, 3), dtype=torch.uint8, device=dev, generator=gen)
+    cases = [(shape, torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen))
+             for shape in ((64, 224, 224, 3), (96, 224, 224, 3), (17, 224, 224, 3),
+                           (3, 5, 8, 3), (1, 7, 7, 3), (1, 1, 47, 3))]
+    cases.append(("x[1:] of (3, 5, 7, 3), 105 bytes in", full[1:]))
+    for shape, x in cases:
         for dtype in (torch.float32, torch.bfloat16):
             got = preprocess.normalize_images_cuda(x, dtype)
+            same = preprocess.normalize_affine_plain(x, dtype)
             want = normalize_images(x, dtype)
             torch.cuda.synchronize()
+            if not torch.equal(got, same):
+                raise AssertionError(f"normalize {shape} {dtype}: not bit-equal to its arithmetic")
             err = float((got.float() - want.float()).abs().max())
             if dtype == torch.float32:
                 torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
@@ -278,19 +300,39 @@ def phase_normalize(dev, flush) -> dict:
                 if ulps > 1:
                     raise AssertionError(f"normalize {shape} bf16: {ulps} ulps apart")
                 tol = f"{ulps} ulp <= 1"
-            line = f"[2] normalize {shape} {str(dtype)[6:]}: max_abs_err {err:.3g} ({tol})"
-            if shape[0] >= 17:
+            line = (f"[2] normalize {shape} {str(dtype)[6:]}: bit-equal to x * scale + offset; "
+                    f"max_abs_err {err:.3g} against normalize_images ({tol})")
+            if x.shape[0] >= 17:
                 ms = cuda_ms(lambda: preprocess.normalize_images_cuda(x, dtype), flush)
                 plain_ms = cuda_ms(lambda: normalize_images(x, dtype), flush)
                 line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                if shape[0] == 64 and dtype == torch.bfloat16:
-                    # 1 byte in, 2 out, a multiply and an add per value
-                    n = x.numel()
-                    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           **device_ms(lambda: preprocess.normalize_images_cuda(x, dtype), flush),
-                           **device_ms(lambda: normalize_images(x, dtype), flush,
-                                       "plain_device_ms"),
-                           **bound(3 * n, 2 * n, PEAK_F32)}
+            if x.shape[0] in (64, 96):
+                # 1 byte in, 2 or 4 out, a multiply and an add per value
+                n = x.numel()
+                timed = {"ms": ms, "plain_ms": plain_ms,
+                         **device_ms(lambda: preprocess.normalize_images_cuda(x, dtype), flush),
+                         **device_ms(lambda: normalize_images(x, dtype), flush,
+                                     "plain_device_ms"),
+                         **bound((1 + dtype.itemsize) * n, 2 * n, PEAK_F32)}
+                line += (f"; device {timed['device_ms']:.4f} ms against its bound "
+                         f"{timed['bound_ms']:.4f} ({timed['bound_by']}: {timed['bytes']} B)")
+                if dtype == torch.bfloat16:
+                    # the same bytes moved without the affine: a yardstick, not the function
+                    timed["cast_only_ms"] = cuda_ms(lambda: x.to(torch.bfloat16), flush)
+                    timed.update(device_ms(lambda: x.to(torch.bfloat16), flush,
+                                           "cast_only_device_ms"))
+                    line += (f"; x.to(bfloat16) alone {timed['cast_only_ms']:.4f} ms, device "
+                             f"{timed['cast_only_device_ms']:.4f}")
+                if (x.shape[0], dtype) == (64, torch.bfloat16):
+                    rec.update(max_abs_err=err, **timed)
+                elif x.shape[0] == 64:
+                    rec.update({f"f32_{key}": timed[key]
+                                for key in ("ms", "device_ms", "bound_ms", "bytes")})
+                elif dtype == torch.bfloat16:
+                    # one call a training step: the step's sum is this call
+                    rec.update({f"step_{key}": timed[key] for key in
+                                ("ms", "device_ms", "bound_ms", "bytes", "cast_only_ms",
+                                 "cast_only_device_ms")})
             print(line)
     return rec
 
@@ -692,47 +734,76 @@ def phase_fused(dev, flush, is_3x3: bool) -> tuple[dict, dict]:
     return fwd_rec, bwd_rec
 
 
+def _assign_equal(tag: str, y, c) -> torch.Tensor:
+    """The kernel's indices, held EQUAL to the plain version's and to a rerun."""
+    got = assign.assign_bins(y, c)
+    want = assign.assign_bins_plain(y, c)
+    again = assign.assign_bins(y, c)
+    torch.cuda.synchronize()
+    if got.shape != (y.shape[0],) or got.dtype != torch.int32:
+        raise AssertionError(f"assign {tag}: {tuple(got.shape)} {got.dtype}")
+    differ = int((got != want).sum())
+    if differ:
+        raise AssertionError(f"assign {tag}: {differ} rows differ from plain")
+    if not torch.equal(got, again):
+        raise AssertionError(f"assign {tag}: two runs differ")
+    return got
+
+
 def phase_assign(dev, flush) -> dict:
-    """The assign kernel against its plain version: indices must be EQUAL
-    (both round each product and sum on its own, in the same order)."""
+    """[3e]: the assign kernel against its plain version: indices must be
+    EQUAL (both round each product and sum on its own, in the same order),
+    through the fast loop and through the careful one."""
     gen = torch.Generator(device=dev).manual_seed(8)
     rec = {}
     for n, d, k in ((2_000_000, 3, 200), (2_000_000, 4, 200), (1_000_003, 3, 16)):
         y = torch.randn((n, d), device=dev, generator=gen)
         c = torch.randn((k, d), device=dev, generator=gen)
-        got = assign.assign_bins(y, c)
-        want = assign.assign_bins_plain(y, c)
-        again = assign.assign_bins(y, c)
-        torch.cuda.synchronize()
-        if got.shape != (n,) or got.dtype != torch.int32:
-            raise AssertionError(f"assign ({n}, {d}) x {k}: {tuple(got.shape)} {got.dtype}")
-        differ = int((got != want).sum())
-        if differ:
-            raise AssertionError(f"assign ({n}, {d}) x {k}: {differ} rows differ from plain")
-        if not torch.equal(got, again):
-            raise AssertionError(f"assign ({n}, {d}) x {k}: two runs differ")
+        got = _assign_equal(f"({n}, {d}) x {k}", y, c)
         ms = cuda_ms(lambda: assign.assign_bins(y, c), flush)
         plain_ms = cuda_ms(lambda: assign.assign_bins_plain(y, c), flush, 10)
         # y and the centers read, int32 indices written; per (row, center) D
         # multiplies and D - 1 adds of the cross term, the doubling, the
         # subtraction and the compare: 2 D + 2
         b = bound(4 * (n * d + k * d + n), n * k * (2 * d + 2), PEAK_F32)
+        timed = {"ms": ms, "plain_ms": plain_ms,
+                 **device_ms(lambda: assign.assign_bins(y, c), flush), **b}
         print(
             f"[3e] assign ({n}, {d}) x {k}: equal indices, two runs bit-equal; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}: {b['bytes']} B, {b['operations']} op)"
+            f"{ms:.4f} ms, device {timed['device_ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes']} B, {b['operations']} op)"
         )
         if (n, d, k) == (2_000_000, 3, 200):
-            rec = {"max_abs_err": float((got - want).abs().max()), "ms": ms,
-                   "plain_ms": plain_ms, **device_ms(lambda: assign.assign_bins(y, c), flush),
-                   **device_ms(lambda: assign.assign_bins_plain(y, c), flush,
-                               "plain_device_ms", 10), **b}
+            rec = {"max_abs_err": float((got - assign.assign_bins_plain(y, c)).abs().max()),
+                   **timed, **device_ms(lambda: assign.assign_bins_plain(y, c), flush,
+                                        "plain_device_ms", 10)}
             # not one call and not the same arithmetic, so no library_ms: two
             # calls through an (N, K) float32 matrix, timed as a yardstick
             cdist_ms = cuda_ms(lambda: torch.cdist(y, c).argmin(dim=1), flush, 10)
             print(f"[3e] note: torch.cdist(y, c).argmin(1) at ({n}, {d}) x {k}, two calls "
                   f"through a {4 * n * k / 1e9:.1f} GB matrix: {cdist_ms:.4f} ms")
-        del got, want, again
+            # rows outside the fast loop's guard, in warp tiles spread over
+            # the rows, then one center at 2^61: every row in the careful loop
+            y[::100_003] = torch.tensor([2.0**60, -1.0, 0.5], device=dev)
+            y[5::200_011] = torch.tensor([float("inf"), 0.0, 1.0], device=dev)
+            y[9::300_007] = torch.tensor([0.5, float("nan"), 1.0], device=dev)
+            _assign_equal("with rows of 2^60, inf and NaN", y, c)
+            c[123] = torch.tensor([2.0**61, 0.0, 0.0], device=dev)
+            _assign_equal("with a center at 2^61 (every row careful)", y, c)
+            rec["careful_device_ms"] = cuda_ms(lambda: assign.assign_bins(y, c), flush,
+                                               held=True)
+            print(f"[3e] careful loop: rows of 2^60, inf and NaN, then a center at 2^61: equal "
+                  f"indices, two runs bit-equal; every row careful {rec['careful_device_ms']:.4f} "
+                  f"device ms")
+        elif d == 4:
+            rec.update({f"d4_{key}": timed[key] for key in ("ms", "device_ms", "bound_ms")})
+        del got, y, c
+    # K (D + 1) at the 12,288-float limit: 64 KB of padded centers a block
+    y = torch.randn((100_000, 2), device=dev, generator=gen)
+    c = torch.randn((4096, 2), device=dev, generator=gen)
+    _assign_equal("(100000, 2) x 4096", y, c)
+    print("[3e] assign (100000, 2) x 4096, K (D + 1) at the limit: equal indices, two runs "
+          "bit-equal")
     # ties, NaN: rows that sit on duplicated centers take the lower index; a
     # NaN row takes index 0 (its first NaN distance); a NaN center takes every row
     y = torch.randn((4096, 3), device=dev, generator=gen)

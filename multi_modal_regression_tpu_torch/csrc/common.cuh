@@ -27,11 +27,4 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_float<T>(from_float<T>(v));
 }
 
-// Grid for a grid-stride loop over n elements with `threads` per block.
-inline unsigned int grid_for(long long n, int threads) {
-  long long blocks = (n + threads - 1) / threads;
-  const long long cap = 132LL * 64;  // 64 blocks per SM of an H100 is plenty
-  return (unsigned int)(blocks < cap ? blocks : cap);
-}
-
 }  // namespace mmr

@@ -45,9 +45,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every C entry point: each pointer and the stream as c_void_p,
 # so ctypes never truncates them to 32-bit ints
 _SIGNATURES = {
-    # x, out, n, out_bf16, scale[3], offset[3], device, stream
-    "mmr_normalize_u8": [_P, _P, ctypes.c_longlong, _I, _F, _F, _F, _F, _F, _F,
-                         _I, _P],
+    # x, out, groups, pixels, blocks, out_bf16, scale[3], offset[3], device,
+    # stream
+    "mmr_normalize_u8": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _I, _P],
     # y, a, b, out, B, H, W, C, is_bf16, vec, cc, th, tw, threads, blocks,
     # device, stream
     "mmr_stem_fwd": [_P] * 4 + [_I] * 12 + [_P],
@@ -67,8 +68,9 @@ _SIGNATURES = {
     # cnt, B, H, W, C, Cout, relu, splits, rows_per_split, bm, nseg, seg_rows,
     # device, stream
     "mmr_c3_bwd": [_P] * 14 + [_I] * 12 + [_P],
-    # y, centers, out, N, D, K, device, stream
-    "mmr_assign": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    # y, centers, out, N, D, K, blocks, tiles, smem, device, stream
+    "mmr_assign": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_longlong,
+                   _I, _I, _P],
 }
 
 

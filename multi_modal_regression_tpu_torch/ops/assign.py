@@ -11,6 +11,12 @@ ever holding an (N, K) matrix in device memory. A row whose distances hold
 a NaN gets the index of the first NaN, as `jnp.argmin` and `torch.argmin`
 give it.
 
+`_assign_plan` picks the kernel's launch shape: persistent blocks that
+share the rows out evenly in warp tiles, 8 rows a thread, and the centers
+packed with their squared norms in shared memory (csrc/assign.cu says how
+the kernel spends its issue slots and why its fast loop gives the same bits
+as the careful one).
+
 The plain version beside it performs the same float32 operations in the
 same order (the cross term and the squared norms summed over d in index
 order, each product and sum rounded on its own, then `c2 - 2 * cross`), so
@@ -23,16 +29,63 @@ never requires grad.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from multi_modal_regression_tpu_torch.ops import _build
 
-# the kernel keeps one row in registers and all centers in shared memory
+# the kernel keeps its rows in registers and all centers in shared memory
 MAX_D = 4
 MAX_SHARED_FLOATS = 48 * 1024 // 4  # K * (D + 1) floats
 
+# the kernel's launch shape (csrc/assign.cu holds the same constants): a
+# warp tile of 32 lanes x 8 rows, blocks an SM (its __launch_bounds__: 3, 2
+# at D = 4); 228 KB of shared memory an SM, 1 KB of it reserved per block
+_TILE_ROWS = 32 * 8
+_SMEM_SM, _SMEM_RESERVED = 228 * 1024, 1024
+
 # kernel launches in this process, counted where the kernel is launched
 launches = 0
+
+
+class AssignPlan(NamedTuple):
+    """Launch shape of the assign kernel: `tiles` warp tiles of 256 rows
+    over all N rows, `blocks` blocks (block b takes the tiles [tiles * b //
+    blocks, tiles * (b + 1) // blocks)), `smem` bytes of shared memory a
+    block (one 16-byte slot a center, two at D = 4)."""
+
+    blocks: int
+    tiles: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)  # a wrapper call costs the host only a lookup
+def _assign_plan(n: int, d: int, k: int, sms: int) -> AssignPlan:
+    """Launch shape for y (n, d) against k centers on a card of `sms` SMs.
+
+    As many blocks as the card holds at once (3 an SM, 2 at D = 4, fewer
+    where the centers' shared memory does not let so many share an SM), so
+    that they all run in one wave, each with the same number of warp tiles
+    give or take one: every SM gets the same rows. Never more blocks than
+    tiles. Raises where the tiles number 2**31 or more (2**39 rows, far
+    past what a card holds)."""
+    if n < 1 or not 1 <= d <= MAX_D or k < 1 or sms < 1:
+        raise ValueError(f"no assign plan for n = {n}, d = {d}, k = {k}, sms = {sms}")
+    smem = k * 16 * (1 if d < 4 else 2)
+    per_sm = min(3 if d < 4 else 2, _SMEM_SM // (smem + _SMEM_RESERVED))
+    if per_sm < 1:
+        raise ValueError(f"K = {k} centers of D = {d} do not fit in shared memory")
+    tiles = -(-n // _TILE_ROWS)
+    if tiles >= 2**31:
+        raise ValueError(f"N = {n} gives the assign kernel too many tiles")
+    return AssignPlan(min(sms * per_sm, tiles), tiles, smem)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(y: torch.Tensor, centers: torch.Tensor) -> None:
@@ -88,9 +141,10 @@ def assign_bins(y: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n,), dtype=torch.int32, device=y.device)
     if n == 0:
         return out
-    lib = _build.load()
-    err = lib.mmr_assign(
-        y.data_ptr(), c.data_ptr(), out.data_ptr(), n, d, k, *_build.launch_args(y)
+    plan = _assign_plan(n, d, k, _sms(y.device.index))
+    err = _build.load().mmr_assign(
+        y.data_ptr(), c.data_ptr(), out.data_ptr(), n, d, k, plan.blocks, plan.tiles,
+        plan.smem, *_build.launch_args(y),
     )
     _build.check(err, "assign kernel")
     launches += 1

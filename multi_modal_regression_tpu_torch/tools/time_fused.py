@@ -1,4 +1,4 @@
-"""Time the fused conv+BN and stem kernels at the ResNet50 trunk's shapes on the card.
+"""Time the port's kernels at the main path's shapes on the card.
 
     python3 multi_modal_regression_tpu_torch/tools/time_fused.py [--root DIR]
     python3 multi_modal_regression_tpu_torch/tools/time_fused.py --against DIR
@@ -14,8 +14,14 @@ in no step sum), and prints one JSON line: per shape and kernel the
 CUDA-event medians `ms` (the events also take in the host's gaps between
 launches) and `device_ms` (the card asleep while the host enqueues the
 call), and `host_ms`, the host's time for one call; per kernel the step
-sums of each (ms x calls per step). Inputs come from a seed, the same in
-every run.
+sums of each (ms x calls per step). It also times the normalize kernel
+(#1, `NORMALIZE_SHAPES`: a 64-image request, which counts in no step sum,
+in bf16 and f32, and a 96-image training step's batch, one call a step) and
+the assign kernel (#3, `ASSIGN_SHAPES`: 2,000,000 poses of 3 and of 4
+dimensions against 200 centers). The assign kernel runs in no training
+step; its sums are over a dictionary fit instead (`fit_ms`: ms x calls in
+one fit_kmeans of chip_smoke.py's [7], 1 x (10 + 1) launches at D = 3).
+Inputs come from a seed, the same in every run.
 
 --against DIR compares two checkouts on one card: it runs the first form for
 DIR, this checkout, this checkout and DIR, in that order, each in a process
@@ -54,6 +60,13 @@ C3_SHAPES = (((48, 56, 56, 64), 6), ((48, 28, 28, 128), 6), ((48, 14, 14, 256), 
 # a training stream's forward and backward, a serving request's forward
 STEM_SHAPES = (((48, 64, 112, 112), 2, ("stem_pool", "stem_pool_bwd")),
                ((64, 64, 112, 112), 0, ("stem_pool",)))
+# ((B, H, W, 3), output dtype, calls per training step) of the normalize
+# kernel: a 64-image request in bf16 and f32, a 96-image step's batch
+NORMALIZE_SHAPES = (((64, 224, 224, 3), "bfloat16", 0), ((64, 224, 224, 3), "float32", 0),
+                    ((96, 224, 224, 3), "bfloat16", 1))
+# ((N, D, K), calls per training step, calls per dictionary fit) of the
+# assign kernel: chip_smoke.py [7]'s fit (1 x (10 + 1) launches at D = 3)
+ASSIGN_SHAPES = (((2_000_000, 3, 200), 0, 11), ((2_000_000, 4, 200), 0, 0))
 REPS = 30
 # ~1 ms of device time at the H100's clocks: longer than the host takes to
 # enqueue one call of a wrapper
@@ -125,6 +138,15 @@ def time_call(fn, flush, reps: int) -> dict:
             "host_ms": host_ms(fn, reps)}
 
 
+def add_calls(total: dict, name: str, times: dict, calls: int) -> None:
+    """Add calls x each of one call's times to total[name]: a kernel that
+    takes no call there gets no entry."""
+    if calls:
+        acc = total.setdefault(name, dict.fromkeys(times, 0.0))
+        for key, v in times.items():
+            acc[key] += calls * v
+
+
 def time_all(reps: int) -> dict:
     from multi_modal_regression_tpu_torch.ops import fused_conv_bn as fcb
 
@@ -144,20 +166,47 @@ def time_all(reps: int) -> dict:
         for name, fn in ((names[0], lambda: fwd(x, wb, ab, pro)),
                          (names[1], lambda: bwd(gy, gs, y, x, wb, ab, pro))):
             row[name] = time_call(fn, flush, reps)
-            step = sums.setdefault(name, dict.fromkeys(row[name], 0.0))
-            for key, v in row[name].items():
-                step[key] += calls * v
+            add_calls(sums, name, row[name], calls)
         rows.append(row)
         del x, wb, ab, gy, gs, y
     for shape, calls, names in STEM_SHAPES:
         row = {"shape": f"stem {shape} bf16{'' if calls else ' (a request)'}", "calls": calls}
         for name, fn in zip(names, stem_calls(shape, dev, gen)):
             row[name] = time_call(fn, flush, reps)
-            step = sums.setdefault(name, dict.fromkeys(row[name], 0.0))
-            for key, v in row[name].items():
-                step[key] += calls * v
+            add_calls(sums, name, row[name], calls)
         rows.append(row)
-    return {"device": torch.cuda.get_device_name(0), "shapes": rows, "step_ms": sums}
+    for shape, dtype, calls in NORMALIZE_SHAPES:
+        row = {"shape": f"normalize {shape} {dtype}{'' if calls else ' (a request)'}",
+               "calls": calls}
+        row["normalize"] = time_call(normalize_call(shape, dtype, dev, gen), flush, reps)
+        add_calls(sums, "normalize", row["normalize"], calls)
+        rows.append(row)
+    fit = {}
+    for (n, d, k), calls, fit_calls in ASSIGN_SHAPES:
+        row = {"shape": f"assign ({n}, {d}) x {k}", "calls": calls}
+        row["assign"] = time_call(assign_call(n, d, k, dev, gen), flush, reps)
+        add_calls(sums, "assign", row["assign"], calls)
+        add_calls(fit, "assign", row["assign"], fit_calls)
+        rows.append(row)
+    return {"device": torch.cuda.get_device_name(0), "shapes": rows, "step_ms": sums,
+            "fit_ms": fit}
+
+
+def normalize_call(shape, dtype: str, dev, gen):
+    """A call of the normalize kernel on uniform uint8 pixels."""
+    from multi_modal_regression_tpu_torch.ops import preprocess
+
+    x = torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=gen)
+    return lambda: preprocess.normalize_images_cuda(x, getattr(torch, dtype))
+
+
+def assign_call(n: int, d: int, k: int, dev, gen):
+    """A call of the assign kernel on y, centers ~ N(0, 1) float32."""
+    from multi_modal_regression_tpu_torch.ops import assign
+
+    y = torch.randn((n, d), device=dev, generator=gen)
+    c = torch.randn((k, d), device=dev, generator=gen)
+    return lambda: assign.assign_bins(y, c)
 
 
 def stem_calls(shape, dev, gen):
@@ -208,11 +257,12 @@ def compare(base: Path, reps: int) -> None:
             line = parts(lambda r: r["shapes"][i][name], row[name])
             print(f"{row['shape']} x{row['calls']} {name}: {line}")
     summary = {}
-    for name, keys in runs[0]["step_ms"].items():
-        summary[name] = {key: {side: med(pair, lambda r: r["step_ms"][name][key])
-                               for side, pair in (("old", old), ("new", new))} for key in keys}
-        print(f"step sum {name} (ms x calls): "
-              + parts(lambda r: r["step_ms"][name], keys))
+    for total, what in (("step_ms", "step sum"), ("fit_ms", "fit sum")):
+        for name, keys in runs[0][total].items():
+            summary[f"{what} {name}"] = {
+                key: {side: med(pair, lambda r: r[total][name][key])
+                      for side, pair in (("old", old), ("new", new))} for key in keys}
+            print(f"{what} {name} (ms x calls): " + parts(lambda r: r[total][name], keys))
     print(json.dumps({"runs": runs, "summary": summary}))
 
 

@@ -73,6 +73,61 @@ def test_stem_kernel_bit_exact(dev, shape, dtype):
     assert torch.equal(got.nan_to_num(), want.nan_to_num())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 16, 8, 3), (1, 1, 1, 3), (1, 3, 5, 3), (1, 7, 7, 3),
+                                   (1, 1, 47, 3), (1, 5, 19, 3), (96, 224, 224, 3)],
+                         ids=["groups", "one_pixel", "under_48", "tail_3", "tail_45",
+                              "tail_45_of_95", "step"])
+def test_normalize_kernel_equals_its_arithmetic(dev, shape, dtype):
+    """Bit-equal to normalize_affine_plain (the kernel's arithmetic in eager
+    ops): 48-byte groups, the pixels after them (n mod 48 = 3 and 45: 49 and
+    47 pixels), fewer than 48 values, one pixel, and a training step's batch;
+    within 1e-6 / 1 bf16 ulp of normalize_images."""
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, shape, np.uint8)).to(dev)
+    plan = preprocess._normalize_plan(x.numel(), x.data_ptr() % 16)
+    assert plan.groups == x.numel() // 48 and 3 * plan.pixels == x.numel() % 48
+    got = preprocess.normalize_images_cuda(x, dtype)
+    assert torch.equal(got, preprocess.normalize_affine_plain(x, dtype))
+    assert torch.equal(got, preprocess.normalize_images_cuda(x, dtype))
+    tol = 1e-6 if dtype == torch.float32 else 2**-7
+    torch.testing.assert_close(got.float(), normalize_images(x, dtype).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normalize_kernel_misaligned_view(dev, dtype):
+    """x[1:] of a (3, 5, 7, 3) batch starts 105 bytes in: no 16-byte groups,
+    a pixel a thread, bit-equal to normalize_affine_plain."""
+    full = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (3, 5, 7, 3), np.uint8))
+    full = full.to(dev)
+    x = full[1:]
+    assert x.is_contiguous() and (x.data_ptr() - full.data_ptr()) == 105
+    plan = preprocess._normalize_plan(x.numel(), x.data_ptr() % 16)
+    assert plan.groups == 0 and plan.pixels == 70
+    got = preprocess.normalize_images_cuda(x, dtype)
+    assert torch.equal(got, preprocess.normalize_affine_plain(x, dtype))
+    assert torch.equal(got, preprocess.normalize_images_cuda(full, dtype)[1:])
+
+
+def test_normalize_kernel_past_32_bit_items(dev):
+    """A misaligned view of 2**32 + 64 pixels (12.9 GB of uint8, a pixel a
+    thread): the item index passes 2**32 in one launch; the first and last
+    4096 pixels and 4096 across pixel 2**32 are bit-equal to
+    normalize_affine_plain."""
+    torch.cuda.empty_cache()
+    p = 2**32 + 64
+    gen = torch.Generator(device=dev).manual_seed(6)
+    full = torch.randint(0, 256, (3 * (p + 1),), dtype=torch.uint8, device=dev, generator=gen)
+    x = full[3:].view(1, 1, p, 3)
+    plan = preprocess._normalize_plan(x.numel(), x.data_ptr() % 16)
+    assert x.data_ptr() % 16 != 0 and plan.groups == 0 and plan.pixels == p
+    got = preprocess.normalize_images_cuda(x, torch.bfloat16).view(p, 3)
+    for a in (0, 2**32 - 2048, p - 4096):
+        want = preprocess.normalize_affine_plain(x.view(p, 3)[a : a + 4096], torch.bfloat16)
+        assert torch.equal(got[a : a + 4096], want)
+    del got, x, full
+    torch.cuda.empty_cache()
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     x = torch.zeros((2, 4, 4, 3), dtype=torch.uint8, device=dev)
     with pytest.raises(TypeError):
@@ -582,6 +637,77 @@ def test_assign_kernel_equals_plain(dev, n, d, k):
     assert got.dtype == torch.int32 and got.shape == (n,) and not got.requires_grad
     assert torch.equal(got, assign.assign_bins_plain(y, c))
     assert torch.equal(got, assign.assign_bins(y, c))
+
+
+def _assign_equal(y, c):
+    got = assign.assign_bins(y, c)
+    assert got.dtype == torch.int32 and got.shape == (y.shape[0],)
+    assert torch.equal(got, assign.assign_bins_plain(y, c))
+    assert torch.equal(got, assign.assign_bins(y, c))
+    return got
+
+
+@pytest.mark.parametrize("where", ["tiles_eq_grid-1", "tiles_eq_grid+1",
+                                   "tile_a_warp-1", "tile_a_warp", "tile_a_warp+1"])
+def test_assign_kernel_at_plan_boundaries(dev, where):
+    """N one row either side of where the plan's shape changes: as many
+    tiles of 256 rows as blocks of the full grid (one row short of it, one
+    tile more, which one block walks after its first), and a tile for each
+    of the grid's warps (one row short, exact, one row more); equal to
+    plain, reruns bit-equal."""
+    sms = assign._sms(dev.index)
+    grid = sms * 3  # blocks an SM at K = 200
+    n = {"tiles_eq_grid-1": 256 * grid - 1, "tiles_eq_grid+1": 256 * grid + 1,
+         "tile_a_warp-1": 256 * 8 * grid - 1, "tile_a_warp": 256 * 8 * grid,
+         "tile_a_warp+1": 256 * 8 * grid + 1}[where]
+    plan = assign._assign_plan(n, 3, 200, sms)
+    assert plan.tiles == -(-n // 256) and plan.blocks == min(grid, plan.tiles)
+    rng = np.random.default_rng(n)
+    y = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal((200, 3)).astype(np.float32)).to(dev)
+    _assign_equal(y, c)
+
+
+@pytest.mark.parametrize("d,k", [(1, 1), (2, 1), (3, 1), (4, 1), (1, 6144), (2, 4096),
+                                 (3, 3072), (4, 2457), (4, 5), (2, 7)])
+def test_assign_kernel_dims_and_center_limits(dev, d, k):
+    """K = 1 at every D; K * (D + 1) at the 12,288-float limit for every D
+    (the padded slots take 64-96 KB of dynamic shared memory); K not a
+    multiple of the 4-center groups; equal to plain, reruns bit-equal."""
+    assert k * (d + 1) <= assign.MAX_SHARED_FLOATS
+    rng = np.random.default_rng(10 * d + k)
+    y = torch.from_numpy(rng.standard_normal((9000, d)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal((k, d)).astype(np.float32)).to(dev)
+    got = _assign_equal(y, c)
+    if k == 1:
+        assert int(got.abs().sum()) == 0
+
+
+def test_assign_kernel_careful_rows(dev):
+    """Rows outside the fast loop's guard go through the careful loop of
+    the same kernel: |v| = 2^60 (just past the guard), 2^60 less an ulp
+    (just inside), +inf, -inf, NaN, huge rows whose distances overflow;
+    one such row in a warp tile sends the whole tile, and every row of it
+    must still equal plain. Then one center at 2^61 sends every row of
+    every block through the careful loop."""
+    rng = np.random.default_rng(5)
+    n = 100_000
+    y = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal((200, 3)).astype(np.float32)).to(dev)
+    edge = float(2**60)
+    below = float(np.nextafter(np.float32(edge), np.float32(0)))
+    specials = {7: (edge, 0.5, -0.5), 300: (-edge, 1.0, 2.0), 301: (below, below, -below),
+                5000: (float("inf"), 0.0, 1.0), 5001: (1.0, -float("inf"), 0.0),
+                77_777: (float("nan"), 1.0, 1.0), 99_999: (3e38, -3e38, 3e38)}
+    for i, row in specials.items():
+        y[i] = torch.tensor(row, device=dev)
+    got = _assign_equal(y, c)
+    assert int(got[77_777]) == 0
+    c[123] = torch.tensor([float(2**61), 0.0, 0.0], device=dev)
+    _assign_equal(y, c)
+    plain_rows = y.clone()
+    plain_rows[list(specials)] = 0.0
+    _assign_equal(plain_rows, c)
 
 
 def test_assign_kernel_ties_nan_casts_and_refusals(dev):

@@ -141,6 +141,55 @@ def test_assign_rejects_what_it_does_not_take():
         assign.assign_bins(y.to("meta"), c.to("meta"))
 
 
+@pytest.mark.parametrize(
+    "n,d,k,want",
+    [
+        # (blocks, tiles, most tiles a block walks) on 132 SMs at 3 blocks
+        # an SM (grid 396), tiles of 256 rows
+        (2_000_000, 3, 200, (396, 7813, 20)),  # the default fit's rows
+        (2_000_000, 4, 200, (264, 7813, 30)),  # D = 4: 2 blocks an SM
+        (810_753, 3, 200, (396, 3168, 8)),
+        (810_752, 3, 200, (396, 3167, 8)),
+        (101_375, 3, 200, (396, 396, 1)),  # one tile a block
+        (101_377, 3, 200, (396, 397, 2)),  # one tile more: one block walks 2
+        (257, 3, 16, (2, 2, 1)),  # fewer tiles than blocks: a block a tile
+        (1, 1, 1, (1, 1, 1)),
+        (4096, 2, 4096, (16, 16, 1)),  # K (D + 1) at the limit: 64 KB, 3 an SM
+        (2_000_000, 1, 6144, (264, 7813, 30)),  # 96 KB: 2 blocks an SM
+        (2_000_000, 4, 2457, (264, 7813, 30)),  # 2 slots a center: 76.8 KB
+        (67_583, 4, 200, (264, 264, 1)),  # D = 4: one tile a block
+        (67_585, 4, 200, (264, 265, 2)),
+    ],
+)
+def test_assign_plan(n, d, k, want):
+    """As many blocks as share the card at once (3 an SM, 2 at D = 4, fewer
+    where the centers' shared memory does not allow it), never more than tiles; the
+    tiles shared out so that blocks differ by at most one (a full last
+    wave); 8 rows a thread, so tiles of 256 rows; one 16-byte slot a
+    center, two at D = 4."""
+    plan = assign._assign_plan(n, d, k, 132)
+    runs = [plan.tiles * (b + 1) // plan.blocks - plan.tiles * b // plan.blocks
+            for b in range(plan.blocks)]
+    assert (plan.blocks, plan.tiles, max(runs)) == want
+    assert plan.smem == k * (16 if d < 4 else 32)
+    assert plan.tiles == -(-n // 256)
+    assert sum(runs) == plan.tiles and max(runs) - min(runs) <= 1
+    per_sm = min(3 if d < 4 else 2, 228 * 1024 // (plan.smem + 1024))
+    assert plan.blocks == min(132 * per_sm, plan.tiles)
+
+
+@pytest.mark.parametrize("n,d,k,sms", [
+    (256 * 2**31, 3, 200, 132),  # 2**31 tiles of 256 rows
+    (0, 3, 200, 132),
+    (10, 5, 200, 132),
+    (10, 3, 0, 132),
+    (10, 4, 20_000, 132),  # centers beyond an SM's shared memory
+])
+def test_assign_plan_raises(n, d, k, sms):
+    with pytest.raises(ValueError):
+        assign._assign_plan(n, d, k, sms)
+
+
 def test_predict_and_residuals_match_jax_class(tmp_path):
     """One .npz read by both classes: equal bins (int32), residuals within
     atol 1e-7; a given `bins` is used as it is."""

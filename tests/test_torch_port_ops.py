@@ -102,6 +102,67 @@ def test_normalize_wrapper_takes_plain_on_cpu(dtype):
     assert torch.equal(got, normalize_images(x, TORCH_DTYPE[dtype]))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 5, 8, 3), (1, 7, 7, 3), (1, 3, 5, 3)])
+def test_normalize_affine_plain_matches_jax(shape, dtype):
+    """The kernel's arithmetic in eager ops (x * scale, + offset, each
+    rounded to float32, then cast) against the Pallas kernel in interpret
+    mode (8-row tiles; on the CPU XLA may fuse its multiply-add and round
+    once) and against the plain normalize_images: f32 rtol 1e-6, atol 1e-7;
+    bf16 at most 1 ulp. On CPU tensors the wrapper is normalize_images."""
+    x = np.random.default_rng(2).integers(0, 256, shape, np.uint8)
+    got = preprocess.normalize_affine_plain(torch.from_numpy(x), TORCH_DTYPE[dtype])
+    assert got.dtype == TORCH_DTYPE[dtype] and got.shape == shape
+    want_kernel = _f32(
+        _interpreted(_pallas_normalize, jnp.asarray(x), JAX_DTYPE[dtype], 8)
+    )
+    want_plain = _f32(normalize_images(torch.from_numpy(x), TORCH_DTYPE[dtype]))
+    for want in (want_kernel, want_plain):
+        if dtype == "float32":
+            np.testing.assert_allclose(_f32(got), want, rtol=1e-6, atol=1e-7)
+        else:
+            assert bf16_ulps(_f32(got), want).max() <= 1
+
+
+@pytest.mark.parametrize(
+    "n,misalign,want",
+    [
+        (64 * 224 * 224 * 3, 0, (200704, 0, 784)),  # a request: groups only
+        (96 * 224 * 224 * 3, 0, (301056, 0, 1176)),  # a step's batch
+        (147, 0, (3, 1, 1)),  # 49 pixels: n mod 48 = 3 after the groups
+        (141, 0, (2, 15, 1)),  # 47 pixels: n mod 48 = 45
+        (45, 0, (0, 15, 1)),  # under 48 values
+        (3, 0, (0, 1, 1)),  # one pixel
+        (0, 0, (0, 0, 0)),
+        (315, 9, (0, 105, 1)),  # x[1:] of (3, 5, 7, 3): 105 bytes in
+        (64 * 224 * 224 * 3, 4, (0, 3211264, 12544)),  # misaligned: pixels only
+        (256 * 48 + 3, 0, (256, 1, 2)),  # one item past a block
+        (2**31 * 3, 8, (0, 2**31, 2**23)),  # misaligned, 6.4 GB: 64-bit items
+        (48 * 2**31, 0, (2**31, 0, 2**23)),  # 2**31 groups
+    ],
+)
+def test_normalize_plan(n, misalign, want):
+    """48-byte groups where x is on a 16-byte boundary, the n mod 48 values
+    after them a pixel a thread, pixels only where x is not; blocks of 256
+    cover the items."""
+    plan = preprocess._normalize_plan(n, misalign)
+    assert (plan.groups, plan.pixels, plan.blocks) == want
+    assert 48 * plan.groups + 3 * plan.pixels == n
+    assert plan.blocks * 256 >= plan.groups + plan.pixels > (plan.blocks - 1) * 256
+
+
+@pytest.mark.parametrize("n,misalign", [
+    (2**31 * 256 * 3, 8),  # 2**39 pixels a thread each: past the grid's 2**31 - 1 blocks
+    (2**31 * 256 * 48, 0),  # 2**39 groups
+    (10, 0),  # not whole pixels
+    (-3, 0),
+    (48, 16),
+])
+def test_normalize_plan_raises(n, misalign):
+    with pytest.raises(ValueError):
+        preprocess._normalize_plan(n, misalign)
+
+
 def test_normalize_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         preprocess.normalize_images_cuda(torch.zeros((2, 8, 8, 3), dtype=torch.float32))
