@@ -97,6 +97,22 @@ line each (or more), in order:
      nonzero, running statistics moved; the plain path within TRAIN_TOL
      (relaxed_bd's main-phase loss and Lr, which decode through an argmax
      over nearly flat scores, within SOFT_DECODE_TOL)
+  10 the user's command: `python -m multi_modal_regression_tpu_torch.cli
+     train --preset geodesic_bd` at full width (bf16, 4 items a class per
+     stream, 1 warm-up + 2 main epochs of 2 steps) as a subprocess, from PNG
+     trees that tools/synthetic writes (12 classes, 224 px, pattern 'pose':
+     8-10 images a class per training tree, 24 test images) and [7]'s
+     kmeans dictionary: exit 0, checkpoints last, best and final,
+     plots.npz of 2 MedErrs, med_err records, a finite final MedErr; the
+     restored `final` evaluated here with TF32 off within 1e-3 deg of it;
+     one eval pass and one checkpoint write timed; `--resume` in this
+     process from step 6 to 12 with exactly one normalize launch per train
+     step and per eval batch and no other kernel; labels out of range
+     refused on the host (`--num-classes` against `--dbinfo`, and a batch
+     with label 12 through Trainer.fit) with the card still usable; the
+     decode route, decode img/s at 1, 4 and 8 threads, the img/s of one
+     BalancedLoader and of the two zipped, at the CLI's --num-workers,
+     against [5]'s step img/s, each beside the card and the host CPU
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
      rate of their type), then the result line
@@ -118,7 +134,9 @@ yardsticks' `..._ms` and `..._device_ms`): compare like with like.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -127,12 +145,14 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.io as spio
 import torch
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from multi_modal_regression_tpu_torch import PASCAL3D_CLASSES  # noqa: E402
+from multi_modal_regression_tpu_torch import PASCAL3D_CLASSES, cli  # noqa: E402
+from multi_modal_regression_tpu_torch.data import loader, native  # noqa: E402
 from multi_modal_regression_tpu_torch.data.loader import normalize_images  # noqa: E402
 from multi_modal_regression_tpu_torch.data.naming import make_name  # noqa: E402
 from multi_modal_regression_tpu_torch.data.targets import euler_to_pose  # noqa: E402
@@ -151,6 +171,7 @@ from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
     stem_pool,
 )
 from multi_modal_regression_tpu_torch.serving import make_inference_fn  # noqa: E402
+from multi_modal_regression_tpu_torch.tools.synthetic import generate_pose_dataset  # noqa: E402
 from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
     C3_SHAPES,
     MM_SHAPES,
@@ -1182,7 +1203,8 @@ def phase_train(dev, dictionary) -> dict:
     )
     if not (loss_err <= 1e-4 and worst_err <= 1e-3):
         raise AssertionError("f32 kernel-path gradients differ from the plain path")
-    return {"launches": launches, "img_s": n_img / med_k, "plain_img_s": n_img / med_p}
+    return {"launches": launches, "img_s": n_img / med_k, "plain_img_s": n_img / med_p,
+            "img_s_iqr": (n_img / np.percentile(t_k, 75), n_img / np.percentile(t_k, 25))}
 
 
 FUSED_COUNTERS = ("mm_launches", "mm_bwd_launches", "c3_launches", "c3_bwd_launches")
@@ -1580,6 +1602,268 @@ def phase_train_soft(dev, preset: str, dictionary) -> None:
     torch.cuda.empty_cache()
 
 
+USER_TREE = (("augmented2", 8, 1), ("renderforcnn", 8, 2), ("test", 1, 3))
+TIMING_PER_CLASS = 120  # 120-122 items a class: 30 batches an epoch at 4 items
+TIMING_REPEATS = 3
+
+
+def host_cpu() -> str:
+    """The host CPU as lscpu or /proc/cpuinfo names it, and its core count."""
+    name = ""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        name = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                     if ln.startswith("Model name:")), "")
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    if not name or name == "unknown":
+        info = {}
+        for ln in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, val = ln.partition(":")
+            info.setdefault(key.strip(), val.strip())
+        name = (f"{info.get('model name', 'unknown')} (vendor {info.get('vendor_id', '?')}, "
+                f"family {info.get('cpu family', '?')}, model {info.get('model', '?')})")
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def rate_line(rates) -> str:
+    """Median img/s with the least and the most of the repeats."""
+    return f"{statistics.median(rates):.1f} img/s (min {min(rates):.1f}, max {max(rates):.1f})"
+
+
+def loader_epoch(start) -> tuple[float, float]:
+    """One epoch of `start()`'s batches: seconds to the first batch (the
+    prefetch thread and decode pool started, the first batch decoded), and
+    img/s over the rest of the epoch."""
+    t0 = time.perf_counter()
+    it = start()
+    next(it)
+    t1 = time.perf_counter()
+    n = sum(len(b["label"]) for b in it)
+    return t1 - t0, n / (time.perf_counter() - t1)
+
+
+def _stamped(batches, stamps: list):
+    """Yield `batches`, stamping the host clock each time the next is asked for."""
+    for b in batches:
+        yield b
+        stamps.append(time.perf_counter())
+
+
+def read_records(path: Path) -> list[dict]:
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+def phase_user_command(dev, smi: str, dictionary: KMeansDictionary, step: dict) -> int:
+    """[10]: `cli train` of the full-width geodesic_bd preset from PNG trees,
+    in a subprocess, then its resume in this process. Returns the normalize
+    launches of the resumed run."""
+    cpu = host_cpu()
+    where = f"card {smi}; host {cpu}"
+    # what the first decode of every new process pays: without a library in
+    # build/native/ it tries the build (two g++ runs when that fails)
+    built = native.library_path().exists()
+    probe = (f"import time\nfrom {PORT}.data import native\nt = time.perf_counter()\n"
+             f"ok = native.available()\nprint(ok, time.perf_counter() - t)")
+    ok, took = subprocess.run([sys.executable, "-c", probe], cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=900,
+                              check=True).stdout.split()[-2:]
+    before = ("a library was in build/native/ already" if built else
+              "no library in build/native/, so a build was tried")
+    print(f"[10] native.available() in a fresh process: {ok} after {float(took):.3f} s "
+          f"({before}); {where}")
+    route = ("native libpng decode (data/native.py)" if native.available() else
+             "PIL, per file (the native decode library does not build here: no libpng headers "
+             "or no g++)")
+    print(f"[10] decode route on this host: {route}; {where}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        t0 = time.perf_counter()
+        for sub, per_class, seed in USER_TREE:
+            generate_pose_dataset(data / sub, PASCAL3D_CLASSES, per_class, 224, seed=seed,
+                                  pattern="pose")
+        pngs = {sub: sorted((data / sub).rglob("*.png")) for sub, _, _ in USER_TREE}
+        print(f"[10] wrote {', '.join(f'{len(v)} {k}' for k, v in pngs.items())} 224 px PNGs "
+              f"(tools/synthetic, pattern 'pose') in {time.perf_counter() - t0:.2f} s")
+        npz = tmp / "kmeans_dictionary_axis_angle_200.npz"
+        dictionary.save(npz)
+        wd = tmp / "run"
+        args = ["train", "--preset", "geodesic_bd", "--data-root", str(data), "--dictionary",
+                str(npz), "--compute-dtype", "bfloat16", "--items-per-batch", "4",
+                "--num-warmup-epochs", "1", "--num-epochs", "2", "--max-iterations", "2",
+                "--workdir", str(wd)]
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", f"{PORT}.cli", *args],
+                             cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                             timeout=900)
+        run_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"cli train exited {run.returncode}:\n{run.stdout}{run.stderr}")
+        ck = wd / "checkpoints"
+        names = sorted(p.name for p in ck.iterdir())
+        with np.load(wd / "plots.npz") as f:
+            curve = f["val_loss"]
+        recs = read_records(wd / "metrics.jsonl")
+        sub_med = float(run.stdout.split("final MedErr ")[1].split()[0])
+        saved = torch.load(ck / "final", map_location="cpu", weights_only=True)
+        if not (names == ["best", "final", "last"] and curve.shape == (2,)
+                and sum("med_err" in r for r in recs) == 2 and np.isfinite(sub_med)
+                and saved["step"] == 6):
+            raise AssertionError(f"cli train: checkpoints {names}, plots {curve}, step "
+                                 f"{saved['step']}, final MedErr {sub_med}:\n{run.stdout}")
+        logged = [(r["step"], round(r["images_per_sec"], 1)) for r in recs if "images_per_sec" in r]
+        print(f"[10] cli train (subprocess): exit 0 in {run_s:.1f} s; 6 steps of 96 images (2 "
+              f"warm-up + 2 x 2 main), checkpoints {names}, plots.npz {curve.round(3).tolist()}, "
+              f"{run.stdout.strip().splitlines()[-1]}")
+        print(f"[10] cli train logged train img/s (step, img/s; each the first step of an epoch, "
+              f"loader wait and first-call costs included): {logged}; {where}")
+
+        # the restored `final` evaluated here, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        parsed = cli.build_parser().parse_args(args)
+        cfg = cli._config_from_args(parsed)
+        trainer = Trainer(cfg, dictionary=dictionary, workdir=wd, device=dev)
+        real, render, test = cli._make_loaders(parsed, cfg)
+        state = trainer.restore_checkpoint("final")
+        med = trainer.evaluate(state, test)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = trainer.evaluate(state, test)
+        eval_s = time.perf_counter() - t0
+        if not (abs(med - sub_med) <= 1e-3 and again == med):
+            raise AssertionError(f"restored final: MedErr {med}, {again} against the run's {sub_med}")
+        print(f"[10] restored `final` (step {state.step}): MedErr {med:.6f} deg against the "
+              f"subprocess's {sub_med:.3f} (<= 1e-3 deg, TF32 off); one eval pass "
+              f"({len(pngs['test'])} images, {len(test)} padded batch of {cfg.eval_batch}) "
+              f"{eval_s * 1e3:.1f} ms wall; {where}")
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(state, "timing")
+        copy_s = time.perf_counter() - t0
+        trainer.wait_for_checkpoints()
+        write_s = time.perf_counter() - t0
+        size = (ck / "timing").stat().st_size
+        print(f"[10] one checkpoint write: {write_s:.3f} s wall ({size / 2**20:.1f} MiB; "
+              f"{copy_s:.3f} s of it on the caller's thread, the copy to the host); {where}")
+        (ck / "timing").unlink()
+        del trainer, state
+
+        # --resume in this process
+        reset_counts()
+        if cli.main(args + ["--resume"]) != 0:
+            raise AssertionError("cli train --resume failed")
+        torch.cuda.synchronize()
+        counts = read_counts()
+        final = torch.load(ck / "final", map_location="cpu", weights_only=True)
+        resumed = read_records(wd / "metrics.jsonl")[len(recs):]
+        n_steps = final["step"] - saved["step"]
+        n_evals = len(test) * (cfg.num_epochs + 1)
+        if not (final["step"] == 12 and resumed[0]["step"] == 7
+                and counts == {**{k: 0 for k in counts}, "normalize": n_steps + n_evals}):
+            raise AssertionError(f"resume: step {final['step']}, first logged {resumed[0]}, "
+                                 f"launches {counts}")
+        print(f"[10] --resume (this process): from step {saved['step']} to {final['step']}, "
+              f"normalize launches {counts['normalize']} = {n_steps} train steps + {n_evals} "
+              f"eval batches, no other kernel (stem_pool and fused_conv_bn stay off, as the "
+              f"JAX package's 'auto' resolves them)")
+
+        # labels out of range never reach the card
+        dbinfo = tmp / "dbinfo.mat"
+        spio.savemat(str(dbinfo), {"classes": np.array(PASCAL3D_CLASSES, dtype=object)})
+        try:
+            cli.main(args + ["--dbinfo", str(dbinfo), "--num-classes", "3"])
+            raise AssertionError("--num-classes 3 against 12 classes was not refused")
+        except SystemExit as e:
+            refused_cli = str(e)
+        trainer = Trainer(cfg, dictionary=dictionary, device=dev)
+        batch = next(iter(real))
+        batch["label"] = batch["label"] + 1  # 1..12 with 12 classes
+        try:
+            trainer.fit(trainer.init_state(), [batch], [batch])
+            raise AssertionError("a label of 12 with 12 classes was not refused")
+        except ValueError as e:
+            refused_fit = str(e)
+        after = trainer.evaluate(trainer.init_state(), test)  # the context still works
+        torch.cuda.synchronize()
+        if trainer.history or not np.isfinite(after):
+            raise AssertionError(f"after the refusal: history {trainer.history}, MedErr {after}")
+        print(f"[10] labels out of range refused on the host, no step run: cli "
+              f"({refused_cli}); fit ({refused_fit}); an eval pass on the card afterwards: "
+              f"MedErr {after:.3f} deg")
+        del trainer
+
+        # the host pipeline's rates, on a tree of 30 batches an epoch a loader
+        timing = tmp / "timing"
+        t0 = time.perf_counter()
+        for sub, per_class, seed in (("augmented2", TIMING_PER_CLASS, 11),
+                                     ("renderforcnn", TIMING_PER_CLASS, 12), ("test", 1, 13)):
+            generate_pose_dataset(timing / sub, PASCAL3D_CLASSES, per_class, 224, seed=seed,
+                                  pattern="pose")
+        parsed_t = cli.build_parser().parse_args(
+            [str(timing) if a == str(data) else a for a in args])
+        real_t, render_t, _ = cli._make_loaders(parsed_t, cfg)
+        paths = [str(p) for sub in ("augmented2", "renderforcnn")
+                 for p in sorted((timing / sub).rglob("*.png"))]
+        print(f"[10] timing tree: {len(paths)} training PNGs of 224 px (tools/synthetic), "
+              f"{len(real_t)} batches of {real_t.batch_images} an epoch a loader, written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        pools = {t: concurrent.futures.ThreadPoolExecutor(t) for t in (1, 4, 8)}
+        decode = {t: [] for t in pools}
+        try:
+            for t, pool in pools.items():  # threads started before the clock
+                loader._decode_many(paths[:64], 224, pool, t)
+            for _ in range(TIMING_REPEATS):
+                for t, pool in pools.items():
+                    t0 = time.perf_counter()
+                    loader._decode_many(paths, 224, pool, t)
+                    decode[t].append(len(paths) / (time.perf_counter() - t0))
+        finally:
+            for pool in pools.values():
+                pool.shutdown()
+        print(f"[10] decode_image ({route.split(' (')[0]}), {TIMING_REPEATS} passes of "
+              f"{len(paths)} files at each thread count, interleaved: "
+              + "; ".join(f"{t} thread{'s' * (t > 1)} {rate_line(r)}" for t, r in decode.items())
+              + f"; {where}")
+
+        trainer = Trainer(cfg.replace(max_iterations=None), dictionary=dictionary, device=dev)
+        state = trainer.init_state()
+        step_fn = trainer.train_step_fn("main", dual_stream=True)
+        batch = trainer._to_device(next(_interleave(real_t, render_t)))
+        n_img = len(batch["label"])
+        state, _ = timed_steps(step_fn, state, batch, 2)
+        state, t_alone = timed_steps(step_fn, state, batch, 10)
+        starts, one, zipped, fit = [], [], [], []
+        for _ in range(TIMING_REPEATS):
+            first, rate = loader_epoch(lambda: iter(real_t))
+            starts.append(first)
+            one.append(rate)
+            first, rate = loader_epoch(lambda: _interleave(real_t, render_t))
+            starts.append(first)
+            zipped.append(rate)
+            stamps, step0 = [], state.step
+            state = trainer.run_epoch(state, _stamped(real_t, stamps), render_t, "main",
+                                      log_every=10**9)
+            torch.cuda.synchronize()
+            # steps 2..N: stamps[0] is taken after step 1, whose log waited for the card
+            fit.append((state.step - step0 - 1) * n_img / (time.perf_counter() - stamps[0]))
+        lo, hi = step["img_s_iqr"]
+        print(f"[10] host loaders at --num-workers {parsed.num_workers}, {TIMING_REPEATS} epochs "
+              f"each, interleaved with the runs below, the rest of an epoch after its first "
+              f"batch: one BalancedLoader {rate_line(one)}; the real and render loaders zipped, "
+              f"as a step takes them, {rate_line(zipped)}; an epoch's start (threads, pool, "
+              f"first batch), not in the rates: median {statistics.median(starts):.3f} s; "
+              f"{where}")
+        print(f"[10] main train step of this config alone ({n_img} images on the card, 10 steps "
+              f"each synchronized): {rate_line([n_img / t for t in t_alone])}; [5]'s step "
+              f"(stem kernels on) {step['img_s']:.1f} img/s (quartiles {lo:.1f}-{hi:.1f}); "
+              f"Trainer.run_epoch fed by the two loaders, steps 2-{len(real_t)} of "
+              f"{TIMING_REPEATS} epochs: {rate_line(fit)}; {where}")
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    return counts["normalize"]
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1601,6 +1885,7 @@ def main() -> None:
     kmeans_dict, gmm_dict, assign_launches = phase_dictionary(dev, smi)
     phase_train_soft(dev, "probabilistic_bd", gmm_dict)
     phase_train_soft(dev, "relaxed_bd", kmeans_dict)
+    cli_launches = phase_user_command(dev, smi, kmeans_dict, train)
     # launches: each kernel's count over the 4 steps of its training path
     # ([5] unfused, [6] fused) or over the dictionary path's fit, predict and
     # residuals ([7]); serving's counts are in [4]
@@ -1611,7 +1896,8 @@ def main() -> None:
          "source": f"{PORT}/csrc/normalize.cu",
          "replaces": f"{JAX_PACKAGE}/ops/preprocess.py:60",
          "launches": train["launches"]["normalize"],
-         "serving_launches": serve["launches"]["normalize"], **norm},
+         "serving_launches": serve["launches"]["normalize"],
+         "cli_train_resume_launches": cli_launches, **norm},
         {"name": "stem_pool", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:162",

@@ -1,13 +1,14 @@
 """Dataset index construction and class-balanced sampling (the port's copy
-of the JAX package's data/index.py, as far as dictionary fitting needs it).
+of the JAX package's data/index.py).
 
   ImagesAll    (dataGenerators.py:26-77): one "item" = one image from EVERY
                class; image i of class c is `names[c][idx % num_images[c]]`;
                epoch length = max class size; per-class independent
                reshuffles at epoch end (shuffle_images, :76-77).
-
-The flat test index and the .mat crop index arrive with the loaders
-(ROADMAP.md).
+  TestImages   (dataGenerators.py:181-221): flat concatenation of all
+               classes' images with per-image labels.
+  Pascal3dAll  (dataGenerators.py:80-124): flat index over precomputed .mat
+               crops, 'val' -> pascal_train names, 'test' -> pascal_val.
 
 Index sources: `<cls>_info.mat` files (squeeze_me semantics, the reference
 layout) with a directory-scan fallback so synthetic/test datasets need no
@@ -109,3 +110,75 @@ class ClassBalancedIndex:
             ct = p.ct if self.db_type == "real" else -p.ct
             out[c] = (p.az, p.el, ct)
         return out
+
+
+@dataclasses.dataclass
+class FlatTestIndex:
+    """The TestImages index: all classes concatenated, per-image labels."""
+
+    db_path: str
+    classes: Sequence[str] = PASCAL3D_CLASSES
+    info_key: str = "image_names"
+
+    def __post_init__(self):
+        self.num_classes = len(self.classes)
+        names, labels = [], []
+        for i, c in enumerate(self.classes):
+            n = _class_image_names(self.db_path, c, self.info_key)
+            names.append(n)
+            labels.append(np.full(len(n), i, dtype=np.int64))
+        self.image_names = np.concatenate(names)
+        self.labels = np.concatenate(labels)
+
+    def __len__(self) -> int:
+        return len(self.image_names)
+
+    def path(self, idx: int) -> str:
+        return os.path.join(
+            self.db_path,
+            self.classes[self.labels[idx]],
+            self.image_names[idx] + ".png",
+        )
+
+    def euler(self, idx: int) -> np.ndarray:
+        p = parse_name(self.image_names[idx])
+        return np.array((p.az, p.el, p.ct), np.float64)
+
+
+@dataclasses.dataclass
+class MatCropIndex:
+    """The Pascal3dAll index over precomputed per-image .mat crops.
+
+    split 'val' reads the pascal_train name lists, 'test' pascal_val
+    (dataGenerators.py:92-97 — 'val' is the ablation model-selection split).
+    """
+
+    db_path: str
+    split: str  # 'val' | 'test'
+    classes: Sequence[str] = PASCAL3D_CLASSES
+
+    def __post_init__(self):
+        import scipy.io as spio
+
+        key = "pascal_train" if self.split == "val" else "pascal_val"
+        names, labels = [], []
+        for i, c in enumerate(self.classes):
+            tmp = spio.loadmat(
+                str(Path(self.db_path) / f"{c}_info.mat"), squeeze_me=True
+            )
+            n = tmp[key]
+            if isinstance(n, str):
+                n = [n]
+            n = np.asarray([str(s).strip() for s in n])
+            names.append(n)
+            labels.append(np.full(len(n), i, dtype=np.int64))
+        self.image_names = np.concatenate(names)
+        self.labels = np.concatenate(labels)
+
+    def __len__(self) -> int:
+        return len(self.image_names)
+
+    def path(self, idx: int) -> str:
+        return os.path.join(
+            self.db_path, self.classes[self.labels[idx]], str(self.image_names[idx])
+        )

@@ -90,6 +90,7 @@ class ExperimentConfig:
     items_per_batch: int = 8  # images per loader per step = items * classes
     image_size: int = 224
     max_iterations: int | None = None  # cap on steps per epoch
+    eval_batch: int = 96  # test-loader batch (the last one padded)
     eval_every: int = 1000
     seed: int = 0
     compute_dtype: str = "float32"  # 'bfloat16' for the fast path
@@ -103,6 +104,11 @@ class ExperimentConfig:
     # (the JAX package's None | 'xla' | 'pallas'); needs compute_dtype
     # 'bfloat16'; see models/backbones.BottleneckBlock
     fused_conv_bn: str | None = None
+    # checkpoints (Trainer.save_checkpoint): the state is copied to the host
+    # on the caller's thread, then written on a background thread;
+    # Trainer.wait_for_checkpoints() observes completion and failure
+    checkpoint_async: bool = True
+    tensorboard: bool = False  # TensorBoard scalars: not ported, True raises
     # not ported yet: setting any of them raises (ROADMAP.md)
     frozen_bn: bool = False
     remat: str | None = None

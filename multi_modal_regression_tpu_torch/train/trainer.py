@@ -1,25 +1,46 @@
-"""The Trainer: warm-up and main phases of steps (port of the JAX package's
-train/trainer.py, as far as the ported presets' training paths need).
+"""The Trainer: warm-up and main phases of steps, periodic MedErr evaluation,
+checkpoints (port of the JAX package's train/trainer.py).
 
 Each step consumes one real batch and one render batch, concatenated (the
 reference zips two DataLoaders, learnGeodesicBDModel.py:160-173). Loaders
-are any iterables of the BalancedLoader batch dicts: `xdata` uint8
-(n, S, S, 3), `euler` float32 degrees (n, 3), `label` int32 (n,), as numpy
-arrays or tensors; the host loaders themselves are not ported yet.
+are any iterables of the BalancedLoader batch dicts (data/loader.py):
+`xdata` uint8 (n, S, S, 3), `euler` float32 degrees (n, 3), `label` int32
+(n,), as numpy arrays or tensors on the host; test loaders add a boolean
+`valid` row mask (TestLoader, MatCropLoader). Labels are checked on the
+host before a batch crosses to the device: on the card an out-of-range
+label would be a device-side assert that ends the process's CUDA context.
 
-Checkpoints (`workdir`) and MedErr evaluation (`test_loader`) come with the
-loaders and metrics slice and raise until then (ROADMAP.md).
+Evaluation decodes poses on the device and computes MedErr (the mean of
+per-class median geodesic errors, metrics/pose_error.py) on the host.
+
+Checkpoints (`workdir`) hold the full state, which the reference does not
+save (it saves parameters only, learnGeodesicBDModel.py:231-232): the
+model's state_dict with its BN running statistics, Adam's per-parameter
+count and moments in their own dtypes (a bfloat16 first moment stays
+bfloat16), the learning rate, `s`, the step and the config. They are
+written with `torch.save` to `<workdir>/checkpoints/<name>` (`last` after
+every main epoch, `best` at the lowest MedErr, `final` by the CLI),
+atomically: a temporary file in the same directory, then `os.replace`.
+Metrics go to `<workdir>/metrics.jsonl` under the JAX package's record keys
+and the validation curve to `<workdir>/plots.npz`. The multi-host predict
+waits for `parallel/` (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import tempfile
+import threading
 import time
+from pathlib import Path
 from typing import Iterable
 
 import numpy as np
 import torch
 
 from multi_modal_regression_tpu_torch.losses.self_balance import init_log_balance
+from multi_modal_regression_tpu_torch.metrics.pose_error import mean_class_median_error
 from multi_modal_regression_tpu_torch.train.presets import (
     ExperimentConfig,
     build_model,
@@ -31,11 +52,15 @@ from multi_modal_regression_tpu_torch.train.presets import (
 from multi_modal_regression_tpu_torch.train.schedules import epoch_lr_factor
 from multi_modal_regression_tpu_torch.train.state import TrainState
 from multi_modal_regression_tpu_torch.train.steps import (
+    make_eval_step,
     make_train_step,
     validate_dual_stream_layout,
 )
+from multi_modal_regression_tpu_torch.utils.metrics_writer import MetricsWriter
 
 _METRIC_KEYS = ("loss", "lc", "lr", "s", "alpha")
+# the batch entries that cross to the device (`valid` and `is_real` stay)
+_DEVICE_KEYS = ("xdata", "euler", "ydata", "label")
 
 
 def _interleave(real_loader: Iterable, render_loader: Iterable | None):
@@ -57,12 +82,31 @@ def _interleave(real_loader: Iterable, render_loader: Iterable | None):
         yield out
 
 
-def _no_test_loader(test_loader) -> None:
-    if test_loader is not None:
-        raise NotImplementedError(
-            "evaluation during fit (test_loader, MedErr) comes with the loaders "
-            "and metrics slice (ROADMAP.md)"
-        )
+def _host_copy(value):
+    """A copy on the host of a tensor, or of the tensors in a dict or list."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", copy=True)
+    if isinstance(value, dict):
+        return {k: _host_copy(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_host_copy(v) for v in value]
+    return value
+
+
+def _write_atomic(path: Path, payload: dict) -> None:
+    """torch.save to a temporary file beside `path`, flushed to disk, then
+    renamed over it: a reader finds the old checkpoint or the new one."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.name}.", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        Path(tmp).unlink(missing_ok=True)
+        raise
 
 
 class Trainer:
@@ -75,16 +119,18 @@ class Trainer:
     """
 
     def __init__(
-        self, config: ExperimentConfig, dictionary=None, workdir=None,
-        device: torch.device | str = "cuda",
+        self, config: ExperimentConfig, dictionary=None,
+        workdir: str | Path | None = None, device: torch.device | str = "cuda",
     ):
-        if workdir is not None:
-            raise NotImplementedError(
-                "checkpoints (workdir) come with the loaders and metrics slice "
-                "(ROADMAP.md)"
-            )
         self.config = config
         self.device = torch.device(device)
+        self.workdir = Path(workdir) if workdir else None
+        if self.workdir:
+            self.workdir.mkdir(parents=True, exist_ok=True)
+        self._writer = (
+            MetricsWriter(self.workdir, tensorboard=config.tensorboard)
+            if self.workdir else None
+        )
         self.compute_dtype = resolve_compute_dtype(config.compute_dtype)
         self.model = build_model(
             config, self.device,
@@ -93,7 +139,13 @@ class Trainer:
         self.problem = build_problem(config, dictionary, self.device)
         self.optimizer = build_optimizer(config, self.model.parameters())
         self._train_steps: dict = {}
-        self.history: list[dict] = []  # the logged records, in order
+        self._eval_step = make_eval_step(
+            self.model, self.problem, compute_dtype=self.compute_dtype
+        )
+        self.history: list[dict] = []  # the logged step records, in order
+        self.val_history: list[float] = []  # MedErr curve (plots.npz)
+        self._save_thread: threading.Thread | None = None
+        self._save_error: Exception | None = None
 
     def train_step_fn(self, phase: str = "main", dual_stream: bool = False):
         """The train step for a phase; dual_stream=True is the per-stream-BN
@@ -113,6 +165,8 @@ class Trainer:
             )
         return self._train_steps[key]
 
+    # -- state ------------------------------------------------------------
+
     def init_state(self) -> TrainState:
         """Step 0, s = 0, the trainer's model (weights as built from
         cfg.seed or as loaded since) and its optimizer with no moments,
@@ -128,6 +182,9 @@ class Trainer:
     def _set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+
+    def _params(self) -> list[torch.Tensor]:
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
 
     def apply_epoch_lr(self, state: TrainState, epoch: int) -> TrainState:
         """Set the MAIN-epoch learning rate (cfg.epoch_lr_decay: 'objectnet'
@@ -146,10 +203,117 @@ class Trainer:
         return state
 
     def _to_device(self, batch: dict) -> dict:
+        """The batch's images, poses and labels on the trainer's device,
+        after the labels were checked on the host against the class count."""
+        labels = batch["label"]
+        if isinstance(labels, torch.Tensor):
+            labels = labels.cpu()
+        labels = np.asarray(labels)
+        n = self.config.num_classes
+        if labels.size and (labels.min() < 0 or labels.max() >= n):
+            raise ValueError(
+                f"labels must lie in [0, {n}) (num_classes {n}); this batch "
+                f"holds {labels.min()}..{labels.max()}"
+            )
         return {
             k: torch.as_tensor(batch[k]).to(self.device)
-            for k in ("xdata", "euler", "label")
+            for k in _DEVICE_KEYS if k in batch
         }
+
+    # -- checkpointing ----------------------------------------------------
+
+    def _checkpoint_path(self, name: str) -> Path:
+        if not self.workdir:
+            raise ValueError("this trainer has no workdir to hold checkpoints")
+        return self.workdir / "checkpoints" / name
+
+    def save_checkpoint(self, state: TrainState, name: str = "last") -> None:
+        """Write the full state to `<workdir>/checkpoints/<name>` (nothing
+        without a workdir). The state is copied to the host here, on the
+        caller's thread, so later steps may update the model in place; with
+        cfg.checkpoint_async the file is written on a background thread
+        (one save in flight at a time), else before this returns."""
+        if not self.workdir:
+            return
+        payload = {
+            "model": _host_copy(state.model.state_dict()),
+            # Adam's state per parameter, in the order of its param groups:
+            # count, mu and nu in their own dtypes
+            "optimizer": [_host_copy(dict(state.optimizer.state.get(p, {})))
+                          for p in self._params()],
+            "learning_rate": self.optimizer.param_groups[0]["lr"],
+            "s": _host_copy(state.s),
+            "step": int(state.step),
+            "config": dataclasses.asdict(self.config),
+        }
+        path = self._checkpoint_path(name)
+        self.wait_for_checkpoints()
+        if self.config.checkpoint_async:
+            t = threading.Thread(
+                target=self._run_save, args=(path, payload),
+                name=f"ckpt-save-{name}", daemon=False,
+            )
+            self._save_thread = t
+            t.start()
+        else:
+            _write_atomic(path, payload)
+
+    def _run_save(self, path: Path, payload: dict) -> None:
+        try:
+            _write_atomic(path, payload)
+        except Exception as e:  # surfaced by wait_for_checkpoints
+            self._save_error = e
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until the background save in flight, if any, is on disk;
+        raise RuntimeError from its error if it failed. The thread is not a
+        daemon, so an exiting process finishes the write even without this
+        call; this makes completion and failure visible to the caller."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        if self._save_error is not None:
+            err, self._save_error = self._save_error, None
+            raise RuntimeError("background checkpoint save failed") from err
+
+    def restore_checkpoint(self, name: str = "last") -> TrainState:
+        """The state saved under `name`, loaded into this trainer's model and
+        optimizer on its device."""
+        self.wait_for_checkpoints()  # don't read a checkpoint mid-write
+        payload = torch.load(
+            self._checkpoint_path(name), map_location="cpu", weights_only=True
+        )
+        self.model.load_state_dict(payload["model"])
+        params = self._params()
+        if len(payload["optimizer"]) != len(params):
+            raise ValueError(
+                f"checkpoint {name!r} holds optimizer state for "
+                f"{len(payload['optimizer'])} parameters, the model has {len(params)}"
+            )
+        self.optimizer.state.clear()
+        for p, st in zip(params, payload["optimizer"]):
+            if st:  # torch's Optimizer.load_state_dict would cast mu to p's dtype
+                self.optimizer.state[p] = {
+                    k: v.to(p.device) if isinstance(v, torch.Tensor) else v
+                    for k, v in st.items()
+                }
+        self._set_lr(payload["learning_rate"])
+        return TrainState(
+            step=payload["step"], model=self.model, optimizer=self.optimizer,
+            s=payload["s"].to(self.device),
+        )
+
+    # -- logging ----------------------------------------------------------
+
+    def _log(self, record: dict) -> None:
+        """One record to metrics.jsonl, keyed by its step (no phase)."""
+        if self._writer:
+            record = dict(record)
+            step = record.pop("step", 0)
+            record.pop("phase", None)
+            self._writer.write(step, record)
+
+    # -- training ---------------------------------------------------------
 
     def run_epoch(
         self, state: TrainState, real_loader: Iterable,
@@ -157,11 +321,11 @@ class Trainer:
         log_every: int = 50,
     ) -> TrainState:
         """One pass over the zipped loaders (at most cfg.max_iterations
-        steps). Steps 1, log_every, 2*log_every, ... are logged: one
-        device-to-host fetch of the step's metrics each, printed and
-        appended to self.history with the learning rate the step ran at; no
+        steps), evaluating on test_loader every cfg.eval_every steps. Steps
+        1, log_every, 2*log_every, ... are logged: one device-to-host fetch
+        of the step's metrics each, printed, appended to self.history with
+        the learning rate the step ran at, and written to metrics.jsonl; no
         other step waits for the device."""
-        _no_test_loader(test_loader)
         cfg = self.config
         use_dual = render_loader is not None and cfg.bn_per_stream
         step_fn = self.train_step_fn(phase, dual_stream=use_dual)
@@ -178,8 +342,8 @@ class Trainer:
                 m = dict(zip(_METRIC_KEYS, values))
                 rec = {
                     "step": state.step, "phase": phase, **m,
+                    # reference scalar name (learnGeodesicBDModel.py:187-189)
                     "train_loss": m["loss"],
-                    "learning_rate": self.optimizer.param_groups[0]["lr"],
                     "images_per_sec": images_done / max(time.time() - t0, 1e-9),
                 }
                 print(
@@ -188,7 +352,15 @@ class Trainer:
                     f"({rec['images_per_sec']:.1f} img/s)",
                     flush=True,
                 )
-                self.history.append(rec)
+                self._log(rec)
+                self.history.append(
+                    {**rec, "learning_rate": self.optimizer.param_groups[0]["lr"]}
+                )
+            if test_loader is not None and cfg.eval_every and n_steps % cfg.eval_every == 0:
+                med = self.evaluate(state, test_loader)
+                print(f"[{phase}] step {state.step} {self.metric_label(med)}", flush=True)
+                self._log({"step": state.step, "med_err": med, "val_loss": med})
+                self.val_history.append(med)
             if cfg.max_iterations and n_steps >= cfg.max_iterations:
                 break
         return state
@@ -200,19 +372,71 @@ class Trainer:
         """cfg.num_warmup_epochs warm-up epochs, s reset to 0 when
         cfg.reset_s_between_phases (learnGeodesicBDModel.py:240), then
         cfg.num_epochs main epochs, each at its own learning rate under
-        cfg.epoch_lr_decay."""
-        _no_test_loader(test_loader)
+        cfg.epoch_lr_decay. After every main epoch: the `last` checkpoint,
+        and with a test_loader MedErr, logged and kept in val_history, with
+        the `best` checkpoint at the lowest so far. plots.npz holds the
+        curve; every save is on disk when fit returns."""
         cfg = self.config
+        best = float("inf")
         for _ in range(cfg.num_warmup_epochs):
             state = self.run_epoch(
-                state, real_loader, render_loader, "warmup", log_every=log_every
+                state, real_loader, render_loader, "warmup", test_loader, log_every
             )
         if cfg.reset_s_between_phases:
             state = state.replace(s=init_log_balance(self.device))
         for epoch in range(cfg.num_epochs):
+            tic = time.time()
             if cfg.epoch_lr_decay is not None:
                 state = self.apply_epoch_lr(state, epoch)
             state = self.run_epoch(
-                state, real_loader, render_loader, "main", log_every=log_every
+                state, real_loader, render_loader, "main", test_loader, log_every
             )
+            self.save_checkpoint(state)
+            if test_loader is not None:
+                med = self.evaluate(state, test_loader)
+                print(
+                    f"Epoch {epoch} done in {time.time() - tic:.1f}s "
+                    f"{self.metric_label(med)}",
+                    flush=True,
+                )
+                self._log({"step": state.step, "epoch": epoch, "med_err": med})
+                self.val_history.append(med)
+                if med < best:  # keep the best-by-MedErr checkpoint
+                    best = med
+                    self.save_checkpoint(state, "best")
+        if self.workdir and self.val_history:
+            # validation-curve history (the reference's plots/<S>.mat,
+            # learnGeodesicBDModel.py:257-258)
+            np.savez(self.workdir / "plots.npz", val_loss=np.asarray(self.val_history))
+        self.wait_for_checkpoints()
         return state
+
+    # -- evaluation -------------------------------------------------------
+
+    def predict(self, state: TrainState, test_loader: Iterable) -> tuple[np.ndarray, ...]:
+        """(ytrue, ypred, labels) on the host over the whole test set, the
+        padded rows (`valid` False) dropped. The model runs in eval mode."""
+        if state.model is not self.model:
+            raise ValueError("the state holds another model than this trainer")
+        preds, trues, labels = [], [], []
+        for batch in test_loader:
+            valid = np.asarray(batch["valid"], bool)
+            ypred, ytrue = self._eval_step(self._to_device(batch))
+            for out, y in ((preds, ypred), (trues, ytrue)):
+                y = y.to(torch.promote_types(torch.float32, y.dtype))
+                out.append(y.cpu().numpy()[valid])
+            labels.append(np.asarray(batch["label"])[valid])
+        return np.concatenate(trues), np.concatenate(preds), np.concatenate(labels)
+
+    def metric_label(self, value: float) -> str:
+        """The headline metric as printed: 'MedErr 12.345 deg'."""
+        return f"MedErr {value:.3f} deg"
+
+    def evaluate(self, state: TrainState, test_loader: Iterable) -> float:
+        """MedErr: the mean over classes of the per-class median pose error
+        in degrees (get_error2 parity, axisAngle.py:70-95)."""
+        ytrue, ypred, labels = self.predict(state, test_loader)
+        rep = "quaternion" if self.problem.ydata_type == "quaternion" else "axis_angle"
+        return mean_class_median_error(
+            ytrue, ypred, labels, self.config.num_classes, representation=rep
+        )

@@ -765,3 +765,76 @@ def test_dictionary_fits_on_the_card(dev):
     dist = np.linalg.norm(centers[:, None] - g.means[None], axis=-1)
     assert np.all(dist.min(axis=1) < 0.1)
     np.testing.assert_allclose(g.predict_proba(pts).sum(axis=1), 1.0, atol=1e-5)
+
+
+# --- evaluation and checkpoints on the card ---------------------------------------
+
+_EVAL_SMALL = dict(feature_network="resnet18", feature_layer="layer2", N0=128, N1=16, N2=8,
+                   dict_size=8, num_classes=3, image_size=32, items_per_batch=2,
+                   max_iterations=1, num_warmup_epochs=1, num_epochs=1)
+
+
+def _eval_batches(rng, sizes=(6, 6, 6, 2), pad_to=6) -> list[dict]:
+    """TestLoader-style batches: the last one padded, `valid` False there."""
+    out = []
+    for n in sizes:
+        b = {"xdata": rng.integers(0, 256, (pad_to, 32, 32, 3), np.uint8),
+             "euler": rng.uniform(-90, 90, (pad_to, 3)).astype(np.float32),
+             "label": (np.arange(pad_to) % 3).astype(np.int32),
+             "valid": np.arange(pad_to) < n}
+        out.append(b)
+    return out
+
+
+def test_trainer_evaluate_on_the_card(dev):
+    """Trainer.predict and evaluate on the card (f32, TF32 off) against the
+    same trainer's weights on the CPU: the padded rows dropped, poses within
+    1e-3, MedErr within 1e-3 deg, one normalize launch per eval batch."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    centers = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    cfg = get_config("geodesic_bd", compute_dtype="float32", **_EVAL_SMALL)
+    card = Trainer(cfg, dictionary=centers, device=dev)
+    cpu = Trainer(cfg, dictionary=centers, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    batches = _eval_batches(np.random.default_rng(2))
+    n0 = preprocess.launches
+    got = card.predict(card.init_state(), batches)
+    assert preprocess.launches - n0 == len(batches)
+    want = cpu.predict(cpu.init_state(), batches)
+    assert got[0].shape == (20, 3)
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-3)
+    med = card.evaluate(card.init_state(), batches)
+    assert abs(med - cpu.evaluate(cpu.init_state(), batches)) <= 1e-3
+
+
+@pytest.mark.parametrize("checkpoint_async", [True, False])
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path, checkpoint_async):
+    """A bf16 trainer on the card after a warm-up and a main step, saved and
+    restored into a new trainer (other initial weights): weights, BN
+    statistics, Adam's count, bf16 first moment and f32 second moment, s,
+    step and learning rate bit-equal, all on the card."""
+    centers = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    cfg = get_config("geodesic_bd", compute_dtype="bfloat16", stem_pool="kernel",
+                     checkpoint_async=checkpoint_async, **_EVAL_SMALL)
+    rng = np.random.default_rng(3)
+    real, render = ([{k: v for k, v in b.items() if k != "valid"}
+                     for b in _eval_batches(rng, (6,))] for _ in range(2))
+    a = Trainer(cfg, dictionary=centers, workdir=tmp_path, device=dev)
+    sa = a.fit(a.init_state(), real, render)
+    b = Trainer(cfg.replace(seed=1), dictionary=centers, workdir=tmp_path, device=dev)
+    sb = b.restore_checkpoint("last")
+    assert sb.step == sa.step == 2 and sb.s.device == dev and torch.equal(sb.s, sa.s)
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(b.model.state_dict()[k], v), k
+    pa = [p for g in a.optimizer.param_groups for p in g["params"]]
+    pb = [p for g in b.optimizer.param_groups for p in g["params"]]
+    for p, q in zip(pa, pb, strict=True):
+        st, su = a.optimizer.state[p], b.optimizer.state[q]
+        assert st["count"] == su["count"] == 2
+        assert su["mu"].dtype == torch.bfloat16 and su["mu"].device == dev
+        assert su["nu"].dtype == torch.float32
+        assert torch.equal(st["mu"], su["mu"]) and torch.equal(st["nu"], su["nu"])
+    assert b.optimizer.param_groups[0]["lr"] == a.optimizer.param_groups[0]["lr"]

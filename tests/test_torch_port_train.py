@@ -546,18 +546,19 @@ def test_unported_settings_raise(setting):
 
 
 def test_trainer_refuses_what_it_does_not_do(jax_side, tmp_path):
-    """Checkpoints, MedErr evaluation, mismatched stream halves, a state of
-    another model, and a bad optimizer dtype raise; the interleave carries
-    the is_real mask."""
-    cfg = get_config("geodesic_bd", **SMALL)
+    """TensorBoard output (not ported), a test batch of out-of-range labels,
+    mismatched stream halves, a state of another model, and a bad optimizer
+    dtype raise; the interleave carries the is_real mask."""
+    cfg = get_config("geodesic_bd", **SMALL, tensorboard=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(cfg, dictionary=_centers(), workdir=tmp_path, device="cpu")
     with pytest.raises(ValueError, match="optimizer_dtype"):
         get_config("geodesic_bd", optimizer_dtype="float16")
     port = _port_trainer(jax_side[1])
     state = port.init_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.fit(state, _loader(12), _loader(13), test_loader=_loader(14))
+    bad = [{**b, "label": b["label"] + 3, "valid": np.ones(N_STREAM, bool)} for b in _loader(14)]
+    with pytest.raises(ValueError, match="labels must lie"):
+        port.fit(state, _loader(12), _loader(13), test_loader=bad)
     batch = next(_interleave(_loader(12), _loader(13)))
     np.testing.assert_array_equal(batch["is_real"], np.arange(12) < 6)
     validate_dual_stream_layout(batch)
