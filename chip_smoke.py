@@ -113,6 +113,22 @@ line each (or more), in order:
      decode route, decode img/s at 1, 4 and 8 threads, the img/s of one
      BalancedLoader and of the two zipped, at the CLI's --num-workers,
      against [5]'s step img/s, each beside the card and the host CPU
+  11 the packed caches and the evaluation commands over [10]'s trees and
+     `final` checkpoint: `cli pack --packed-cache auto` as a subprocess
+     (exit 0, its wall time, the decode route); a PackedBalancedLoader and
+     a PackedTestLoader byte-equal to the PNG loaders over one epoch; `cli
+     evaluate --packed-cache auto --checkpoint final --eval-num-epochs 3`
+     in this process (the snapshot ensemble: c = 4 from 2 steps an epoch,
+     snapshots num0.npz and num1.npz after fine-tune steps 2 and 6, finite
+     MedErrs, the ensembled MedErr recomputed from the two files within
+     1e-6 deg of the run's, exactly one normalize launch per fine-tune step
+     and per test batch of each snapshot and no other kernel); `cli predict
+     --packed-cache auto --checkpoint final` as a subprocess, its
+     results_run.npz MedErr within 1e-3 deg of the MedErr [10]'s resume
+     printed for the same `final`; then on [10]'s timing tree: 3 cold
+     packs, one PackedBalancedLoader and the two zipped, the step alone and
+     `run_epoch` fed by the packed loaders (3 repeats, median (min, max)),
+     beside [10]'s PNG-fed rate, the card and the host CPU
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
      rate of their type), then the result line
@@ -135,8 +151,11 @@ yardsticks' `..._ms` and `..._device_ms`): compare like with like.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -162,6 +181,7 @@ from multi_modal_regression_tpu_torch.dictionary.kmeans import (  # noqa: E402
     KMeansDictionary,
     fit_kmeans,
 )
+from multi_modal_regression_tpu_torch.metrics import mean_class_median_error  # noqa: E402
 from multi_modal_regression_tpu_torch.models.heads import HeadBatchNorm  # noqa: E402
 from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
     _build,
@@ -180,6 +200,10 @@ from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
     fused_inputs,
 )
 from multi_modal_regression_tpu_torch.train import steps  # noqa: E402
+from multi_modal_regression_tpu_torch.train.evaluator import (  # noqa: E402
+    SnapshotEnsembleEvaluator,
+    ensemble_poses,
+)
 from multi_modal_regression_tpu_torch.train.presets import (  # noqa: E402
     build_model,
     build_problem,
@@ -1654,10 +1678,33 @@ def read_records(path: Path) -> list[dict]:
     return [json.loads(line) for line in path.read_text().splitlines()]
 
 
-def phase_user_command(dev, smi: str, dictionary: KMeansDictionary, step: dict) -> int:
-    """[10]: `cli train` of the full-width geodesic_bd preset from PNG trees,
-    in a subprocess, then its resume in this process. Returns the normalize
-    launches of the resumed run."""
+class _Tee(io.StringIO):
+    """A copy of what is written, passed on to `out` as it comes."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        return super().write(text)
+
+
+@contextlib.contextmanager
+def tee_stdout():
+    """Standard output as it is printed, kept for the caller to read."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        yield tee
+
+
+def phase_user_command(dev, smi: str, dictionary: KMeansDictionary, step: dict,
+                       tmp: Path) -> dict:
+    """[10]: `cli train` of the full-width geodesic_bd preset from PNG trees
+    written under `tmp`, in a subprocess, then its resume in this process.
+    Returns the normalize launches of the resumed run and what [11] reuses:
+    the train arguments, the trees, the resumed `final`'s printed MedErr,
+    the decode route and the PNG-fed rates."""
     cpu = host_cpu()
     where = f"card {smi}; host {cpu}"
     # what the first decode of every new process pays: without a library in
@@ -1676,191 +1723,369 @@ def phase_user_command(dev, smi: str, dictionary: KMeansDictionary, step: dict) 
              "PIL, per file (the native decode library does not build here: no libpng headers "
              "or no g++)")
     print(f"[10] decode route on this host: {route}; {where}")
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        data = tmp / "data"
-        t0 = time.perf_counter()
-        for sub, per_class, seed in USER_TREE:
-            generate_pose_dataset(data / sub, PASCAL3D_CLASSES, per_class, 224, seed=seed,
-                                  pattern="pose")
-        pngs = {sub: sorted((data / sub).rglob("*.png")) for sub, _, _ in USER_TREE}
-        print(f"[10] wrote {', '.join(f'{len(v)} {k}' for k, v in pngs.items())} 224 px PNGs "
-              f"(tools/synthetic, pattern 'pose') in {time.perf_counter() - t0:.2f} s")
-        npz = tmp / "kmeans_dictionary_axis_angle_200.npz"
-        dictionary.save(npz)
-        wd = tmp / "run"
-        args = ["train", "--preset", "geodesic_bd", "--data-root", str(data), "--dictionary",
-                str(npz), "--compute-dtype", "bfloat16", "--items-per-batch", "4",
-                "--num-warmup-epochs", "1", "--num-epochs", "2", "--max-iterations", "2",
-                "--workdir", str(wd)]
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", f"{PORT}.cli", *args],
-                             cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-                             timeout=900)
-        run_s = time.perf_counter() - t0
-        if run.returncode != 0:
-            raise AssertionError(f"cli train exited {run.returncode}:\n{run.stdout}{run.stderr}")
-        ck = wd / "checkpoints"
-        names = sorted(p.name for p in ck.iterdir())
-        with np.load(wd / "plots.npz") as f:
-            curve = f["val_loss"]
-        recs = read_records(wd / "metrics.jsonl")
-        sub_med = float(run.stdout.split("final MedErr ")[1].split()[0])
-        saved = torch.load(ck / "final", map_location="cpu", weights_only=True)
-        if not (names == ["best", "final", "last"] and curve.shape == (2,)
-                and sum("med_err" in r for r in recs) == 2 and np.isfinite(sub_med)
-                and saved["step"] == 6):
-            raise AssertionError(f"cli train: checkpoints {names}, plots {curve}, step "
-                                 f"{saved['step']}, final MedErr {sub_med}:\n{run.stdout}")
-        logged = [(r["step"], round(r["images_per_sec"], 1)) for r in recs if "images_per_sec" in r]
-        print(f"[10] cli train (subprocess): exit 0 in {run_s:.1f} s; 6 steps of 96 images (2 "
-              f"warm-up + 2 x 2 main), checkpoints {names}, plots.npz {curve.round(3).tolist()}, "
-              f"{run.stdout.strip().splitlines()[-1]}")
-        print(f"[10] cli train logged train img/s (step, img/s; each the first step of an epoch, "
-              f"loader wait and first-call costs included): {logged}; {where}")
+    data = tmp / "data"
+    t0 = time.perf_counter()
+    for sub, per_class, seed in USER_TREE:
+        generate_pose_dataset(data / sub, PASCAL3D_CLASSES, per_class, 224, seed=seed,
+                              pattern="pose")
+    pngs = {sub: sorted((data / sub).rglob("*.png")) for sub, _, _ in USER_TREE}
+    print(f"[10] wrote {', '.join(f'{len(v)} {k}' for k, v in pngs.items())} 224 px PNGs "
+          f"(tools/synthetic, pattern 'pose') in {time.perf_counter() - t0:.2f} s")
+    npz = tmp / "kmeans_dictionary_axis_angle_200.npz"
+    dictionary.save(npz)
+    wd = tmp / "run"
+    args = ["train", "--preset", "geodesic_bd", "--data-root", str(data), "--dictionary",
+            str(npz), "--compute-dtype", "bfloat16", "--items-per-batch", "4",
+            "--num-warmup-epochs", "1", "--num-epochs", "2", "--max-iterations", "2",
+            "--workdir", str(wd)]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", f"{PORT}.cli", *args],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=900)
+    run_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"cli train exited {run.returncode}:\n{run.stdout}{run.stderr}")
+    ck = wd / "checkpoints"
+    names = sorted(p.name for p in ck.iterdir())
+    with np.load(wd / "plots.npz") as f:
+        curve = f["val_loss"]
+    recs = read_records(wd / "metrics.jsonl")
+    sub_med = float(run.stdout.split("final MedErr ")[1].split()[0])
+    saved = torch.load(ck / "final", map_location="cpu", weights_only=True)
+    if not (names == ["best", "final", "last"] and curve.shape == (2,)
+            and sum("med_err" in r for r in recs) == 2 and np.isfinite(sub_med)
+            and saved["step"] == 6):
+        raise AssertionError(f"cli train: checkpoints {names}, plots {curve}, step "
+                             f"{saved['step']}, final MedErr {sub_med}:\n{run.stdout}")
+    logged = [(r["step"], round(r["images_per_sec"], 1)) for r in recs if "images_per_sec" in r]
+    print(f"[10] cli train (subprocess): exit 0 in {run_s:.1f} s; 6 steps of 96 images (2 "
+          f"warm-up + 2 x 2 main), checkpoints {names}, plots.npz {curve.round(3).tolist()}, "
+          f"{run.stdout.strip().splitlines()[-1]}")
+    print(f"[10] cli train logged train img/s (step, img/s; each the first step of an epoch, "
+          f"loader wait and first-call costs included): {logged}; {where}")
 
-        # the restored `final` evaluated here, TF32 off
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        parsed = cli.build_parser().parse_args(args)
-        cfg = cli._config_from_args(parsed)
-        trainer = Trainer(cfg, dictionary=dictionary, workdir=wd, device=dev)
-        real, render, test = cli._make_loaders(parsed, cfg)
-        state = trainer.restore_checkpoint("final")
-        med = trainer.evaluate(state, test)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = trainer.evaluate(state, test)
-        eval_s = time.perf_counter() - t0
-        if not (abs(med - sub_med) <= 1e-3 and again == med):
-            raise AssertionError(f"restored final: MedErr {med}, {again} against the run's {sub_med}")
-        print(f"[10] restored `final` (step {state.step}): MedErr {med:.6f} deg against the "
-              f"subprocess's {sub_med:.3f} (<= 1e-3 deg, TF32 off); one eval pass "
-              f"({len(pngs['test'])} images, {len(test)} padded batch of {cfg.eval_batch}) "
-              f"{eval_s * 1e3:.1f} ms wall; {where}")
-        t0 = time.perf_counter()
-        trainer.save_checkpoint(state, "timing")
-        copy_s = time.perf_counter() - t0
-        trainer.wait_for_checkpoints()
-        write_s = time.perf_counter() - t0
-        size = (ck / "timing").stat().st_size
-        print(f"[10] one checkpoint write: {write_s:.3f} s wall ({size / 2**20:.1f} MiB; "
-              f"{copy_s:.3f} s of it on the caller's thread, the copy to the host); {where}")
-        (ck / "timing").unlink()
-        del trainer, state
+    # the restored `final` evaluated here, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parsed = cli.build_parser().parse_args(args)
+    cfg = cli._config_from_args(parsed)
+    trainer = Trainer(cfg, dictionary=dictionary, workdir=wd, device=dev)
+    real, render, test = cli._make_loaders(parsed, cfg)
+    state = trainer.restore_checkpoint("final")
+    med = trainer.evaluate(state, test)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = trainer.evaluate(state, test)
+    eval_s = time.perf_counter() - t0
+    if not (abs(med - sub_med) <= 1e-3 and again == med):
+        raise AssertionError(f"restored final: MedErr {med}, {again} against the run's {sub_med}")
+    print(f"[10] restored `final` (step {state.step}): MedErr {med:.6f} deg against the "
+          f"subprocess's {sub_med:.3f} (<= 1e-3 deg, TF32 off); one eval pass "
+          f"({len(pngs['test'])} images, {len(test)} padded batch of {cfg.eval_batch}) "
+          f"{eval_s * 1e3:.1f} ms wall; {where}")
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(state, "timing")
+    copy_s = time.perf_counter() - t0
+    trainer.wait_for_checkpoints()
+    write_s = time.perf_counter() - t0
+    size = (ck / "timing").stat().st_size
+    print(f"[10] one checkpoint write: {write_s:.3f} s wall ({size / 2**20:.1f} MiB; "
+          f"{copy_s:.3f} s of it on the caller's thread, the copy to the host); {where}")
+    (ck / "timing").unlink()
+    del trainer, state
 
-        # --resume in this process
-        reset_counts()
+    # --resume in this process
+    reset_counts()
+    with tee_stdout() as resumed_out:
         if cli.main(args + ["--resume"]) != 0:
             raise AssertionError("cli train --resume failed")
-        torch.cuda.synchronize()
-        counts = read_counts()
-        final = torch.load(ck / "final", map_location="cpu", weights_only=True)
-        resumed = read_records(wd / "metrics.jsonl")[len(recs):]
-        n_steps = final["step"] - saved["step"]
-        n_evals = len(test) * (cfg.num_epochs + 1)
-        if not (final["step"] == 12 and resumed[0]["step"] == 7
-                and counts == {**{k: 0 for k in counts}, "normalize": n_steps + n_evals}):
-            raise AssertionError(f"resume: step {final['step']}, first logged {resumed[0]}, "
-                                 f"launches {counts}")
-        print(f"[10] --resume (this process): from step {saved['step']} to {final['step']}, "
-              f"normalize launches {counts['normalize']} = {n_steps} train steps + {n_evals} "
-              f"eval batches, no other kernel (stem_pool and fused_conv_bn stay off, as the "
-              f"JAX package's 'auto' resolves them)")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    final = torch.load(ck / "final", map_location="cpu", weights_only=True)
+    resumed = read_records(wd / "metrics.jsonl")[len(recs):]
+    n_steps = final["step"] - saved["step"]
+    n_evals = len(test) * (cfg.num_epochs + 1)
+    if not (final["step"] == 12 and resumed[0]["step"] == 7
+            and counts == {**{k: 0 for k in counts}, "normalize": n_steps + n_evals}):
+        raise AssertionError(f"resume: step {final['step']}, first logged {resumed[0]}, "
+                             f"launches {counts}")
+    print(f"[10] --resume (this process): from step {saved['step']} to {final['step']}, "
+          f"normalize launches {counts['normalize']} = {n_steps} train steps + {n_evals} "
+          f"eval batches, no other kernel (stem_pool and fused_conv_bn stay off, as the "
+          f"JAX package's 'auto' resolves them)")
 
-        # labels out of range never reach the card
-        dbinfo = tmp / "dbinfo.mat"
-        spio.savemat(str(dbinfo), {"classes": np.array(PASCAL3D_CLASSES, dtype=object)})
-        try:
-            cli.main(args + ["--dbinfo", str(dbinfo), "--num-classes", "3"])
-            raise AssertionError("--num-classes 3 against 12 classes was not refused")
-        except SystemExit as e:
-            refused_cli = str(e)
-        trainer = Trainer(cfg, dictionary=dictionary, device=dev)
-        batch = next(iter(real))
-        batch["label"] = batch["label"] + 1  # 1..12 with 12 classes
-        try:
-            trainer.fit(trainer.init_state(), [batch], [batch])
-            raise AssertionError("a label of 12 with 12 classes was not refused")
-        except ValueError as e:
-            refused_fit = str(e)
-        after = trainer.evaluate(trainer.init_state(), test)  # the context still works
-        torch.cuda.synchronize()
-        if trainer.history or not np.isfinite(after):
-            raise AssertionError(f"after the refusal: history {trainer.history}, MedErr {after}")
-        print(f"[10] labels out of range refused on the host, no step run: cli "
-              f"({refused_cli}); fit ({refused_fit}); an eval pass on the card afterwards: "
-              f"MedErr {after:.3f} deg")
-        del trainer
+    # labels out of range never reach the card
+    dbinfo = tmp / "dbinfo.mat"
+    spio.savemat(str(dbinfo), {"classes": np.array(PASCAL3D_CLASSES, dtype=object)})
+    try:
+        cli.main(args + ["--dbinfo", str(dbinfo), "--num-classes", "3"])
+        raise AssertionError("--num-classes 3 against 12 classes was not refused")
+    except SystemExit as e:
+        refused_cli = str(e)
+    trainer = Trainer(cfg, dictionary=dictionary, device=dev)
+    batch = next(iter(real))
+    batch["label"] = batch["label"] + 1  # 1..12 with 12 classes
+    try:
+        trainer.fit(trainer.init_state(), [batch], [batch])
+        raise AssertionError("a label of 12 with 12 classes was not refused")
+    except ValueError as e:
+        refused_fit = str(e)
+    after = trainer.evaluate(trainer.init_state(), test)  # the context still works
+    torch.cuda.synchronize()
+    if trainer.history or not np.isfinite(after):
+        raise AssertionError(f"after the refusal: history {trainer.history}, MedErr {after}")
+    print(f"[10] labels out of range refused on the host, no step run: cli "
+          f"({refused_cli}); fit ({refused_fit}); an eval pass on the card afterwards: "
+          f"MedErr {after:.3f} deg")
+    del trainer
 
-        # the host pipeline's rates, on a tree of 30 batches an epoch a loader
-        timing = tmp / "timing"
-        t0 = time.perf_counter()
-        for sub, per_class, seed in (("augmented2", TIMING_PER_CLASS, 11),
-                                     ("renderforcnn", TIMING_PER_CLASS, 12), ("test", 1, 13)):
-            generate_pose_dataset(timing / sub, PASCAL3D_CLASSES, per_class, 224, seed=seed,
-                                  pattern="pose")
-        parsed_t = cli.build_parser().parse_args(
-            [str(timing) if a == str(data) else a for a in args])
-        real_t, render_t, _ = cli._make_loaders(parsed_t, cfg)
-        paths = [str(p) for sub in ("augmented2", "renderforcnn")
-                 for p in sorted((timing / sub).rglob("*.png"))]
-        print(f"[10] timing tree: {len(paths)} training PNGs of 224 px (tools/synthetic), "
-              f"{len(real_t)} batches of {real_t.batch_images} an epoch a loader, written in "
-              f"{time.perf_counter() - t0:.2f} s")
-        pools = {t: concurrent.futures.ThreadPoolExecutor(t) for t in (1, 4, 8)}
-        decode = {t: [] for t in pools}
-        try:
-            for t, pool in pools.items():  # threads started before the clock
-                loader._decode_many(paths[:64], 224, pool, t)
-            for _ in range(TIMING_REPEATS):
-                for t, pool in pools.items():
-                    t0 = time.perf_counter()
-                    loader._decode_many(paths, 224, pool, t)
-                    decode[t].append(len(paths) / (time.perf_counter() - t0))
-        finally:
-            for pool in pools.values():
-                pool.shutdown()
-        print(f"[10] decode_image ({route.split(' (')[0]}), {TIMING_REPEATS} passes of "
-              f"{len(paths)} files at each thread count, interleaved: "
-              + "; ".join(f"{t} thread{'s' * (t > 1)} {rate_line(r)}" for t, r in decode.items())
-              + f"; {where}")
-
-        trainer = Trainer(cfg.replace(max_iterations=None), dictionary=dictionary, device=dev)
-        state = trainer.init_state()
-        step_fn = trainer.train_step_fn("main", dual_stream=True)
-        batch = trainer._to_device(next(_interleave(real_t, render_t)))
-        n_img = len(batch["label"])
-        state, _ = timed_steps(step_fn, state, batch, 2)
-        state, t_alone = timed_steps(step_fn, state, batch, 10)
-        starts, one, zipped, fit = [], [], [], []
+    # the host pipeline's rates, on a tree of 30 batches an epoch a loader
+    timing = tmp / "timing"
+    t0 = time.perf_counter()
+    for sub, per_class, seed in (("augmented2", TIMING_PER_CLASS, 11),
+                                 ("renderforcnn", TIMING_PER_CLASS, 12), ("test", 1, 13)):
+        generate_pose_dataset(timing / sub, PASCAL3D_CLASSES, per_class, 224, seed=seed,
+                              pattern="pose")
+    parsed_t = cli.build_parser().parse_args(
+        [str(timing) if a == str(data) else a for a in args])
+    real_t, render_t, _ = cli._make_loaders(parsed_t, cfg)
+    paths = [str(p) for sub in ("augmented2", "renderforcnn")
+             for p in sorted((timing / sub).rglob("*.png"))]
+    print(f"[10] timing tree: {len(paths)} training PNGs of 224 px (tools/synthetic), "
+          f"{len(real_t)} batches of {real_t.batch_images} an epoch a loader, written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    pools = {t: concurrent.futures.ThreadPoolExecutor(t) for t in (1, 4, 8)}
+    decode = {t: [] for t in pools}
+    try:
+        for t, pool in pools.items():  # threads started before the clock
+            loader._decode_many(paths[:64], 224, pool, t)
         for _ in range(TIMING_REPEATS):
-            first, rate = loader_epoch(lambda: iter(real_t))
-            starts.append(first)
-            one.append(rate)
-            first, rate = loader_epoch(lambda: _interleave(real_t, render_t))
-            starts.append(first)
-            zipped.append(rate)
-            stamps, step0 = [], state.step
-            state = trainer.run_epoch(state, _stamped(real_t, stamps), render_t, "main",
-                                      log_every=10**9)
-            torch.cuda.synchronize()
-            # steps 2..N: stamps[0] is taken after step 1, whose log waited for the card
-            fit.append((state.step - step0 - 1) * n_img / (time.perf_counter() - stamps[0]))
-        lo, hi = step["img_s_iqr"]
-        print(f"[10] host loaders at --num-workers {parsed.num_workers}, {TIMING_REPEATS} epochs "
-              f"each, interleaved with the runs below, the rest of an epoch after its first "
-              f"batch: one BalancedLoader {rate_line(one)}; the real and render loaders zipped, "
-              f"as a step takes them, {rate_line(zipped)}; an epoch's start (threads, pool, "
-              f"first batch), not in the rates: median {statistics.median(starts):.3f} s; "
-              f"{where}")
-        print(f"[10] main train step of this config alone ({n_img} images on the card, 10 steps "
-              f"each synchronized): {rate_line([n_img / t for t in t_alone])}; [5]'s step "
-              f"(stem kernels on) {step['img_s']:.1f} img/s (quartiles {lo:.1f}-{hi:.1f}); "
-              f"Trainer.run_epoch fed by the two loaders, steps 2-{len(real_t)} of "
-              f"{TIMING_REPEATS} epochs: {rate_line(fit)}; {where}")
-        del trainer, state, batch
-        torch.cuda.empty_cache()
+            for t, pool in pools.items():
+                t0 = time.perf_counter()
+                loader._decode_many(paths, 224, pool, t)
+                decode[t].append(len(paths) / (time.perf_counter() - t0))
+    finally:
+        for pool in pools.values():
+            pool.shutdown()
+    print(f"[10] decode_image ({route.split(' (')[0]}), {TIMING_REPEATS} passes of "
+          f"{len(paths)} files at each thread count, interleaved: "
+          + "; ".join(f"{t} thread{'s' * (t > 1)} {rate_line(r)}" for t, r in decode.items())
+          + f"; {where}")
+
+    trainer = Trainer(cfg.replace(max_iterations=None), dictionary=dictionary, device=dev)
+    state = trainer.init_state()
+    step_fn = trainer.train_step_fn("main", dual_stream=True)
+    batch = trainer._to_device(next(_interleave(real_t, render_t)))
+    n_img = len(batch["label"])
+    state, _ = timed_steps(step_fn, state, batch, 2)
+    state, t_alone = timed_steps(step_fn, state, batch, 10)
+    starts, one, zipped, fit = [], [], [], []
+    for _ in range(TIMING_REPEATS):
+        first, rate = loader_epoch(lambda: iter(real_t))
+        starts.append(first)
+        one.append(rate)
+        first, rate = loader_epoch(lambda: _interleave(real_t, render_t))
+        starts.append(first)
+        zipped.append(rate)
+        stamps, step0 = [], state.step
+        state = trainer.run_epoch(state, _stamped(real_t, stamps), render_t, "main",
+                                  log_every=10**9)
+        torch.cuda.synchronize()
+        # steps 2..N: stamps[0] is taken after step 1, whose log waited for the card
+        fit.append((state.step - step0 - 1) * n_img / (time.perf_counter() - stamps[0]))
+    lo, hi = step["img_s_iqr"]
+    print(f"[10] host loaders at --num-workers {parsed.num_workers}, {TIMING_REPEATS} epochs "
+          f"each, interleaved with the runs below, the rest of an epoch after its first "
+          f"batch: one BalancedLoader {rate_line(one)}; the real and render loaders zipped, "
+          f"as a step takes them, {rate_line(zipped)}; an epoch's start (threads, pool, "
+          f"first batch), not in the rates: median {statistics.median(starts):.3f} s; "
+          f"{where}")
+    print(f"[10] main train step of this config alone ({n_img} images on the card, 10 steps "
+          f"each synchronized): {rate_line([n_img / t for t in t_alone])}; [5]'s step "
+          f"(stem kernels on) {step['img_s']:.1f} img/s (quartiles {lo:.1f}-{hi:.1f}); "
+          f"Trainer.run_epoch fed by the two loaders, steps 2-{len(real_t)} of "
+          f"{TIMING_REPEATS} epochs: {rate_line(fit)}; {where}")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return {"launches": counts["normalize"], "args": args, "data": data, "timing": timing,
+            "final_med": float(resumed_out.getvalue().split("final MedErr ")[1].split()[0]),
+            "route": route, "png_fed": fit, "step_alone": [n_img / t for t in t_alone]}
+
+
+def same_batches(tag: str, got, want) -> int:
+    """Fail unless two loaders' epochs are equal key by key, byte for byte;
+    returns the number of batches."""
+    n = 0
+    for g, w in zip(got, want, strict=True):
+        if sorted(g) != sorted(w) or any(
+                g[k].dtype != w[k].dtype or not np.array_equal(g[k], w[k]) for k in w):
+            raise AssertionError(f"{tag}: batch {n} differs from the PNG loader's")
+        n += 1
+    return n
+
+
+def phase_packed_eval(dev, smi: str, dictionary: KMeansDictionary, user: dict) -> int:
+    """[11]: `cli pack`, `cli evaluate` (the snapshot ensemble) and `cli
+    predict` over [10]'s trees and `final` checkpoint, then the packed
+    loaders' rates on [10]'s timing tree. Returns the normalize launches of
+    the evaluate run."""
+    where = f"card {smi}; host {host_cpu()}"
+    args, data = user["args"], user["data"]
+    root = Path(__file__).resolve().parent
+    wd = Path(args[args.index("--workdir") + 1])
+    model_args = args[args.index("--dictionary"):]  # dictionary, config, workdir
+    pack_args = ["pack", "--preset", "geodesic_bd", "--data-root", str(data),
+                 "--items-per-batch", "4", "--packed-cache", "auto"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", f"{PORT}.cli", *pack_args], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    pack_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"cli pack exited {run.returncode}:\n{run.stdout}{run.stderr}")
+    print(f"[11] cli pack --packed-cache auto (subprocess): exit 0 in {pack_s:.2f} s wall, "
+          f"process start included; decode route {user['route'].split(' (')[0]}; "
+          + "; ".join(ln.split(": ", 1)[1] for ln in run.stdout.strip().splitlines())
+          + f"; {where}")
+
+    # the packed loaders against the PNG loaders of the same flags and seed
+    packed_parsed = cli.build_parser().parse_args(args + ["--packed-cache", "auto"])
+    cfg = cli._config_from_args(packed_parsed)
+    preal, _, ptest = cli._make_loaders(packed_parsed, cfg)
+    real, _, test = cli._make_loaders(cli.build_parser().parse_args(args), cfg)
+    n_real = same_batches("PackedBalancedLoader", iter(preal), iter(real))
+    n_test = same_batches("PackedTestLoader", iter(ptest), iter(test))
+    print(f"[11] {type(preal).__name__} and {type(ptest).__name__} byte-equal to the PNG "
+          f"loaders over one epoch ({n_real} and {n_test} batches, images, Euler angles, "
+          f"labels, valid)")
+
+    # cli evaluate in this process: c = 2 x 2 batches, 3 epochs of 2 steps
+    eval_args = ["evaluate", "--preset", "geodesic_bd", "--data-root", str(data), *model_args,
+                 "--packed-cache", "auto", "--checkpoint", "final", "--eval-num-epochs", "3"]
+    seen = []
+    ensemble = SnapshotEnsembleEvaluator.ensemble
+
+    def spy(self):
+        seen.append(ensemble(self))
+        return seen[-1]
+
+    reset_counts()
+    assign_before = assign.launches
+    SnapshotEnsembleEvaluator.ensemble = spy
+    try:
+        t0 = time.perf_counter()
+        with tee_stdout() as out:
+            if cli.main(eval_args) != 0:
+                raise AssertionError("cli evaluate failed")
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        SnapshotEnsembleEvaluator.ensemble = ensemble
+    counts = read_counts()
+    text = out.getvalue()
+    res = wd / "results_run"
+    files = sorted(p.name for p in res.iterdir())
+    snaps = []
+    for k in range(2):
+        with np.load(res / f"num{k}.npz") as z:
+            snaps.append({key: z[key] for key in z.files})
+    meds = [mean_class_median_error(z["ytest"], z["yhat_test"], z["test_labels"],
+                                    cfg.num_classes) for z in snaps]
+    ens = mean_class_median_error(
+        snaps[0]["ytest"], ensemble_poses([z["yhat_test"] for z in snaps], "axis_angle"),
+        snaps[0]["test_labels"], cfg.num_classes)
+    printed = float(text.split("ensembled MedErr: ")[1].split()[0])
+    n_test = len(test)
+    want = {**{k: 0 for k in counts}, "normalize": 6 + 2 * n_test}
+    if not (files == ["num0.npz", "num1.npz"] and [int(z["step"]) for z in snaps] == [2, 6]
+            and np.all(np.isfinite(meds)) and np.isfinite(ens) and len(seen) == 1
+            and abs(seen[0][0] - ens) <= 1e-6 and f"{seen[0][0]:.4f}" == f"{printed:.4f}"
+            and counts == want and assign.launches == assign_before):
+        raise AssertionError(f"cli evaluate: files {files}, steps "
+                             f"{[int(z['step']) for z in snaps]}, MedErrs {meds}, ensembled "
+                             f"{ens} (run {seen}, printed {printed}), launches {counts}:\n{text}")
+    print(f"[11] cli evaluate --packed-cache auto --checkpoint final --eval-num-epochs 3 (this "
+          f"process): exit 0 in {eval_s:.2f} s wall; snapshots num0.npz, num1.npz after "
+          f"fine-tune steps 2 and 6 (c = 4), MedErr {meds[0]:.4f}, {meds[1]:.4f} deg; "
+          f"ensembled {printed:.4f} deg (from the two files: {ens:.6f}, the run's "
+          f"{seen[0][0]:.6f}); normalize launches {counts['normalize']} = 6 fine-tune steps + "
+          f"2 snapshots x {n_test} test batch, no other kernel; {where}")
+
+    # cli predict as a subprocess, against [10]'s printed MedErr of `final`
+    pred_args = ["predict", "--preset", "geodesic_bd", "--data-root", str(data), *model_args,
+                 "--packed-cache", "auto", "--checkpoint", "final"]
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", f"{PORT}.cli", *pred_args], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    pred_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"cli predict exited {run.returncode}:\n{run.stdout}{run.stderr}")
+    with np.load(wd / "results_run.npz") as z:
+        pred = {key: z[key] for key in z.files}
+    med = mean_class_median_error(pred["ytest"], pred["yhat_test"], pred["test_labels"],
+                                  cfg.num_classes)
+    said = float(run.stdout.split("MedErr ")[-1])
+    if not (sorted(pred) == ["test_labels", "yhat_test", "ytest"]
+            and pred["yhat_test"].shape == (len(ptest.index), 3) and abs(med - said) <= 1e-4
+            and abs(med - user["final_med"]) <= 1e-3):
+        raise AssertionError(f"cli predict: MedErr {med} (printed {said}) against [10]'s "
+                             f"{user['final_med']}:\n{run.stdout}")
+    print(f"[11] cli predict --packed-cache auto --checkpoint final (subprocess): exit 0 in "
+          f"{pred_s:.2f} s wall; results_run.npz of {len(pred['test_labels'])} poses, MedErr "
+          f"{med:.6f} deg against [10]'s {user['final_med']:.3f} for the same `final` "
+          f"(<= 1e-3 deg); {run.stdout.strip().splitlines()[-2].strip()}")
+
+    # the packed pipeline's rates on [10]'s timing tree
+    timing = user["timing"]
+    parsed_t = cli.build_parser().parse_args(
+        [str(timing) if a == str(data) else a for a in args] + ["--packed-cache", "auto"])
+    pack_times = []
+    for _ in range(TIMING_REPEATS):
+        shutil.rmtree(timing / ".packed", ignore_errors=True)
+        t0 = time.perf_counter()
+        real_t, render_t, test_t = cli._make_loaders(parsed_t, cfg)
+        pack_times.append(time.perf_counter() - t0)
+    n_png = sum(len(ld.pack.meta["classes"][c]) for ld in (real_t, render_t)
+                for c in ld.pack.meta["classes"])
+    trainer = Trainer(cfg.replace(max_iterations=None), dictionary=dictionary, device=dev)
+    state = trainer.init_state()
+    step_fn = trainer.train_step_fn("main", dual_stream=True)
+    batch = trainer._to_device(next(_interleave(real_t, render_t)))
+    n_img = len(batch["label"])
+    state, _ = timed_steps(step_fn, state, batch, 2)
+    state, t_alone = timed_steps(step_fn, state, batch, 10)
+    starts, one, zipped, fit = [], [], [], []
+    for _ in range(TIMING_REPEATS):
+        first, rate = loader_epoch(lambda: iter(real_t))
+        starts.append(first)
+        one.append(rate)
+        first, rate = loader_epoch(lambda: _interleave(real_t, render_t))
+        starts.append(first)
+        zipped.append(rate)
+        stamps, step0 = [], state.step
+        state = trainer.run_epoch(state, _stamped(real_t, stamps), render_t, "main",
+                                  log_every=10**9)
+        torch.cuda.synchronize()
+        # steps 2..N: stamps[0] is taken after step 1, whose log waited for the card
+        fit.append((state.step - step0 - 1) * n_img / (time.perf_counter() - stamps[0]))
+    times = (f"{statistics.median(pack_times):.3f} s (min {min(pack_times):.3f}, max "
+             f"{max(pack_times):.3f})")
+    print(f"[11] pack of the timing tree ({n_png} training PNGs + {len(test_t.index)} test, "
+          f"224 px, cli._make_loaders with --packed-cache auto, {TIMING_REPEATS} cold packs): "
+          f"{times}, {(n_png + len(test_t.index)) / statistics.median(pack_times):.1f} img/s; "
+          f"decode route "
+          f"{user['route'].split(' (')[0]}; {where}")
+    print(f"[11] packed loaders, {TIMING_REPEATS} epochs each, interleaved with the runs below, "
+          f"the rest of an epoch after its first batch: one PackedBalancedLoader "
+          f"{rate_line(one)}; the two zipped {rate_line(zipped)}; an epoch's start median "
+          f"{statistics.median(starts):.3f} s; {where}")
+    print(f"[11] main train step of this config alone ({n_img} images, 10 steps each "
+          f"synchronized): {rate_line([n_img / t for t in t_alone])}; Trainer.run_epoch fed by "
+          f"the two packed loaders, steps 2-{len(real_t)} of {TIMING_REPEATS} epochs: "
+          f"{rate_line(fit)}; [10] in this run: fed by the PNG loaders "
+          f"{rate_line(user['png_fed'])}, the step alone {rate_line(user['step_alone'])}; "
+          f"{where}")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
     return counts["normalize"]
 
 
@@ -1885,7 +2110,9 @@ def main() -> None:
     kmeans_dict, gmm_dict, assign_launches = phase_dictionary(dev, smi)
     phase_train_soft(dev, "probabilistic_bd", gmm_dict)
     phase_train_soft(dev, "relaxed_bd", kmeans_dict)
-    cli_launches = phase_user_command(dev, smi, kmeans_dict, train)
+    with tempfile.TemporaryDirectory() as tmp:
+        user = phase_user_command(dev, smi, kmeans_dict, train, Path(tmp))
+        eval_launches = phase_packed_eval(dev, smi, kmeans_dict, user)
     # launches: each kernel's count over the 4 steps of its training path
     # ([5] unfused, [6] fused) or over the dictionary path's fit, predict and
     # residuals ([7]); serving's counts are in [4]
@@ -1897,7 +2124,8 @@ def main() -> None:
          "replaces": f"{JAX_PACKAGE}/ops/preprocess.py:60",
          "launches": train["launches"]["normalize"],
          "serving_launches": serve["launches"]["normalize"],
-         "cli_train_resume_launches": cli_launches, **norm},
+         "cli_train_resume_launches": user["launches"],
+         "cli_evaluate_launches": eval_launches, **norm},
         {"name": "stem_pool", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:162",

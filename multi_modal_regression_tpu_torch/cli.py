@@ -6,6 +6,18 @@
         [--workdir runs/g0] [--resume] [--pretrained-backbone resnet50.pth] \\
         [--device cuda|cpu] [config overrides ...]
 
+    python -m multi_modal_regression_tpu_torch.cli pack \\
+        --preset geodesic_bd --data-root data/ [--packed-cache auto|<root>]
+
+    python -m multi_modal_regression_tpu_torch.cli evaluate \\
+        --preset geodesic_bd --data-root data/ --dictionary d.npz \\
+        [--checkpoint last] [--eval-num-epochs 9] [--packed-cache auto] \\
+        [--device cuda|cpu]
+
+    python -m multi_modal_regression_tpu_torch.cli predict \\
+        --preset geodesic_bd --data-root data/ --dictionary d.npz \\
+        [--checkpoint final] [--packed-cache auto] [--device cuda|cpu]
+
     python -m multi_modal_regression_tpu_torch.cli dictionary \\
         --data-root <render tree> --out kmeans_dictionary_axis_angle_200.npz \\
         [--type kmeans|gmm] [--size 200] [--seed 0] [--db-type render|real] \\
@@ -16,12 +28,21 @@ from the PNG trees under --data-root (<real-subdir>, <render-subdir> and
 <test-subdir>, each <class>/*.png with the pose in the file name),
 evaluates MedErr after every main epoch and writes checkpoints `last`,
 `best` and `final` under <workdir>/checkpoints; `--resume` continues from
-`last`. `dictionary` parses the pose of every image of a tree from its file
-name and fits a kmeans or GMM pose dictionary on the device. Both take the
-JAX package's arguments. Those whose machinery is not ported yet
-(`--packed-cache`, `--distributed`, `--warm-start-*`, `--compile-cache`,
-and the config settings that presets.py refuses) raise NotImplementedError
-when given; the other subcommands arrive with their slices (ROADMAP.md).
+`last`. With `--packed-cache` every tree is first decoded once into a
+uint8 cache (data/packed.py; `auto` puts it in `.packed/` beside the tree)
+and the loaders gather from it; `pack` builds those caches and stops.
+`evaluate` is the reference's snapshot-ensemble protocol: it fine-tunes a
+checkpoint with the cyclical SGD, takes a test snapshot at each minimum of
+the rate (<workdir>/results_<save-str>/num<k>.npz) and prints the
+per-snapshot and the ensembled MedErr. `predict` runs the test set through
+a checkpoint and writes <workdir>/results_<save-str>.npz. `dictionary`
+parses the pose of every image of a tree from its file name and fits a
+kmeans or GMM pose dictionary on the device. All take the JAX package's
+arguments. Those whose machinery is not ported yet (`--distributed`,
+`--warm-start-*`, `--compile-cache`, predict's `--analysis` and
+`--det-path`, and the config settings that presets.py refuses) raise
+NotImplementedError when given; the other subcommands arrive with their
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,8 +56,11 @@ import numpy as np
 from multi_modal_regression_tpu_torch import PASCAL3D_CLASSES
 
 
-def _add_common_data_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--data-root", type=str, required=True)
+def _add_common_data_args(
+    p: argparse.ArgumentParser, required_data_root: bool = True
+) -> None:
+    p.add_argument("--data-root", type=str, required=required_data_root,
+                   default=None if required_data_root else ".")
     p.add_argument("--real-subdir", type=str, default="augmented2")
     p.add_argument("--render-subdir", type=str, default="renderforcnn")
     p.add_argument("--test-subdir", type=str, default="test")
@@ -64,7 +88,13 @@ def _add_common_data_args(p: argparse.ArgumentParser) -> None:
                    help="'val' = pascal_train crops (ablation model "
                         "selection), 'test' = pascal_val")
     p.add_argument("--packed-cache", type=str, default=None,
-                   help="pre-decoded uint8 crop cache: not ported yet")
+                   help="pre-decoded uint8 crop cache (data/packed.py): "
+                        "'auto' packs into .packed/ beside each tree on "
+                        "first use and reuses it after, or give an "
+                        "explicit cache root. Replaces per-image PNG "
+                        "decodes with memmap gathers, for every protocol: "
+                        "balanced/flat train trees, the filenames test "
+                        "tree and the mat crop sets.")
 
 
 def _add_config_overrides(p: argparse.ArgumentParser) -> None:
@@ -130,9 +160,10 @@ _OVERRIDE_FIELDS = (
 
 # flags whose machinery is not ported: giving one raises
 _NOT_PORTED_FLAGS = (
-    "packed_cache", "distributed", "coordinator_address", "num_processes",
+    "distributed", "coordinator_address", "num_processes",
     "process_id", "warm_start_workdir", "warm_start_preset",
     "warm_start_checkpoint", "warm_start_kind", "compile_cache",
+    "analysis", "analysis_names", "det_path",
 )
 
 
@@ -230,6 +261,45 @@ def _classes_from_args(args) -> tuple[str, ...]:
     return PASCAL3D_CLASSES
 
 
+def _packed_cache_dir(args, load_size: int, subdir: str,
+                      kind: str | None = None,
+                      split: str | None = None) -> Path:
+    """The cache directory of one tree under --packed-cache: the JAX
+    package's names, so either package adopts the other's caches."""
+    from multi_modal_regression_tpu_torch.data.packed import default_cache_dir
+
+    tree = (
+        Path(args.mat_root or (Path(args.data_root) / "original"))
+        if kind == "mat"
+        else Path(args.data_root) / subdir
+    )
+    if args.packed_cache == "auto":
+        # caches live next to their tree, reused by pack/train/evaluate/
+        # predict (data/packed.default_cache_dir)
+        return default_cache_dir(tree, load_size, kind=kind, split=split)
+    # explicit cache root: two datasets whose trees share a basename
+    # (every prep writes 'train'/'original') must not fight over one
+    # cache dir, so the name holds a digest of the resolved tree path
+    import hashlib
+
+    tag = hashlib.sha256(str(tree.resolve()).encode()).hexdigest()[:8]
+    tail = "_".join(
+        [tree.name, tag] + ([split] if split else []) + [f"{load_size}px"]
+        + ([kind] if kind else [])
+    )
+    new = Path(args.packed_cache) / tail
+    # a cache of the earlier layout without the digest is reused rather
+    # than the whole tree decoded again (pack_index still checks it)
+    legacy = Path(args.packed_cache) / "_".join(
+        [subdir if kind != "mat" else tree.name]
+        + ([split] if split else []) + [f"{load_size}px"]
+        + ([kind] if kind else [])
+    )
+    if not (new / "meta.json").exists() and (legacy / "meta.json").exists():
+        return legacy
+    return new
+
+
 def _make_test_loader(args, cfg, classes, load_size: int):
     from multi_modal_regression_tpu_torch.data import (
         FlatTestIndex,
@@ -239,16 +309,38 @@ def _make_test_loader(args, cfg, classes, load_size: int):
     )
 
     root = Path(args.data_root)
+    packed = getattr(args, "packed_cache", None)
     if getattr(args, "test_protocol", "filenames") == "mat":
         mat_root = args.mat_root or str(root / "original")
         # evaluate at the resolution the experiment trains at: the .mat
         # crops are whatever the prep wrote (224)
         index = MatCropIndex(mat_root, args.mat_split, classes=classes)
+        if packed:
+            from multi_modal_regression_tpu_torch.data import (
+                PackedMatCropLoader,
+                pack_mat_index,
+            )
+
+            pack = pack_mat_index(
+                index,
+                _packed_cache_dir(args, cfg.image_size, "original", kind="mat",
+                                  split=args.mat_split),
+                image_size=cfg.image_size, num_workers=args.num_workers,
+            )
+            return PackedMatCropLoader(index, pack, batch_size=cfg.eval_batch)
         return MatCropLoader(
             index, batch_size=cfg.eval_batch, image_size=cfg.image_size,
             num_workers=args.num_workers,
         )
     index = FlatTestIndex(str(root / args.test_subdir), classes=classes)
+    if packed:
+        from multi_modal_regression_tpu_torch.data import PackedTestLoader, pack_index
+
+        pack = pack_index(
+            index, _packed_cache_dir(args, load_size, args.test_subdir),
+            image_size=load_size, num_workers=args.num_workers,
+        )
+        return PackedTestLoader(index, pack, batch_size=cfg.eval_batch)
     return TestLoader(index, cfg.eval_batch, load_size, num_workers=args.num_workers)
 
 
@@ -260,6 +352,9 @@ def _make_loaders(args, cfg):
         ClassBalancedIndex,
         FlatLoader,
         FlatTestIndex,
+        PackedBalancedLoader,
+        PackedFlatLoader,
+        pack_index,
     )
 
     classes = _classes_from_args(args)
@@ -275,14 +370,28 @@ def _make_loaders(args, cfg):
     )
     load_size = cfg.image_size
     root = Path(args.data_root)
+    packed = getattr(args, "packed_cache", None)
+
+    def pack(index, subdir: str):
+        return pack_index(
+            index, _packed_cache_dir(args, load_size, subdir),
+            image_size=load_size, num_workers=args.num_workers,
+        )
+
     if protocol == "flat":
         # single shuffled flat train loader over <root>/train, test over
         # <root>/test (learnObjectnetBDModel.py:50-51,74-75)
         train_index = FlatTestIndex(str(root / "train"), classes=classes)
-        train = FlatLoader(
-            train_index, batch_size=cfg.items_per_batch * 12, image_size=load_size,
-            num_workers=args.num_workers, seed=cfg.seed,
-        )
+        if packed:
+            train = PackedFlatLoader(
+                train_index, pack(train_index, "train"),
+                batch_size=cfg.items_per_batch * 12, seed=cfg.seed,
+            )
+        else:
+            train = FlatLoader(
+                train_index, batch_size=cfg.items_per_batch * 12, image_size=load_size,
+                num_workers=args.num_workers, seed=cfg.seed,
+            )
         return train, None, _make_test_loader(args, cfg, classes, load_size)
     # --train-data selects real/render/both (the ablationGBDAugmentation.py
     # --type protocol; 'both' is the standard two-loader training)
@@ -290,6 +399,11 @@ def _make_loaders(args, cfg):
 
     def balanced(subdir: str, db_type: str):
         index = ClassBalancedIndex(str(root / subdir), db_type, classes=classes)
+        if packed:
+            return PackedBalancedLoader(
+                index, pack(index, subdir), items_per_batch=cfg.items_per_batch,
+                seed=cfg.seed,
+            )
         return BalancedLoader(
             index, cfg.items_per_batch, load_size,
             num_workers=args.num_workers, seed=cfg.seed,
@@ -344,6 +458,87 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_pack(args) -> int:
+    """Build the packed uint8 crop caches (data/packed.py) that a
+    train/evaluate/predict run with these flags would use, then stop."""
+    _refuse_not_ported(args)
+    if not getattr(args, "packed_cache", None):
+        args.packed_cache = "auto"
+    cfg = _config_from_args(args)
+    real, render, test = _make_loaders(args, cfg)
+    for name, ld in (("train", real), ("render", render), ("test", test)):
+        pack = getattr(ld, "pack", None)
+        if pack is not None:
+            n = sum(len(v) for v in pack.meta["classes"].values())
+            print(f"packed {name}: {pack.cache_dir} ({n} images "
+                  f"@ {pack.image_size}px)", flush=True)
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    """The snapshot-ensemble protocol from a checkpoint (evaluate*.py)."""
+    _refuse_not_ported(args)
+    from multi_modal_regression_tpu_torch.train.evaluator import SnapshotEnsembleEvaluator
+    from multi_modal_regression_tpu_torch.train.trainer import Trainer
+
+    cfg = _config_from_args(args)
+    workdir = args.workdir or f"runs/{args.save_str}"
+    trainer = Trainer(
+        cfg, dictionary=_load_dictionary_cached(args.dictionary), workdir=workdir,
+        device=args.device,
+    )
+    real, render, test = _make_loaders(args, cfg)
+    state = trainer.restore_checkpoint(args.checkpoint)
+    ev = SnapshotEnsembleEvaluator(trainer, workdir=Path(workdir) / f"results_{args.save_str}")
+    ev.run(state, real, render, test, num_epochs=args.eval_num_epochs)
+    med, _ = ev.ensemble()
+    per_snap = [round(s.med_err, 4) for s in ev.snapshots]
+    print(f"snapshot MedErrs: {per_snap}", flush=True)
+    print(f"ensembled MedErr: {med:.4f} deg", flush=True)
+    return 0
+
+
+def cmd_predict(args) -> int:
+    """Inference from a checkpoint over the GT test crops (the
+    evaluateJointModel.py protocol): <workdir>/results_<save-str>.npz and
+    the per-class table. The joint-model analysis (--analysis) and the
+    detector crops (--det-path) are not ported yet."""
+    _refuse_not_ported(args)
+    from multi_modal_regression_tpu_torch.metrics import (
+        mean_class_median_error,
+        per_class_report,
+    )
+    from multi_modal_regression_tpu_torch.train.trainer import Trainer
+
+    cfg = _config_from_args(args)
+    workdir = args.workdir or f"runs/{args.save_str}"
+    trainer = Trainer(
+        cfg, dictionary=_load_dictionary_cached(args.dictionary), workdir=workdir,
+        device=args.device,
+    )
+    state = trainer.restore_checkpoint(args.checkpoint)
+    # every test protocol (filenames PNG tree, packed or not, or the
+    # Pascal3dAll .mat crops), built as train and evaluate build it
+    names = _classes_from_args(args)
+    test = _make_test_loader(args, cfg, names, cfg.image_size)
+    ytrue, ypred, labels = trainer.predict(state, test)
+    out = Path(workdir) / f"results_{args.save_str}.npz"
+    np.savez(out, ytest=ytrue, yhat_test=ypred, test_labels=labels)
+    rep = "quaternion" if trainer.problem.ydata_type == "quaternion" else "axis_angle"
+    med = mean_class_median_error(ytrue, ypred, labels, cfg.num_classes, representation=rep)
+    if len(names) != cfg.num_classes:
+        names = tuple(f"class{i}" for i in range(cfg.num_classes))
+    table = per_class_report(ytrue, ypred, labels, names, representation=rep)
+    for name, row in table.items():
+        print(
+            f"  {name:>14s}: MedErr {row['median_err_deg']:7.2f} deg  "
+            f"Acc@30 {row['acc_30deg']:5.1f}%  (n={row['count']})",
+            flush=True,
+        )
+    print(f"wrote {out}; MedErr {med:.4f}", flush=True)
+    return 0
+
+
 def cmd_dictionary(args) -> int:
     from multi_modal_regression_tpu_torch.tools.parity import gather_tree_poses
 
@@ -376,6 +571,14 @@ def _add_device_arg(p: argparse.ArgumentParser, what: str) -> None:
                    help=f"where {what} runs: 'cuda' (the default) or 'cpu'")
 
 
+def _add_distributed_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-host runs: not ported yet")
+    p.add_argument("--coordinator-address", type=str, default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
 def build_parser() -> argparse.ArgumentParser:
     from multi_modal_regression_tpu_torch.train.presets import PRESETS
 
@@ -396,15 +599,51 @@ def build_parser() -> argparse.ArgumentParser:
                  "--warm-start-checkpoint", "--warm-start-kind"):
         p_train.add_argument(flag, type=str, default=None,
                              help="two-stage chaining: not ported yet")
-    p_train.add_argument("--distributed", action="store_true",
-                         help="multi-host runs: not ported yet")
-    p_train.add_argument("--coordinator-address", type=str, default=None)
-    p_train.add_argument("--num-processes", type=int, default=None)
-    p_train.add_argument("--process-id", type=int, default=None)
+    _add_distributed_args(p_train)
     _add_common_data_args(p_train)
     _add_config_overrides(p_train)
     _add_device_arg(p_train, "training")
     p_train.set_defaults(fn=cmd_train)
+
+    p_pack = sub.add_parser(
+        "pack",
+        help="build the packed uint8 crop caches that a train/evaluate/"
+             "predict run with the same flags would use",
+    )
+    p_pack.add_argument("--preset", choices=sorted(PRESETS), required=True)
+    p_pack.add_argument("--train-data", choices=("both", "real", "render"),
+                        default="both")
+    _add_common_data_args(p_pack)
+    _add_config_overrides(p_pack)
+    p_pack.set_defaults(fn=cmd_pack)
+
+    p_eval = sub.add_parser("evaluate", help="snapshot-ensemble evaluation")
+    p_eval.add_argument("--preset", choices=sorted(PRESETS), required=True)
+    p_eval.add_argument("--dictionary", type=str, default=None)
+    p_eval.add_argument("--checkpoint", type=str, default="last")
+    p_eval.add_argument("--eval-num-epochs", type=int, default=None)
+    _add_distributed_args(p_eval)
+    _add_common_data_args(p_eval)
+    _add_config_overrides(p_eval)
+    _add_device_arg(p_eval, "the fine-tune and the test passes")
+    p_eval.set_defaults(fn=cmd_evaluate)
+
+    p_pred = sub.add_parser("predict", help="inference from a checkpoint")
+    p_pred.add_argument("--preset", choices=sorted(PRESETS), required=True)
+    p_pred.add_argument("--dictionary", type=str, default=None)
+    p_pred.add_argument("--checkpoint", type=str, default="final")
+    p_pred.add_argument("--det-path", type=str, default=None,
+                        help="detector crop set: not ported yet")
+    p_pred.add_argument("--analysis", action="store_true",
+                        help="joint-model analysis protocol: not ported yet")
+    p_pred.add_argument("--analysis-names", type=str, default=None,
+                        help="names of the --analysis checkpoints: not "
+                             "ported yet")
+    _add_common_data_args(p_pred, required_data_root=False)
+    _add_distributed_args(p_pred)
+    _add_config_overrides(p_pred)
+    _add_device_arg(p_pred, "inference")
+    p_pred.set_defaults(fn=cmd_predict)
 
     p_dict = sub.add_parser("dictionary", help="learn a pose dictionary")
     p_dict.add_argument("--type", choices=("kmeans", "gmm"), default="kmeans")

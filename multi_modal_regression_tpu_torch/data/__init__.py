@@ -1,8 +1,8 @@
-"""Data layer: dataset indices, host loaders, on-device target transforms.
+"""Data layer: dataset indices, host loaders, packed crop caches, on-device
+target transforms.
 
-The JAX package's exports, except its packed caches (data/packed.py) and
-the tangent-residual targets of the presets that are not ported yet
-(ROADMAP.md)."""
+The JAX package's exports, except the tangent-residual targets of the
+presets that are not ported yet (ROADMAP.md)."""
 
 from multi_modal_regression_tpu_torch.data.naming import (
     PASCAL3D_CLASSES,
@@ -24,6 +24,16 @@ from multi_modal_regression_tpu_torch.data.loader import (
     TestLoader,
     decode_image,
     normalize_images,
+)
+from multi_modal_regression_tpu_torch.data.packed import (
+    PackedBalancedLoader,
+    PackedCrops,
+    PackedFlatLoader,
+    PackedMatCropLoader,
+    PackedMatCrops,
+    PackedTestLoader,
+    pack_index,
+    pack_mat_index,
 )
 from multi_modal_regression_tpu_torch.data.targets import (
     euler_to_pose,
@@ -50,6 +60,14 @@ __all__ = [
     "TestLoader",
     "decode_image",
     "normalize_images",
+    "PackedBalancedLoader",
+    "PackedCrops",
+    "PackedFlatLoader",
+    "PackedMatCropLoader",
+    "PackedMatCrops",
+    "PackedTestLoader",
+    "pack_index",
+    "pack_mat_index",
     "euler_to_pose",
     "gmm_log_responsibilities",
     "gmm_soft_targets",

@@ -109,6 +109,11 @@ class ExperimentConfig:
     # Trainer.wait_for_checkpoints() observes completion and failure
     checkpoint_async: bool = True
     tensorboard: bool = False  # TensorBoard scalars: not ported, True raises
+    # snapshot-ensemble evaluation: the cyclical rate's endpoints and the
+    # fine-tune's epochs (helperFunctions.py:64,112-118; train/evaluator.py)
+    eval_alpha1: float = 1e-6
+    eval_alpha2: float = 1e-8
+    eval_num_epochs: int = 9
     # not ported yet: setting any of them raises (ROADMAP.md)
     frozen_bn: bool = False
     remat: str | None = None

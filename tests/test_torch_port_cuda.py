@@ -838,3 +838,79 @@ def test_checkpoint_round_trip_on_the_card(dev, tmp_path, checkpoint_async):
         assert su["nu"].dtype == torch.float32
         assert torch.equal(st["mu"], su["mu"]) and torch.equal(st["nu"], su["nu"])
     assert b.optimizer.param_groups[0]["lr"] == a.optimizer.param_groups[0]["lr"]
+
+
+# --- snapshot-ensemble evaluation and the packed loaders on the card ---------------
+
+
+def test_snapshot_evaluator_on_the_card(dev):
+    """SnapshotEnsembleEvaluator.run on the card (f32, TF32 off) from dual
+    loaders of 2 batches (c = 4) for 3 epochs: snapshots after steps 2 and
+    6, one normalize launch per fine-tune step and per eval batch of each
+    snapshot, and the same run on the CPU from the same weights within
+    1e-3 of its poses and MedErr."""
+    from multi_modal_regression_tpu_torch.train.evaluator import SnapshotEnsembleEvaluator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    centers = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    cfg = get_config("geodesic_bd", compute_dtype="float32",
+                     **{**_EVAL_SMALL, "max_iterations": None})
+    rng = np.random.default_rng(4)
+    real, render = ([{k: v for k, v in b.items() if k != "valid"}
+                     for b in _eval_batches(rng, (6, 6))] for _ in range(2))
+    test = _eval_batches(rng)
+    trainers = {where: Trainer(cfg, dictionary=centers, device=where) for where in (dev, "cpu")}
+    trainers["cpu"].model.load_state_dict(trainers[dev].model.state_dict())
+    runs = {}
+    for where, t in trainers.items():
+        n0 = preprocess.launches
+        ev = SnapshotEnsembleEvaluator(t)
+        state = ev.run(t.init_state(), real, render, test, num_epochs=3)
+        runs[where] = (t, ev, preprocess.launches - n0, state)
+    _, ev, launches, state = runs[dev]
+    assert state.step == 6 and [s.step for s in ev.snapshots] == [2, 6]
+    assert launches == 6 + 2 * len(test) and runs["cpu"][2] == 0
+    cpu = runs["cpu"][1]
+    for s, c in zip(ev.snapshots, cpu.snapshots, strict=True):
+        np.testing.assert_array_equal(s.labels, c.labels)
+        np.testing.assert_allclose(s.ypred, c.ypred, rtol=0, atol=1e-3)
+        assert abs(s.med_err - c.med_err) <= 1e-3
+    assert abs(ev.ensemble()[0] - cpu.ensemble()[0]) <= 1e-3
+
+
+def test_packed_loaders_feed_run_epoch_on_the_card(dev, tmp_path):
+    """Two PackedBalancedLoaders over a packed 32 px tree (3 classes, 4-6
+    images each: 3 steps an epoch at 2 items) feed Trainer.run_epoch on the
+    card: one normalize launch a step, finite losses; a PackedTestLoader
+    feeds evaluate with one launch per batch."""
+    from multi_modal_regression_tpu_torch.data import (
+        ClassBalancedIndex,
+        FlatTestIndex,
+        PackedBalancedLoader,
+        PackedTestLoader,
+        pack_index,
+    )
+    from multi_modal_regression_tpu_torch.tools.synthetic import generate_pose_dataset
+
+    classes = ("aeroplane", "bicycle", "boat")
+    for sub, n, seed in (("real", 4, 1), ("render", 4, 2), ("test", 2, 3)):
+        generate_pose_dataset(tmp_path / sub, classes, n, 32, seed=seed, pattern="pose")
+    loaders = []
+    for sub in ("real", "render"):
+        index = ClassBalancedIndex(str(tmp_path / sub), sub, classes=classes)
+        pack = pack_index(index, tmp_path / ".packed" / sub, image_size=32, num_workers=2)
+        loaders.append(PackedBalancedLoader(index, pack, items_per_batch=2, seed=0))
+    test_index = FlatTestIndex(str(tmp_path / "test"), classes=classes)
+    test = PackedTestLoader(test_index, pack_index(test_index, tmp_path / ".packed" / "test",
+                                                   image_size=32), batch_size=6)
+    centers = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    cfg = get_config("geodesic_bd", compute_dtype="bfloat16",
+                     **{**_EVAL_SMALL, "max_iterations": None})
+    t = Trainer(cfg, dictionary=centers, device=dev)
+    n0 = preprocess.launches
+    state = t.run_epoch(t.init_state(), *loaders, "main", log_every=1)
+    assert state.step == len(loaders[0]) == 3 and preprocess.launches - n0 == 3
+    assert all(np.isfinite(r["loss"]) for r in t.history) and len(t.history) == 3
+    n0 = preprocess.launches
+    assert np.isfinite(t.evaluate(state, test)) and preprocess.launches - n0 == len(test)

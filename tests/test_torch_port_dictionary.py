@@ -38,6 +38,8 @@ from multi_modal_regression_tpu_torch.tools.parity import (
     gather_tree_poses,
 )
 
+from test_torch_port_ops import one_torch_thread  # noqa: F401
+
 
 def _interpreted(fn, *args, **kwargs):
     from jax.experimental.pallas import tpu as pltpu

@@ -61,7 +61,7 @@ from multi_modal_regression_tpu_torch.train.presets import (
 from multi_modal_regression_tpu_torch.train.problems import make_problem
 from multi_modal_regression_tpu_torch.train.trainer import Trainer
 
-from test_torch_port_ops import bf16_ulps
+from test_torch_port_ops import bf16_ulps, one_torch_thread  # noqa: F401
 
 JAX_IMPLS = ["xla", "interpret"]
 

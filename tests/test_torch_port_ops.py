@@ -46,6 +46,21 @@ TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPE = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's CPU tests, whose models are small:
+    as fast as many in one process, and the suite's parallel workers do
+    not oversubscribe the cores (each would start one thread a core).
+    Modules that import it run under it too; the setting is restored.
+    test_torch_port_train.py does not: its float32 fits are ill-conditioned
+    (its docstring), so their rounding follows the thread count, and its
+    tolerances were set with the default one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _f32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()

@@ -35,7 +35,7 @@ from multi_modal_regression_tpu_torch.train.presets import (
 )
 from multi_modal_regression_tpu_torch.train.steps import make_eval_step
 
-from test_torch_port_ops import randomize_batch_stats
+from test_torch_port_ops import one_torch_thread, randomize_batch_stats  # noqa: F401
 
 SMALL = dict(
     feature_network="resnet50", feature_layer="layer4", num_classes=3,

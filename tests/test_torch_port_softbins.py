@@ -53,6 +53,7 @@ from multi_modal_regression_tpu_torch.train.state import TrainState
 from multi_modal_regression_tpu_torch.train.steps import make_train_step
 from multi_modal_regression_tpu_torch.train.trainer import Trainer
 
+from test_torch_port_ops import one_torch_thread  # noqa: F401
 from test_torch_port_train import _f32, _f64, _loader, _port_sd, _poses, x64  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent

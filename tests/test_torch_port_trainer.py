@@ -39,7 +39,7 @@ from multi_modal_regression_tpu_torch.train import trainer as trainer_module
 from multi_modal_regression_tpu_torch.train.presets import get_config
 from multi_modal_regression_tpu_torch.train.trainer import Trainer
 
-from test_torch_port_ops import randomize_batch_stats
+from test_torch_port_ops import one_torch_thread, randomize_batch_stats  # noqa: F401
 
 CLASSES = PASCAL3D_CLASSES[:3]
 SMALL = dict(
@@ -380,7 +380,7 @@ def test_cli_train_refuses_mismatched_classes(cli_tree, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--packed-cache", "auto"], ["--distributed"], ["--warm-start-workdir", "w"],
+    ["--coordinator-address", "localhost:1"], ["--distributed"], ["--warm-start-workdir", "w"],
     ["--warm-start-preset", "geodesic_bd"], ["--warm-start-checkpoint", "final"],
     ["--warm-start-kind", "oracle"], ["--compile-cache", "off"], ["--frozen-bn"],
     ["--remat", "block"], ["--train-flip"], ["--device-resize-from", "64"],
