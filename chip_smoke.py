@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: its kernels, serving, training.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: its kernels, serving, training,
+evaluation and the quality-parity gate.
 
     python3 chip_smoke.py
 
@@ -129,6 +130,24 @@ line each (or more), in order:
      packs, one PackedBalancedLoader and the two zipped, the step alone and
      `run_epoch` fed by the packed loaders (3 repeats, median (min, max)),
      beside [10]'s PNG-fed rate, the card and the host CPU
+  12 the data-prep, detection and quality-parity chain at full width (bf16,
+     4 items a class a stream, ResNet50 to layer4, N1 1000, N2 500, K 200,
+     12 classes, 224 px): a synthesized release (tools/synthetic, 2 images
+     a split) and `cli prepare-data --dataset pascal3d` as a subprocess; a
+     render tree (`prepare-data --dataset synthetic --images-per-class 20`,
+     252 named poses); the VOC val images' GT boxes as maskrcnn results
+     cropped by `prepare-detections --image-size 224`; `cli verify-parity
+     --render-root --det-path --annotations` in this process, depth cut to
+     2 steps an epoch, 1 warm-up + 1 main epoch, 1 fine-tune epoch: exit 0,
+     five stages with finite numbers, each stage's wall time, exactly 6
+     steps + test batches x (2 + snapshots) + detection batches normalize
+     launches and 4 x 101 assign launches (the K 200 fit); again, reusing
+     every artifact with the same stages and one test pass; `cli predict
+     --det-path --checkpoint ensemble_final` (one launch a detection batch)
+     and `cli evaluate-detections`, whose table equals the gate's;
+     run_detection_inference's kernel path against its plain path (the
+     plain normalize on the card) from that checkpoint, bf16 within
+     SERVE_RTOL and f32 with TF32 off within 1e-4
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
      rate of their type), then the result line
@@ -170,8 +189,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from multi_modal_regression_tpu_torch import PASCAL3D_CLASSES, cli  # noqa: E402
-from multi_modal_regression_tpu_torch.data import loader, native  # noqa: E402
+from multi_modal_regression_tpu_torch import PASCAL3D_CLASSES, cli, detection  # noqa: E402
+from multi_modal_regression_tpu_torch.data import FlatTestIndex, loader, native, packed  # noqa: E402
 from multi_modal_regression_tpu_torch.data.loader import normalize_images  # noqa: E402
 from multi_modal_regression_tpu_torch.data.naming import make_name  # noqa: E402
 from multi_modal_regression_tpu_torch.data.targets import euler_to_pose  # noqa: E402
@@ -191,7 +210,15 @@ from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
     stem_pool,
 )
 from multi_modal_regression_tpu_torch.serving import make_inference_fn  # noqa: E402
-from multi_modal_regression_tpu_torch.tools.synthetic import generate_pose_dataset  # noqa: E402
+from multi_modal_regression_tpu_torch.tools import parity  # noqa: E402
+from multi_modal_regression_tpu_torch.tools.ingest import (  # noqa: E402
+    load_annotations_for_images,
+    read_image_set,
+)
+from multi_modal_regression_tpu_torch.tools.synthetic import (  # noqa: E402
+    generate_pascal3d_release,
+    generate_pose_dataset,
+)
 from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
     C3_SHAPES,
     MM_SHAPES,
@@ -900,7 +927,7 @@ def outputs(model, problem, images, labels, dev, dtype, kernel: bool):
         return scores, residual, problem.decode((scores, residual))
 
 
-def compare(tag, kern, plain, rtol) -> float:
+def compare(tag, kern, plain, rtol, phase: str = "4") -> float:
     """Scores and residuals everywhere; poses where the top-2 bin-score
     margin exceeds the score tolerance. Returns the largest error."""
     (s_k, r_k, p_k), (s_p, r_p, p_p) = kern, plain
@@ -918,7 +945,7 @@ def compare(tag, kern, plain, rtol) -> float:
     if not perr <= ptol:
         raise AssertionError(f"{tag} poses: max err {perr:.3g} > {ptol:.3g}")
     print(
-        f"[4] {tag}: scores/residual max err {worst:.3g}, poses max err "
+        f"[{phase}] {tag}: scores/residual max err {worst:.3g}, poses max err "
         f"{perr:.3g} on {int(clear.sum())}/{len(clear)} clear rows (rtol {rtol:g} of max)"
     )
     return worst
@@ -2089,6 +2116,247 @@ def phase_packed_eval(dev, smi: str, dictionary: KMeansDictionary, user: dict) -
     return counts["normalize"]
 
 
+# [12]: the gate's cut in depth (verify-parity's flags; full widths), and
+# the synthesized release's size (12 classes, 96 px images)
+GATE_CUT = ["--max-iterations", "2", "--num-epochs", "1", "--num-warmup-epochs", "1",
+            "--eval-num-epochs", "1"]
+GATE_IMAGES_PER_SPLIT = 2
+
+
+class stage_clock:
+    """Wall seconds of the calls to some functions, summed per stage, the
+    card synchronized at the end of each call; the functions restored on
+    exit."""
+
+    def __init__(self, targets):
+        self.targets = targets  # (owner, attribute, stage)
+        self.times: dict[str, float] = {}
+
+    def _wrap(self, fn, stage: str):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.times[stage] = self.times.get(stage, 0.0) + time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        self.saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in self.targets]
+        for (owner, attr, stage), (_, _, fn) in zip(self.targets, self.saved):
+            setattr(owner, attr, self._wrap(fn, stage))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+
+
+def phase_gate(dev, smi: str, tmp: Path) -> dict:
+    """[12]: the data-prep, detection and quality-parity chain at full width
+    from a synthesized release: `cli prepare-data --dataset pascal3d` (a
+    subprocess), a render tree and a detection set, `cli verify-parity`
+    twice, `cli predict --det-path` and `cli evaluate-detections`, then
+    run_detection_inference's kernel path against its plain path. Returns
+    the gate's launches of #1 and #3."""
+    where = f"card {smi}; host {host_cpu()}"
+    root = Path(__file__).resolve().parent
+    classes = PASCAL3D_CLASSES
+    t0 = time.perf_counter()
+    db, voc = generate_pascal3d_release(tmp / "release", classes=classes,
+                                        images_per_split=GATE_IMAGES_PER_SPLIT)
+    release_s = time.perf_counter() - t0
+    data = tmp / "prepared"
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", f"{PORT}.cli", "prepare-data", "--dataset",
+                          "pascal3d", "--db-path", str(db), "--voc-dir", str(voc), "--out",
+                          str(data)], cwd=root, capture_output=True, text=True, timeout=900)
+    prep_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"cli prepare-data exited {run.returncode}:\n{run.stdout}{run.stderr}")
+    trees = {sub: len(list((data / sub).rglob("*.png" if sub != "original" else "*/*.mat")))
+             for sub in ("train", "test", "augmented2", "original")}
+    print(f"[12] release of {len(classes)} classes ({GATE_IMAGES_PER_SPLIT} images a split, "
+          f"96 px; tools/synthetic) written in {release_s:.2f} s; cli prepare-data --dataset "
+          f"pascal3d (subprocess): exit 0 in {prep_s:.2f} s wall, process start included: "
+          f"{trees['train']} train, {trees['test']} test and {trees['augmented2']} augmented2 "
+          f"crops, {trees['original']} original .mat files; {where}")
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["prepare-data", "--dataset", "synthetic", "--images-per-class", "20",
+                     "--out", str(tmp / "synthetic")]) != 0:
+            raise AssertionError("cli prepare-data --dataset synthetic failed")
+    render = tmp / "synthetic" / "renderforcnn"
+    n_render = len(list(render.rglob("*.png")))
+    # the maskrcnn protocol over the VOC val images, each class's GT boxes
+    # as its detections
+    dets = tmp / "dets"
+    dets.mkdir()
+    names = read_image_set(voc / "ImageSets" / "Main" / "val.txt")
+    for cls in classes:
+        rows = [f"{n} {a.bbox[0]} {a.bbox[1]} {a.bbox[2]} {a.bbox[3]} 0.9" for n in names
+                for a in load_annotations_for_images(db / "Annotations" / f"{cls}_pascal",
+                                                     [n])[0] or ()]
+        (dets / f"results_{cls}.txt").write_text("\n".join(rows) + "\n")
+    det_set = dets / "det_set"
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(["prepare-detections", "--detector", "maskrcnn", "--det-source", str(dets),
+                     "--images-dir", str(voc / "JPEGImages"), "--image-set",
+                     str(voc / "ImageSets" / "Main" / "val.txt"), "--out", str(det_set),
+                     "--image-size", "224"]) != 0:
+            raise AssertionError("cli prepare-detections failed")
+    index = detection.DetectionSetIndex(str(det_set))
+    samples = [index.load_image(i) for i in range(len(index))]
+    xdata = np.ascontiguousarray(np.concatenate([x["xdata"] for x in samples if x is not None]))
+    labels = np.concatenate([x["labels"] for x in samples if x is not None])
+    inputs_s = time.perf_counter() - t0
+    print(f"[12] render tree (cli prepare-data --dataset synthetic --images-per-class 20): "
+          f"{n_render} named poses; detection set (cli prepare-detections --detector maskrcnn "
+          f"--image-size 224, the VOC val images' GT boxes as detections): {len(xdata)} crops "
+          f"over {len(index)} images; both in {inputs_s:.2f} s")
+
+    # the gate, in this process: its launches counted, its stages timed
+    wd = tmp / "gate"
+    gate_args = ["verify-parity", "--data-root", str(data), "--render-root", str(render),
+                 "--det-path", str(det_set), "--annotations", str(db / "Annotations"),
+                 "--workdir", str(wd), "--compute-dtype", "bfloat16", "--items-per-batch", "4",
+                 *GATE_CUT]
+    cfg = get_config("geodesic_bd", compute_dtype="bfloat16", items_per_batch=4)
+    targets = [(parity, "fit_pose_dictionary", "dictionary"),
+               (packed, "pack_index", "pack"), (Trainer, "fit", "train"),
+               (SnapshotEnsembleEvaluator, "run", "evaluate"),
+               (detection, "run_detection_inference", "detections")]
+    runs = []
+    for attempt in ("first", "again"):
+        reset_counts()
+        assign.launches = 0
+        with stage_clock(targets) as clock, tee_stdout() as out:
+            t0 = time.perf_counter()
+            rc = cli.main(gate_args)
+            torch.cuda.synchronize()
+            gate_s = time.perf_counter() - t0
+        counts = {**read_counts(), "assign": assign.launches}
+        table = json.loads((wd / "parity.json").read_text())
+        runs.append((counts, table, clock.times, gate_s, out.getvalue()))
+        if rc != 0:
+            raise AssertionError(f"cli verify-parity ({attempt}) exited {rc}")
+    (counts, table, times, gate_s, text), (counts2, table2, times2, gate2_s, text2) = runs
+    stages = table["stages"]
+    numbers = [stages["train"]["med_err_deg"], stages["evaluate"]["ensembled_med_err_deg"],
+               stages["evaluate"]["acc_pi_6_pct"], *stages["evaluate"]["snapshot_med_errs"],
+               *(v for row in stages["evaluate"]["per_class"].values() for v in row.values()),
+               *(v for row in stages["detections"].values() for v in row.values())]
+    n_test = -(-len(FlatTestIndex(str(data / "test"), classes=classes)) // cfg.eval_batch)
+    n_det = -(-len(xdata) // cfg.eval_batch)
+    n_snap = len(stages["evaluate"]["snapshot_med_errs"])
+    # 2 warm-up + 2 main steps, an eval after the main epoch and one after
+    # fit, 2 fine-tune steps, a test pass per snapshot, the detection batches
+    want = {**{k: 0 for k in counts}, "normalize": 4 + 2 + n_test * (2 + n_snap) + n_det,
+            "assign": 4 * 101}
+    if not (set(stages) == {"prepare_data", "dictionary", "train", "evaluate", "detections"}
+            and np.all(np.isfinite(numbers)) and counts == want
+            and set(stages["detections"]) == {*classes, "mean"}):
+        raise AssertionError(f"cli verify-parity: stages {sorted(stages)}, launches {counts} "
+                             f"against {want}:\n{text}")
+    stage_line = ", ".join(f"{k} {v:.2f} s" for k, v in times.items())
+    mean = stages["detections"]["mean"]
+    print(f"[12] cli verify-parity (this process; geodesic_bd {cfg.feature_network}/"
+          f"{cfg.feature_layer} N1 {cfg.N1} N2 {cfg.N2} K {cfg.dict_size}, {cfg.num_classes} "
+          f"classes, {cfg.image_size} px, bf16, "
+          f"4 items a class a stream, {' '.join(GATE_CUT)}): exit 0 in {gate_s:.2f} s wall; "
+          f"stages {stage_line} (prepare_data above: {prep_s:.2f} s); launches {counts} = "
+          f"6 steps + {n_test} test batch x (2 + {n_snap} snapshot) + {n_det} detection "
+          f"batch, and 4 x 101 assign for the K {cfg.dict_size} kmeans fit; {where}")
+    print(f"[12] parity table: train MedErr {stages['train']['med_err_deg']} deg, snapshots "
+          f"{stages['evaluate']['snapshot_med_errs']}, ensembled "
+          f"{stages['evaluate']['ensembled_med_err_deg']} deg, Acc@pi/6 "
+          f"{stages['evaluate']['acc_pi_6_pct']}%; detections mean AP {mean['ap']} AVP "
+          f"{mean['avp']} ARP {mean['arp']} (random weights trained 6 steps: a check of the "
+          f"path, not a quality); deviations {len(table['deviations'])}")
+    want2 = {**{k: 0 for k in counts2}, "normalize": n_test}
+    if not (all(table2["stages"][k] == stages[k] for k in stages) and counts2 == want2
+            and "skipping training" in text2 and "skipping fine-tune" in text2
+            and "cached results exist" in text2 and "dictionary" not in times2):
+        raise AssertionError(f"cli verify-parity again: stages differ or artifacts not "
+                             f"reused, launches {counts2}:\n{text2}")
+    print(f"[12] cli verify-parity again: exit 0 in {gate2_s:.2f} s wall; every artifact "
+          f"reused (no fit, no fine-tune, detections.json), the same five stages; launches "
+          f"{counts2} (the train stage's test pass of `final`); {where}")
+
+    # cli predict --det-path on the gate's ensembled checkpoint, then
+    # evaluate-detections on its results: the gate's detection table
+    dict_path = wd / f"kmeans_{cfg.dict_size}.npz"
+    model_args = ["--preset", "geodesic_bd", "--dictionary", str(dict_path),
+                  "--workdir", str(wd), "--compute-dtype", "bfloat16"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["predict", *model_args, "--checkpoint", "ensemble_final", "--det-path",
+                       str(det_set)])
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_counts = read_counts()
+    results = wd / f"results_run_{det_set.name}.mat"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc2 = cli.main(["evaluate-detections", "--results", str(results), "--det-path",
+                        str(det_set), "--annotations", str(db / "Annotations"), "--out",
+                        str(wd / "det_table.json")])
+    edet_s = time.perf_counter() - t0
+    got = json.loads((wd / "det_table.json").read_text())
+    rounded = {c: {k: round(float(v), 4) for k, v in row.items()} for c, row in got.items()}
+    if not (rc == rc2 == 0 and rounded == stages["detections"]
+            and pred_counts == {**{k: 0 for k in pred_counts}, "normalize": n_det}):
+        raise AssertionError(f"predict --det-path + evaluate-detections: {rounded} against "
+                             f"{stages['detections']}, launches {pred_counts}")
+    print(f"[12] cli predict --det-path --checkpoint ensemble_final (this process): exit 0 in "
+          f"{pred_s:.2f} s wall, {len(xdata)} poses, normalize launches {n_det}; cli "
+          f"evaluate-detections: {edet_s:.2f} s; its AP/AVP/ARP table equals the gate's "
+          f"detections stage; {where}")
+
+    # run_detection_inference: kernel path vs plain path on the card, from
+    # the ensembled checkpoint, bf16 and then f32 with TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dictionary = KMeansDictionary.load(dict_path)
+    worst = {}
+    for dtype in ("bfloat16", "float32"):
+        trainer = Trainer(cfg.replace(compute_dtype=dtype), dictionary=dictionary,
+                          workdir=wd, device=dev)
+        state = trainer.restore_checkpoint("ensemble_final")
+        reset_counts()
+        poses = detection.run_detection_inference(state.model, trainer.problem, index,
+                                                  batch_size=cfg.eval_batch)[1]
+        torch.cuda.synchronize()
+        n = read_counts()["normalize"]
+        with plain_normalize():
+            plain = detection.run_detection_inference(state.model, trainer.problem, index,
+                                                      batch_size=cfg.eval_batch)[1]
+        if n != n_det or read_counts()["normalize"] != n:
+            raise AssertionError(f"{dtype}: normalize launched {n} times for {n_det} batches")
+        # (scores, residual, poses) as run_detection_inference computes them:
+        # the normalize writes float32, the model casts to its own dtype
+        kern, ref = ([torch.cat(t) for t in zip(*(
+            outputs(state.model, trainer.problem, xdata[i:i + cfg.eval_batch],
+                    labels[i:i + cfg.eval_batch], dev, torch.float32, kernel)
+            for i in range(0, len(xdata), cfg.eval_batch)))] for kernel in (True, False))
+        ours = np.concatenate([p for p in poses if p.size])
+        theirs = np.concatenate([p for p in plain if p.size])
+        if not (np.array_equal(ours, kern[2].float().cpu().numpy())
+                and np.array_equal(theirs, ref[2].float().cpu().numpy())):
+            raise AssertionError(f"{dtype}: run_detection_inference's poses differ from its "
+                                 f"path's decode")
+        worst[dtype] = compare(f"run_detection_inference {dtype} kernel vs plain path "
+                               f"({len(xdata)} crops, {n} normalize launch)", kern, ref,
+                               SERVE_RTOL[getattr(torch, dtype)], phase="12")
+        del trainer, state
+    torch.cuda.empty_cache()
+    return {"normalize": counts["normalize"], "assign": counts["assign"],
+            "predict_normalize": pred_counts["normalize"], "worst": worst}
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2113,9 +2381,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         user = phase_user_command(dev, smi, kmeans_dict, train, Path(tmp))
         eval_launches = phase_packed_eval(dev, smi, kmeans_dict, user)
+    with tempfile.TemporaryDirectory() as tmp:
+        gate = phase_gate(dev, smi, Path(tmp))
     # launches: each kernel's count over the 4 steps of its training path
     # ([5] unfused, [6] fused) or over the dictionary path's fit, predict and
-    # residuals ([7]); serving's counts are in [4]
+    # residuals ([7]); serving's counts are in [4], the gate's in [12]
     fused_src = f"{PORT}/csrc/fused_%s.cu"
     fused_at = f"{JAX_PACKAGE}/ops/fused_conv_bn.py:%d"
     kernels = [
@@ -2125,7 +2395,9 @@ def main() -> None:
          "launches": train["launches"]["normalize"],
          "serving_launches": serve["launches"]["normalize"],
          "cli_train_resume_launches": user["launches"],
-         "cli_evaluate_launches": eval_launches, **norm},
+         "cli_evaluate_launches": eval_launches,
+         "verify_parity_launches": gate["normalize"],
+         "predict_det_path_launches": gate["predict_normalize"], **norm},
         {"name": "stem_pool", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:162",
@@ -2145,7 +2417,7 @@ def main() -> None:
          "replaces": fused_at % 878, "launches": fused["launches"]["c3_bwd"], **c3_bwd},
         {"name": "assign", "route": "cuda", "source": f"{PORT}/csrc/assign.cu",
          "replaces": f"{JAX_PACKAGE}/ops/assign.py:45", "launches": assign_launches,
-         **assign_rec},
+         "verify_parity_launches": gate["assign"], **assign_rec},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,13 +1,15 @@
 """multi_modal_regression_tpu_torch — the PyTorch + CUDA port for NVIDIA Hopper.
 
 A second package beside the JAX one, with the same module paths so each
-counterpart is found by name. It imports `torch`, `numpy` and the standard
-library only: never JAX, flax, optax, orbax, PIL or the JAX package, so it
-runs on a machine that has none of them.
+counterpart is found by name. It imports `torch`, `numpy`, the standard
+library, and on the host side PIL and scipy (image files, `.mat` files):
+never JAX, flax, optax, orbax or the JAX package, so it runs on a machine
+that has none of them.
 
 What is ported so far: the `geodesic_bd` serving and training paths, the
-pose-dictionary path that comes before every bin-delta training run, and
-the soft-bin presets that train on those dictionaries:
+pose-dictionary path that comes before every bin-delta training run, the
+soft-bin presets that train on those dictionaries, and the chain from a
+raw release through the detection metrics to the quality-parity gate:
 
 data        ImageNet constants, plain `normalize_images`, `euler_to_pose`,
             hard, GMM-posterior and RBF soft bin targets; file-name pose
@@ -27,8 +29,15 @@ train       the `geodesic_bd`, `probabilistic_bd`, `relaxed_bd` and
             `ablation_xbd` presets, their problems, Adam, the epoch
             learning-rate factors, the train and eval steps, `TrainState`,
             `Trainer.fit`
-tools       `gather_tree_poses`, `fit_pose_dictionary`
-cli         `python -m multi_modal_regression_tpu_torch.cli dictionary`
+metrics     pose errors, MedErr, Acc@30; AP / AVP / ARP (`detection`)
+detection   detector crop sets, `run_detection_inference`, results .mat
+            files, `evaluate_detection_results`
+tools       `synthetic` datasets and releases, `pascal3d_prep` (crops,
+            homography augmentation), `ingest` (release walkers, detector
+            parsers), `parity` (`fit_pose_dictionary`, `run_parity_gate`)
+cli         `python -m multi_modal_regression_tpu_torch.cli` train, pack,
+            evaluate, predict, dictionary, prepare-data,
+            prepare-detections, evaluate-detections, verify-parity
 serving     `make_inference_fn`: uint8 images + labels -> poses
 
 The roadmap of what is still to port is in ROADMAP.md.

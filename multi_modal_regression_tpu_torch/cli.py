@@ -16,12 +16,28 @@
 
     python -m multi_modal_regression_tpu_torch.cli predict \\
         --preset geodesic_bd --data-root data/ --dictionary d.npz \\
-        [--checkpoint final] [--packed-cache auto] [--device cuda|cpu]
+        [--checkpoint final] [--packed-cache auto] [--det-path <set>] \\
+        [--device cuda|cpu]
 
     python -m multi_modal_regression_tpu_torch.cli dictionary \\
         --data-root <render tree> --out kmeans_dictionary_axis_angle_200.npz \\
         [--type kmeans|gmm] [--size 200] [--seed 0] [--db-type render|real] \\
         [--dbinfo dbinfo.mat | --num-classes N] [--device cuda|cpu]
+
+    python -m multi_modal_regression_tpu_torch.cli prepare-data \\
+        --dataset synthetic|pascal3d|objectnet3d --out data/ \\
+        [--db-path PASCAL3D+_release1.1] [--voc-dir <VOC2012>]
+
+    python -m multi_modal_regression_tpu_torch.cli prepare-detections \\
+        --detector vk|r4cnn|maskrcnn|objectnet --det-source <outputs> \\
+        --images-dir <JPEGImages> [--image-set val.txt] --out <set>
+
+    python -m multi_modal_regression_tpu_torch.cli evaluate-detections \\
+        --results <results .mat> --det-path <set> --annotations <root>
+
+    python -m multi_modal_regression_tpu_torch.cli verify-parity \\
+        --data-root <prepared> [--db-path <release>] [--render-root <tree>] \\
+        [--det-path <set> --annotations <root>] [--device cuda|cpu]
 
 `train` trains a preset on the device (the card unless `--device cpu`)
 from the PNG trees under --data-root (<real-subdir>, <render-subdir> and
@@ -35,12 +51,19 @@ and the loaders gather from it; `pack` builds those caches and stops.
 checkpoint with the cyclical SGD, takes a test snapshot at each minimum of
 the rate (<workdir>/results_<save-str>/num<k>.npz) and prints the
 per-snapshot and the ensembled MedErr. `predict` runs the test set through
-a checkpoint and writes <workdir>/results_<save-str>.npz. `dictionary`
-parses the pose of every image of a tree from its file name and fits a
-kmeans or GMM pose dictionary on the device. All take the JAX package's
-arguments. Those whose machinery is not ported yet (`--distributed`,
-`--warm-start-*`, `--compile-cache`, predict's `--analysis` and
-`--det-path`, and the config settings that presets.py refuses) raise
+a checkpoint and writes <workdir>/results_<save-str>.npz; with
+`--det-path` it runs a detector's crop set instead and writes
+<workdir>/results_<save-str>_<set>.mat. `dictionary` parses the pose of
+every image of a tree from its file name and fits a kmeans or GMM pose
+dictionary on the device. `prepare-data` writes a synthetic tree or walks
+a PASCAL3D+ / ObjectNet3D release into the training trees (host code);
+`prepare-detections` crops a detector's outputs into a crop set;
+`evaluate-detections` scores a results .mat (AP / AVP / ARP);
+`verify-parity` chains prepare-data, dictionary, train, the snapshot
+ensemble and the detection metrics into one table (tools/parity.py). All
+take the JAX package's arguments. Those whose machinery is not ported yet
+(`--distributed`, `--warm-start-*`, `--compile-cache`, predict's
+`--analysis`, and the config settings that presets.py refuses) raise
 NotImplementedError when given; the other subcommands arrive with their
 slices (ROADMAP.md).
 """
@@ -163,7 +186,7 @@ _NOT_PORTED_FLAGS = (
     "distributed", "coordinator_address", "num_processes",
     "process_id", "warm_start_workdir", "warm_start_preset",
     "warm_start_checkpoint", "warm_start_kind", "compile_cache",
-    "analysis", "analysis_names", "det_path",
+    "analysis", "analysis_names",
 )
 
 
@@ -501,8 +524,9 @@ def cmd_evaluate(args) -> int:
 def cmd_predict(args) -> int:
     """Inference from a checkpoint over the GT test crops (the
     evaluateJointModel.py protocol): <workdir>/results_<save-str>.npz and
-    the per-class table. The joint-model analysis (--analysis) and the
-    detector crops (--det-path) are not ported yet."""
+    the per-class table; with --det-path over a detector's crop set (the
+    evaluateModelDetectedBBoxes.py protocol): the results .mat. The
+    joint-model analysis (--analysis) is not ported yet."""
     _refuse_not_ported(args)
     from multi_modal_regression_tpu_torch.metrics import (
         mean_class_median_error,
@@ -517,6 +541,24 @@ def cmd_predict(args) -> int:
         device=args.device,
     )
     state = trainer.restore_checkpoint(args.checkpoint)
+    if args.det_path:
+        from multi_modal_regression_tpu_torch.detection import (
+            DetectionSetIndex,
+            run_detection_inference,
+            save_results_mat,
+        )
+
+        index = DetectionSetIndex(args.det_path)
+        bboxes, ypred, labels, _scores = run_detection_inference(
+            state.model, trainer.problem, index, batch_size=cfg.eval_batch,
+            compute_dtype=trainer.compute_dtype,
+        )
+        det_name = Path(args.det_path).name
+        out = Path(workdir) / f"results_{args.save_str}_{det_name}.mat"
+        save_results_mat(out, bboxes, ypred, labels)
+        n = sum(len(b) for b in labels)
+        print(f"wrote {out} ({n} detections over {len(index)} images)", flush=True)
+        return 0
     # every test protocol (filenames PNG tree, packed or not, or the
     # Pascal3dAll .mat crops), built as train and evaluate build it
     names = _classes_from_args(args)
@@ -563,6 +605,199 @@ def cmd_dictionary(args) -> int:
     reloaded = _load_dictionary(args.out)
     n = getattr(reloaded, "n_clusters", None) or reloaded.n_components
     print(f"saved {args.out} ({n} atoms); reload OK", flush=True)
+    return 0
+
+
+def cmd_prepare_data(args) -> int:
+    """A synthetic pose tree (the default), or a PASCAL3D+ / ObjectNet3D
+    release walked into the training trees (setupData*.m; host code)."""
+    if args.dataset == "pascal3d":
+        from multi_modal_regression_tpu_torch.tools.ingest import prepare_pascal3d
+
+        if not args.db_path:
+            raise SystemExit("--db-path is required for --dataset pascal3d")
+        voc = args.voc_dir or str(
+            Path(args.db_path) / "PASCAL" / "VOCdevkit" / "VOC2012"
+        )
+        classes = (
+            tuple(args.classes.split(","))
+            if args.classes else _classes_from_args(args)
+        )
+        prepare_pascal3d(
+            args.db_path, voc, args.out,
+            classes=classes,
+            kinds=tuple(args.kinds.split(",")),
+            workers=args.workers,
+        )
+        print(f"wrote {args.out}", flush=True)
+        return 0
+    if args.dataset == "objectnet3d":
+        from multi_modal_regression_tpu_torch.tools.ingest import prepare_objectnet3d
+
+        if not args.db_path:
+            raise SystemExit("--db-path is required for --dataset objectnet3d")
+        prepare_objectnet3d(args.db_path, args.out, workers=args.workers)
+        print(f"wrote {args.out}", flush=True)
+        return 0
+
+    from multi_modal_regression_tpu_torch.tools.synthetic import generate_pose_dataset
+
+    synth_kwargs = {}
+    if args.classes:  # default: the full PASCAL3D+ list
+        synth_kwargs["classes"] = tuple(args.classes.split(","))
+    for i, sub in enumerate((args.real_subdir, args.render_subdir, args.test_subdir)):
+        root = generate_pose_dataset(
+            Path(args.out) / sub,
+            images_per_class=args.images_per_class,
+            image_size=args.image_size,
+            # deterministic per-subdir seed (hash() is process-randomized)
+            seed=args.seed + 1000 * (i + 1),
+            pattern=args.pattern,
+            **synth_kwargs,
+        )
+        print(f"wrote {root}", flush=True)
+    return 0
+
+
+def cmd_prepare_detections(args) -> int:
+    """Parse third-party detector outputs and crop them into the
+    `dbinfo.mat + all/<img>.mat` layout `predict --det-path` consumes
+    (the setupDataDetection_{vk,r4cnn,maskrcnn}.m pipelines, plus the
+    setupDataDetected_objectnet3d.m Fast-RCNN script)."""
+    from multi_modal_regression_tpu_torch.tools.ingest import (
+        parse_maskrcnn_results,
+        parse_r4cnn_detections,
+        parse_vk_detections,
+        prepare_detection_set,
+        prepare_objectnet_detected,
+        read_image_set,
+    )
+
+    classes = _classes_from_args(args)
+    if args.detector == "objectnet":
+        # per-class detections_<cls>.txt trees; no VOC image-set file:
+        # the image list is the union of the detection files' rows
+        n = prepare_objectnet_detected(
+            args.det_source, args.images_dir, args.out, classes,
+            size=args.image_size, workers=args.workers,
+        )
+        print(f"wrote {args.out} ({n} detections)", flush=True)
+        return 0
+    if args.image_set is None:
+        raise SystemExit("--image-set is required for this detector")
+    image_names = read_image_set(args.image_set)
+    if args.detector == "vk":
+        dets = parse_vk_detections(args.det_source, num_images=len(image_names))
+    elif args.detector == "r4cnn":
+        dets = parse_r4cnn_detections(
+            args.det_source, classes=classes, num_images=len(image_names)
+        )
+    else:
+        det_classes = classes
+        if args.detector_classes:
+            det_classes = tuple(args.detector_classes.split(","))
+        dets = parse_maskrcnn_results(
+            args.det_source, image_names, classes=det_classes
+        )
+    prepare_detection_set(
+        args.images_dir, image_names, dets, args.out,
+        size=args.image_size, workers=args.workers,
+    )
+    n = sum(len(b) for b, _ in dets)
+    print(f"wrote {args.out} ({n} detections over {len(image_names)} images)",
+          flush=True)
+    return 0
+
+
+def cmd_evaluate_detections(args) -> int:
+    """AVP/ARP in one command (the computeAVP.m / computeARP.m stage):
+    results .mat (from `predict --det-path`) + PASCAL3D+ Annotations tree
+    -> per-class AP / AVP / ARP / MedErr table."""
+    from multi_modal_regression_tpu_torch.detection import (
+        DetectionSetIndex,
+        build_voc_ground_truth,
+        evaluate_detection_results,
+        load_results_mat,
+    )
+
+    classes = _classes_from_args(args)
+    index = DetectionSetIndex(args.det_path)
+    bboxes, ypred, labels, scores = load_results_mat(args.results)
+    if len(bboxes) != len(index):
+        raise SystemExit(
+            f"results file has {len(bboxes)} images, detection set has "
+            f"{len(index)}"
+        )
+    annos = build_voc_ground_truth(args.annotations, index.image_names, classes)
+    table = evaluate_detection_results(
+        annos, bboxes, ypred, labels, classes, scores=scores,
+        nbins=args.nbins,
+    )
+    header = f"{'class':>14s}  {'AP':>7s} {'AVP':>7s} {'ARP':>7s} " \
+             f"{'MedErr':>8s} {'MedAzErr':>9s}"
+    print(header, flush=True)
+    for cls, row in table.items():
+        print(
+            f"{cls:>14s}  {row['ap']:7.4f} {row['avp']:7.4f} "
+            f"{row['arp']:7.4f} {row['med_err_deg']:8.3f} "
+            f"{row['med_az_err_deg']:9.3f}",
+            flush=True,
+        )
+    if args.out:
+        import json
+
+        Path(args.out).write_text(json.dumps(table, indent=2))
+        print(f"wrote {args.out}", flush=True)
+    return 0
+
+
+def cmd_verify_parity(args) -> int:
+    """The quality-parity acceptance gate as ONE command: prepare-data ->
+    dictionary -> train (--pretrained-backbone) -> snapshot-ensemble
+    evaluate -> optional AVP/ARP, printing the MedErr / Acc@pi/6 table
+    (tools/parity.py; reference chain setupDataFlipped_pascal3d.m ->
+    learnGeodesicBDModel.py -> evaluateGeodesicBDModel.py -> computeAVP.m)."""
+    _refuse_not_ported(args)
+    from multi_modal_regression_tpu_torch.tools.parity import run_parity_gate
+
+    overrides = _overrides_from_args(args)
+    classes = (
+        tuple(args.classes.split(",")) if args.classes
+        else _classes_from_args(args)
+    )
+    table = run_parity_gate(
+        workdir=args.workdir or "runs/parity",
+        data_root=args.data_root,
+        db_path=args.db_path,
+        voc_dir=args.voc_dir,
+        render_root=args.render_root,
+        pretrained_backbone=args.pretrained_backbone,
+        det_path=args.det_path,
+        annotations=args.annotations,
+        classes=classes,
+        overrides=overrides,
+        eval_num_epochs=args.eval_num_epochs,
+        workers=args.num_workers,
+        packed_cache=not args.no_packed_cache,
+        device=args.device,
+    )
+    ev = table["stages"]["evaluate"]
+    print(f"{'class':>14s}  {'MedErr':>8s}  {'Acc@pi/6':>8s}", flush=True)
+    for cls, row in ev["per_class"].items():
+        if cls == "mean":  # already reported by the ensembled line below
+            continue
+        print(
+            f"{cls:>14s}  {row['med_err_deg']:8.3f}  "
+            f"{row['acc_pi_6_pct']:7.2f}%",
+            flush=True,
+        )
+    print(
+        f"ensembled MedErr {ev['ensembled_med_err_deg']:.3f} deg  "
+        f"Acc@pi/6 {ev['acc_pi_6_pct']:.2f}%",
+        flush=True,
+    )
+    for d in table["deviations"]:
+        print(f"DEVIATION: {d}", flush=True)
     return 0
 
 
@@ -633,7 +868,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_pred.add_argument("--dictionary", type=str, default=None)
     p_pred.add_argument("--checkpoint", type=str, default="final")
     p_pred.add_argument("--det-path", type=str, default=None,
-                        help="detector crop set: not ported yet")
+                        help="detector crop set (dbinfo.mat + all/*.mat)")
     p_pred.add_argument("--analysis", action="store_true",
                         help="joint-model analysis protocol: not ported yet")
     p_pred.add_argument("--analysis-names", type=str, default=None,
@@ -665,6 +900,121 @@ def build_parser() -> argparse.ArgumentParser:
                              "learns from RenderForCNN trees)")
     _add_device_arg(p_dict, "the fit")
     p_dict.set_defaults(fn=cmd_dictionary)
+
+    p_prep = sub.add_parser(
+        "prepare-data",
+        help="prepare a dataset: synthetic (default), or walk a real "
+             "PASCAL3D+/ObjectNet3D release (setupData*.m)",
+    )
+    p_prep.add_argument("--dataset",
+                        choices=("synthetic", "pascal3d", "objectnet3d"),
+                        default="synthetic")
+    p_prep.add_argument("--db-path", type=str, default=None,
+                        help="release root (PASCAL3D+_release1.1 / "
+                             "ObjectNet3D) for non-synthetic datasets")
+    p_prep.add_argument("--voc-dir", type=str, default=None,
+                        help="VOC2012 devkit dir (default "
+                             "<db-path>/PASCAL/VOCdevkit/VOC2012)")
+    p_prep.add_argument("--kinds", type=str,
+                        default="flipped,original,augmented",
+                        help="comma list of pascal3d output trees")
+    p_prep.add_argument("--workers", type=int, default=8)
+    p_prep.add_argument("--classes", type=str, default=None,
+                        help="comma list of classes to ingest (default: "
+                             "the 12 PASCAL3D+ classes / --dbinfo)")
+    p_prep.add_argument("--dbinfo", type=str, default=None)
+    p_prep.add_argument("--out", type=str, required=True)
+    p_prep.add_argument("--real-subdir", type=str, default="augmented2")
+    p_prep.add_argument("--render-subdir", type=str, default="renderforcnn")
+    p_prep.add_argument("--test-subdir", type=str, default="test")
+    p_prep.add_argument("--images-per-class", type=int, default=8)
+    p_prep.add_argument("--image-size", type=int, default=64)
+    p_prep.add_argument("--seed", type=int, default=0)
+    p_prep.add_argument("--pattern", choices=("noise", "pose"), default="noise",
+                        help="'pose' renders learnable viewpoint-dependent content")
+    p_prep.set_defaults(fn=cmd_prepare_data)
+
+    p_pdet = sub.add_parser(
+        "prepare-detections",
+        help="crop third-party detector outputs into a detection set "
+             "(setupDataDetection_{vk,r4cnn,maskrcnn}.m)",
+    )
+    p_pdet.add_argument("--detector",
+                        choices=("vk", "r4cnn", "maskrcnn", "objectnet"),
+                        required=True)
+    p_pdet.add_argument("--det-source", type=str, required=True,
+                        help="vk: VOC2012_val_det.mat; r4cnn: dir of "
+                             "per-class .mat files; maskrcnn: dir of "
+                             "results_<cls>.txt files; objectnet: dir of "
+                             "detections_<cls>.txt files (Fast-RCNN)")
+    p_pdet.add_argument("--images-dir", type=str, required=True,
+                        help="VOC JPEGImages / ObjectNet3D Images dir")
+    p_pdet.add_argument("--image-set", type=str, default=None,
+                        help="val.txt listing the test images (not used "
+                             "for --detector objectnet)")
+    p_pdet.add_argument("--out", type=str, required=True)
+    p_pdet.add_argument("--image-size", type=int, default=224)
+    p_pdet.add_argument("--workers", type=int, default=8)
+    p_pdet.add_argument("--dbinfo", type=str, default=None)
+    p_pdet.add_argument("--detector-classes", type=str, default=None,
+                        help="comma list of the detector's own class "
+                             "spellings (maskrcnn uses 'motorcycle')")
+    p_pdet.set_defaults(fn=cmd_prepare_detections)
+
+    p_edet = sub.add_parser(
+        "evaluate-detections",
+        help="AP/AVP/ARP table from a results .mat + annotations "
+             "(computeAVP.m / computeARP.m)",
+    )
+    p_edet.add_argument("--results", type=str, required=True,
+                        help="results .mat from `predict --det-path`")
+    p_edet.add_argument("--det-path", type=str, required=True,
+                        help="detection set dir (its dbinfo.mat lists the "
+                             "image order of the results file)")
+    p_edet.add_argument("--annotations", type=str, required=True,
+                        help="PASCAL3D+ Annotations root "
+                             "(<cls>_pascal/<image>.mat trees)")
+    p_edet.add_argument("--nbins", type=int, default=4,
+                        help="azimuth bins for AVP")
+    p_edet.add_argument("--out", type=str, default=None,
+                        help="optional JSON output path")
+    p_edet.add_argument("--dbinfo", type=str, default=None)
+    p_edet.set_defaults(fn=cmd_evaluate_detections)
+
+    p_par = sub.add_parser(
+        "verify-parity",
+        help="the quality-parity gate as one command: prepare-data -> "
+             "dictionary -> train -> snapshot-ensemble evaluate "
+             "[-> AVP/ARP] (tools/parity.py)",
+    )
+    p_par.add_argument("--data-root", type=str, required=True,
+                       help="prepared tree (train/test/augmented2/original);"
+                            " ingested from --db-path if missing")
+    p_par.add_argument("--db-path", type=str, default=None,
+                       help="PASCAL3D+ release root (for ingestion)")
+    p_par.add_argument("--voc-dir", type=str, default=None)
+    p_par.add_argument("--render-root", type=str, default=None,
+                       help="RenderForCNN-style render tree (dictionary "
+                            "poses + render training data)")
+    p_par.add_argument("--pretrained-backbone", type=str, default=None,
+                       help="torchvision resnet50 .pth (quality parity "
+                            "requires it)")
+    p_par.add_argument("--det-path", type=str, default=None,
+                       help="prepared detection set for the AVP/ARP stage")
+    p_par.add_argument("--annotations", type=str, default=None,
+                       help="PASCAL3D+ Annotations root (AVP/ARP stage)")
+    p_par.add_argument("--eval-num-epochs", type=int, default=None)
+    p_par.add_argument("--classes", type=str, default=None,
+                       help="comma list (default: the 12 PASCAL3D+ classes)")
+    p_par.add_argument("--dbinfo", type=str, default=None)
+    p_par.add_argument("--num-workers", type=int, default=8)
+    p_par.add_argument("--no-packed-cache", action="store_true",
+                       help="disable the default packed uint8 crop cache "
+                            "(.packed/ next to each tree, shared with "
+                            "--packed-cache auto) and decode PNGs per epoch")
+    _add_config_overrides(p_par)
+    _add_device_arg(p_par, "each device stage")
+    p_par.set_defaults(fn=cmd_verify_parity)
     return parser
 
 

@@ -1,6 +1,5 @@
-"""Host-side evaluation metrics (numpy, float64). The detection metrics
-(the JAX package's metrics/detection.py) come with the detection protocol
-(ROADMAP.md)."""
+"""Host-side evaluation metrics (numpy, float64): pose errors and the
+detection protocol's AP / AVP / ARP (the JAX package's exports)."""
 
 from multi_modal_regression_tpu_torch.metrics.pose_error import (
     geodesic_error_deg,
@@ -10,6 +9,11 @@ from multi_modal_regression_tpu_torch.metrics.pose_error import (
     pose_error_stats,
     quaternion_error_deg,
 )
+from multi_modal_regression_tpu_torch.metrics.detection import (
+    box_overlap,
+    compute_detection_metrics,
+    voc_ap,
+)
 
 __all__ = [
     "geodesic_error_deg",
@@ -18,4 +22,7 @@ __all__ = [
     "mean_class_median_error",
     "mean_class_accuracy",
     "per_class_report",
+    "voc_ap",
+    "box_overlap",
+    "compute_detection_metrics",
 ]

@@ -914,3 +914,109 @@ def test_packed_loaders_feed_run_epoch_on_the_card(dev, tmp_path):
     assert all(np.isfinite(r["loss"]) for r in t.history) and len(t.history) == 3
     n0 = preprocess.launches
     assert np.isfinite(t.evaluate(state, test)) and preprocess.launches - n0 == len(test)
+
+
+# --- the detection protocol and the parity gate on the card ------------------------
+
+
+def _det_set(root, n_images=6):
+    """A 32 px detector crop set of 3 classes (tools/synthetic)."""
+    from multi_modal_regression_tpu_torch.detection import DetectionSetIndex
+    from multi_modal_regression_tpu_torch.tools.synthetic import generate_detection_set
+
+    generate_detection_set(root, num_images=n_images, max_boxes=3, image_size=32,
+                           num_classes=3, seed=3)
+    return DetectionSetIndex(str(root))
+
+
+def test_detection_inference_on_the_card(dev, tmp_path, monkeypatch):
+    """run_detection_inference on the card at batch 4: one normalize launch
+    a batch; in f32 with TF32 off, poses within 1e-4 of the plain path (the
+    plain normalize on the card, same weights) and within 1e-3 of the CPU;
+    a bf16 model gives finite poses of the same layout."""
+    from multi_modal_regression_tpu_torch.detection import run_detection_inference
+    from multi_modal_regression_tpu_torch.train import steps
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    index = _det_set(tmp_path / "set")
+    n = sum(len(index.load_image(i)["labels"]) for i in range(len(index))
+            if index.load_image(i) is not None)
+    centers = np.random.default_rng(1).standard_normal((8, 3)).astype(np.float32)
+    cfg = get_config("geodesic_bd", compute_dtype="float32", **_EVAL_SMALL)
+    card = Trainer(cfg, dictionary=centers, device=dev)
+    cpu = Trainer(cfg, dictionary=centers, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    n0 = preprocess.launches
+    got = run_detection_inference(card.model, card.problem, index, batch_size=4)
+    assert preprocess.launches - n0 == -(-n // 4) and n > 4
+    want = run_detection_inference(cpu.model, cpu.problem, index, batch_size=4)
+    with monkeypatch.context() as m:
+        m.setattr(steps, "normalize_images_cuda", normalize_images)
+        n0 = preprocess.launches
+        plain = run_detection_inference(card.model, card.problem, index, batch_size=4)
+        assert preprocess.launches == n0
+    for g, p, w in zip(got[1], plain[1], want[1], strict=True):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, p, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-3)
+    for k in (0, 2, 3):
+        for g, w in zip(got[k], want[k], strict=True):
+            np.testing.assert_array_equal(g, w)
+    bf16 = Trainer(cfg.replace(compute_dtype="bfloat16"), dictionary=centers, device=dev)
+    out = run_detection_inference(bf16.model, bf16.problem, index, batch_size=4)
+    for g, w in zip(out[1], want[1], strict=True):
+        assert g.shape == w.shape and np.isfinite(g).all()
+
+
+def test_verify_parity_on_the_card(dev, tmp_path):
+    """`cli verify-parity` on the card at the CPU test's tiny settings
+    (ResNet18, K 4, 32 px, 2 steps an epoch) over a synthesized release and
+    a maskrcnn-protocol detection set: exit 0, five stages with finite
+    numbers; the normalize kernel launched in every step and eval batch and
+    the assign kernel n_init x (num_iters + 1) = 404 times by the
+    dictionary fit; a second run reuses every artifact, fits nothing and
+    writes the same stages."""
+    import json
+
+    from multi_modal_regression_tpu_torch import cli
+    from multi_modal_regression_tpu_torch.tools.ingest import (
+        load_annotations_for_images,
+        read_image_set,
+    )
+    from multi_modal_regression_tpu_torch.tools.synthetic import generate_pascal3d_release
+
+    classes = ("aeroplane", "bicycle", "boat")
+    db, voc = generate_pascal3d_release(tmp_path / "release", classes=classes)
+    names = read_image_set(voc / "ImageSets" / "Main" / "val.txt")
+    for cls in classes:
+        rows = [f"{n} {a.bbox[0]} {a.bbox[1]} {a.bbox[2]} {a.bbox[3]} 0.9" for n in names
+                for a in load_annotations_for_images(db / "Annotations" / f"{cls}_pascal",
+                                                     [n])[0] or ()]
+        (tmp_path / f"results_{cls}.txt").write_text("\n".join(rows) + "\n")
+    assert cli.main(["prepare-detections", "--detector", "maskrcnn", "--det-source",
+                     str(tmp_path), "--images-dir", str(voc / "JPEGImages"), "--image-set",
+                     str(voc / "ImageSets" / "Main" / "val.txt"), "--out",
+                     str(tmp_path / "det_set"), "--image-size", "32"]) == 0
+    args = ["verify-parity", "--data-root", str(tmp_path / "prepared"), "--det-path",
+            str(tmp_path / "det_set"), "--annotations", str(db / "Annotations"),
+            "--workdir", str(tmp_path / "gate"), "--classes", ",".join(classes),
+            "--feature-network", "resnet18", "--N0", "512", "--N1", "16", "--N2", "8",
+            "--dict-size", "4", "--image-size", "32", "--items-per-batch", "1",
+            "--max-iterations", "2", "--num-epochs", "1", "--num-warmup-epochs", "1",
+            "--eval-num-epochs", "1", "--num-workers", "2"]
+    n0, a0 = preprocess.launches, assign.launches
+    assert cli.main([*args, "--db-path", str(db), "--voc-dir", str(voc)]) == 0
+    table = json.loads((tmp_path / "gate" / "parity.json").read_text())
+    assert set(table["stages"]) == {"prepare_data", "dictionary", "train", "evaluate",
+                                    "detections"}
+    assert np.isfinite(table["stages"]["evaluate"]["ensembled_med_err_deg"])
+    assert all(np.isfinite(v) for row in table["stages"]["detections"].values()
+               for v in row.values() if not isinstance(v, str))
+    assert preprocess.launches - n0 >= 4 + 2 + 3 and assign.launches - a0 == 404
+    n0, a0 = preprocess.launches, assign.launches
+    assert cli.main(args) == 0
+    again = json.loads((tmp_path / "gate" / "parity.json").read_text())
+    for k in ("dictionary", "train", "evaluate", "detections"):
+        assert again["stages"][k] == table["stages"][k], k
+    assert assign.launches == a0 and preprocess.launches - n0 >= 1

@@ -305,7 +305,11 @@ SMALL_FLAGS = ["--feature-network", "resnet18", "--feature-layer", "layer2", "--
 
 def _args(cmd: str, root: Path, *extra: str) -> list[str]:
     """The command's arguments on the small tree; `pack` takes no
-    dictionary and no device."""
+    dictionary and no device; `verify-parity` no preset, dictionary or
+    cache flag."""
+    if cmd == "verify-parity":
+        return [cmd, "--data-root", str(root / "data"), *SMALL_FLAGS, "--workdir",
+                str(root / "gate"), "--device", "cpu", *extra]
     model = [] if cmd == "pack" else ["--dictionary", str(root / "kmeans.npz"),
                                       "--device", "cpu"]
     return [cmd, "--preset", "geodesic_bd", "--data-root", str(root / "data"), *model,
@@ -392,13 +396,13 @@ def test_cli_predict(trained, protocol):
 
 
 @pytest.mark.parametrize("cmd,flag", [
-    ("predict", ["--analysis"]), ("predict", ["--det-path", "d"]),
+    ("predict", ["--analysis"]), ("verify-parity", ["--compile-cache", "off"]),
     ("predict", ["--analysis-names", "pose"]), ("evaluate", ["--distributed"]),
     ("predict", ["--coordinator-address", "localhost:1"]), ("pack", ["--compile-cache", "off"]),
 ], ids=lambda f: f if isinstance(f, str) else f[0])
 def test_cli_refuses_what_is_not_ported(cli_tree, cmd, flag):
-    """The joint-model analysis, the detector crops, multi-host runs and the
-    compile cache raise NotImplementedError naming ROADMAP.md."""
+    """The joint-model analysis, multi-host runs and the compile cache (of
+    the gate too) raise NotImplementedError naming ROADMAP.md."""
     with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP.md\)"):
         cli.main(_args(cmd, cli_tree, *flag))
 
