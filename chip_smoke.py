@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: its kernels, serving, training,
-evaluation and the quality-parity gate.
+evaluation, the quality-parity gate and the single-model pose zoo.
 
     python3 chip_smoke.py
 
@@ -148,9 +148,37 @@ line each (or more), in order:
      run_detection_inference's kernel path against its plain path (the
      plain normalize on the card) from that checkpoint, bf16 within
      SERVE_RTOL and f32 with TF32 off within 1e-4
+  13 the single-model pose zoo at full width (ResNet50 to layer4, N0 2048,
+     N1 1000, N2 500, N3 100, each preset's K of 200, 100 or 16, 12
+     classes, 224 px, bf16, 2 x 4 items x 12 classes = 96 images a step):
+     K 16 and K 100 kmeans dictionaries fitted on the card from [7]'s
+     2,000,000 poses at [7]'s depth cut (exactly 11 assign launches each),
+     beside [7]'s K 200 kmeans and GMM; Trainer.fit of each of the 19
+     presets the zoo adds, 1 warm-up + 1 main step (2 main epochs of 1
+     step for a single-phase preset, so its 'step' decay moves the rate),
+     stem_pool 'kernel' for the bin-delta kinds and None for the
+     models/pose kinds: per step exactly 1 normalize, 2 stem and 2 stem
+     backward launches (0 and 0 for the models/pose kinds), no assign
+     launch, finite metrics, Lc nonzero but for the regression problems, Lr
+     nonzero but for classification, each step's rate, every running
+     statistic moved, riemannian_bd's warm-up s carried into its main step;
+     8 of them (ZOO_COMPARE: each new model kind and problem family) again
+     through the plain path from the same weights within TRAIN_TOL, then
+     one 64-image request served from the trained model through
+     make_inference_fn against the plain path within SERVE_RTOL;
+     geodesic_bd_multires' peak memory, its head bank's per-forward bf16
+     cast and product (CUDA events), and its main step against [5]'s
+     geodesic_bd step in 5 interleaved pairs (host clock); `cli train
+     --preset geodesic_bd_quaternion` and `--preset geodesic_regression`
+     (no --dictionary) as two subprocesses at once over [10]'s trees (1 +
+     1 epochs of 2 steps): exit 0, finite MedErrs; `cli evaluate
+     --checkpoint final --eval-num-epochs 1` of the quaternion run in this
+     process: its ensembled MedErr within 1e-6 deg of the one recomputed
+     from the snapshot file
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
-     rate of their type), then the result line
+     rate of their type; `zoo_launches` their launches in [13]), then the
+     result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 With --profile, [6] also prints the device-time table (torch.profiler) of 3
@@ -236,6 +264,8 @@ from multi_modal_regression_tpu_torch.train.presets import (  # noqa: E402
     build_problem,
     get_config,
 )
+from multi_modal_regression_tpu_torch.train.problems import DICTIONARY_FREE  # noqa: E402
+from multi_modal_regression_tpu_torch.train.schedules import epoch_lr_factor  # noqa: E402
 from multi_modal_regression_tpu_torch.train.state import TrainState  # noqa: E402
 from multi_modal_regression_tpu_torch.train.trainer import Trainer, _interleave  # noqa: E402
 
@@ -271,6 +301,12 @@ TRAIN_TOL = 0.15
 # whose Lr is an expectation under the softmax with no argmax, is held to
 # TRAIN_TOL throughout (measured 0.24%).
 SOFT_DECODE_TOL = 0.3
+# [13]'s problems whose main-phase Lr is taken at the argmax bin of nearly
+# flat scores after one step, held like relaxed_bd's at SOFT_DECODE_TOL:
+# log_euclidean regresses the residual target of the PREDICTED bin, so a
+# flipped bin swaps the target itself (measured on an H100: Lr 19.8% apart on
+# its second step, the first step's metrics equal)
+ARGMAX_TARGET_PROBLEMS = ("log_euclidean",)
 # Fused conv+BN kernels vs their plain versions. Both feed the same bf16
 # operands to their products and differ in the order of the float32
 # accumulation: y and dx at most 1 bf16 ulp apart on under 1% of the
@@ -2357,6 +2393,382 @@ def phase_gate(dev, smi: str, tmp: Path) -> dict:
             "predict_normalize": pred_counts["normalize"], "worst": worst}
 
 
+# --- [13] the single-model pose zoo ----------------------------------------------------
+
+# the 19 presets this slice ports, in ROADMAP order (4.1-4.5)
+ZOO_PRESETS = (
+    "simple_bd", "euclidean_bd", "laplacian_bd", "riemannian_bd", "log_euclidean_bd",
+    "geodesic_bd_quaternion", "probabilistic_bd_quaternion", "geodesic_bd_multires",
+    "probabilistic_bd_multires", "probabilistic_bd_quaternion_multires", "classification",
+    "geodesic_regression", "geodesic_regression_quaternion", "independent_regression",
+    "independent_bd", "rendered_bd", "ablation_geodesic_bd", "ablation_gbd_augmentation",
+    "ablation_c0",
+)
+# one preset of each new model kind and each new problem family: the same steps
+# through the plain path, then one request served both ways
+ZOO_COMPARE = (
+    "geodesic_bd_multires", "probabilistic_bd_multires", "geodesic_regression_quaternion",
+    "classification", "independent_regression", "independent_bd", "riemannian_bd",
+    "log_euclidean_bd",
+)
+# the model kinds whose trunk takes the stem kernels (the models/pose kinds
+# have no stem option, in the JAX package either)
+BD_KINDS = ("one_bin_delta", "one_delta_per_bin", "probabilistic")
+
+
+def zoo_config(preset: str):
+    """Full width, bf16, 4 items a class a stream, 2 steps: 1 warm-up + 1 main
+    step, or 2 main epochs of 1 step for a single-phase preset (so the 'step'
+    decay moves the rate)."""
+    base = get_config(preset)
+    warm = base.num_warmup_epochs > 0
+    return get_config(
+        preset, compute_dtype="bfloat16", items_per_batch=4, max_iterations=1,
+        stem_pool="kernel" if base.model_kind in BD_KINDS else None,
+        num_warmup_epochs=1 if warm else 0, num_epochs=1 if warm else 2,
+    )
+
+
+def zoo_outputs(model, problem, images, labels, dev, kernel: bool):
+    """(raw outputs as a tuple, poses) of one bf16 request through the kernel
+    path (normalize kernel, the model as built) or the plain path."""
+    norm = preprocess.normalize_images_cuda if kernel else normalize_images
+    with torch.inference_mode():
+        x = norm(torch.from_numpy(images).to(dev), torch.bfloat16)
+        out = model(x, torch.from_numpy(labels).to(dev))
+        return (out if isinstance(out, tuple) else (out,)), problem.decode(out)
+
+
+def zoo_compare(tag: str, kern, plain, poses_served, cfg, rtol: float) -> float:
+    """Raw outputs everywhere within rtol of their largest magnitude; the
+    served poses against the plain path's on every row for the regression
+    kinds, else on the rows whose top-2 bin-score margin exceeds rtol of the
+    largest score (a near tie may pick another bin)."""
+    (outs_k, _), (outs_p, poses_p) = kern, plain
+    worst = 0.0
+    for k, p in zip(outs_k, outs_p, strict=True):
+        err = float((k - p).abs().max())
+        if not err <= rtol * float(p.abs().max()):
+            raise AssertionError(f"[13] {tag} outputs: max err {err:.3g}")
+        worst = max(worst, err)
+    if cfg.problem.startswith("regression"):
+        clear = torch.ones(len(poses_p), dtype=torch.bool, device=poses_p.device)
+    else:
+        s = outs_p[0]
+        top2 = torch.topk(s, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > rtol * float(s.abs().max())
+    perr = float((poses_served[clear] - poses_p[clear]).abs().max()) if clear.any() else 0.0
+    if not perr <= rtol * max(float(poses_p.abs().max()), 1.0):
+        raise AssertionError(f"[13] {tag} served poses: max err {perr:.3g}")
+    print(f"[13] {tag}: one 64-image request through make_inference_fn against the plain path: "
+          f"outputs max err {worst:.3g}, poses {tuple(poses_p.shape)} max err {perr:.3g} on "
+          f"{int(clear.sum())}/{len(clear)} rows (rtol {rtol:g} of max)")
+    return worst
+
+
+def zoo_dictionaries(dev, smi: str, kmeans_200, gmm) -> tuple[dict, int]:
+    """K 16 and K 100 kmeans dictionaries fitted on the card from [7]'s
+    poses at [7]'s depth cut; [7]'s K 200 kmeans and GMM beside them.
+    Returns them and the assign launches of the two fits."""
+    y = make_poses(2_000_000, dev)
+    fits, launches = {}, 0
+    expect = KMEANS_CUT["n_init"] * (KMEANS_CUT["num_iters"] + 1)
+    for k in (16, 100):
+        assign.launches = 0
+        t0 = time.perf_counter()
+        fits[k] = fit_kmeans(y, k, seed=0, device=dev, **KMEANS_CUT)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        c = fits[k].cluster_centers
+        if assign.launches != expect or c.shape != (k, 3) or not np.isfinite(c).all():
+            raise AssertionError(f"[13] K {k} fit: {assign.launches} assign launches, "
+                                 f"centers {c.shape}")
+        launches += assign.launches
+        print(f"[13] fit_kmeans K {k} over {len(y)} poses ({KMEANS_CUT}): {fit_s:.3f} s on "
+              f"{smi}, inertia {fits[k].inertia:.2f}, assign launches {assign.launches} = "
+              f"n_init * (num_iters + 1)")
+    del y
+    torch.cuda.empty_cache()
+    return {16: fits[16], 100: fits[100], 200: kmeans_200, "gmm": gmm}, launches
+
+
+def zoo_dictionary(cfg, dicts):
+    if cfg.problem in DICTIONARY_FREE:
+        return None
+    if cfg.problem in ("probabilistic", "probabilistic_multires"):
+        return dicts["gmm"]
+    return dicts[cfg.dict_size]
+
+
+def zoo_checks(preset: str, cfg, hist, launches: dict, before: dict, after: dict) -> None:
+    """Exact launches, finite metrics, the terms that must be nonzero, the
+    rate of each step, every running statistic moved, riemannian's carried s."""
+    n = len(hist)
+    bd = cfg.model_kind in BD_KINDS
+    want = {**{k: 0 for k in launches}, "normalize": n,
+            "stem_pool": 2 * n if bd else 0, "stem_pool_bwd": 2 * n if bd else 0}
+    if n != 2 or launches != want:
+        raise AssertionError(f"[13] {preset}: {n} steps, launches {launches}, expected {want}")
+    for rec in hist:
+        if not all(np.isfinite(rec[k]) for k in ("loss", "lc", "lr", "s", "alpha")):
+            raise AssertionError(f"[13] {preset}: non-finite metrics {rec}")
+        if (rec["lc"] != 0) != (not cfg.problem.startswith("regression")):
+            raise AssertionError(f"[13] {preset}: lc {rec['lc']} (problem {cfg.problem})")
+        if (rec["lr"] != 0) != (cfg.problem != "classification"):
+            raise AssertionError(f"[13] {preset}: lr {rec['lr']} (problem {cfg.problem})")
+    epochs = [0] * cfg.num_warmup_epochs + [e + 1 for e in range(cfg.num_epochs)]
+    rates = [cfg.init_lr * (epoch_lr_factor(cfg.epoch_lr_decay, e) if cfg.epoch_lr_decay
+                            else 1.0) for e in epochs]
+    if not np.allclose([r["learning_rate"] for r in hist], rates, rtol=1e-12):
+        raise AssertionError(f"[13] {preset}: rates {[r['learning_rate'] for r in hist]}")
+    stuck = [k for k in before if torch.equal(before[k], after[k])]
+    if stuck:
+        raise AssertionError(f"[13] {preset}: running statistics that did not move: {stuck[:5]}")
+    if preset == "riemannian_bd":
+        # the main step's loss takes the warm-up's s: Lc + exp(-s) Lr + s
+        w, m = hist
+        carried = m["lc"] + np.exp(-w["s"]) * m["lr"] + w["s"]
+        if not (w["s"] != 0 and abs(m["loss"] - carried) <= 1e-3 * abs(m["loss"])
+                and abs(m["loss"] - (m["lc"] + m["lr"])) > 1e-3 * abs(m["loss"])):
+            raise AssertionError(f"[13] riemannian_bd: s not carried: {hist}")
+        print(f"[13] riemannian_bd carries s = {w['s']:.5f} into its main step: loss "
+              f"{m['loss']:.5f} = Lc + exp(-s) Lr + s = {carried:.5f} (Lc + Lr = "
+              f"{m['lc'] + m['lr']:.5f})")
+
+
+def zoo_plain(preset, cfg, dictionary, init_sd, real, render, hist, dev) -> Trainer:
+    """The same steps through the plain path from the same weights, held
+    within TRAIN_TOL of the kernel path's metrics."""
+    plain = Trainer(cfg.replace(stem_pool="plain" if cfg.stem_pool else None),
+                    dictionary=dictionary, device=dev)
+    plain.model.load_state_dict(init_sd)
+    with plain_normalize():
+        plain.fit(plain.init_state(), real, render, log_every=1)
+    torch.cuda.synchronize()
+    worst = worst_argmax = 0.0
+    for i, (rk, rp) in enumerate(zip(hist, plain.history, strict=True)):
+        for k in ("loss", "lc", "lr", "s", "alpha"):
+            if rk[k] == rp[k]:
+                continue
+            err = abs(rk[k] - rp[k]) / (1.0 if k == "s" else abs(rp[k]))
+            if cfg.problem in ARGMAX_TARGET_PROBLEMS and i > 0 and k in ("loss", "lr", "alpha"):
+                limit, worst_argmax = SOFT_DECODE_TOL, max(worst_argmax, err)
+            else:
+                limit, worst = TRAIN_TOL, max(worst, err)
+            if not err <= limit:
+                raise AssertionError(f"[13] {preset} step {rk['step']} {k}: kernel {rk[k]} "
+                                     f"plain {rp[k]}")
+    print(f"[13] {preset} kernel vs plain path, {len(hist)} steps from the same weights: "
+          f"worst metric difference {worst:.3g} (<= {TRAIN_TOL})"
+          + (f", the second step's loss, Lr and alpha through the argmax bin's target "
+             f"{worst_argmax:.3g} (<= {SOFT_DECODE_TOL})" if worst_argmax else "") + "; "
+          + "; ".join(f"step {rk['step']} {rk['phase']} loss {rk['loss']:.5f} / "
+                      f"{rp['loss']:.5f}" for rk, rp in zip(hist, plain.history)))
+    return plain
+
+
+def zoo_multires_cost(dev, smi: str, multires: Trainer, dictionary, real, render) -> dict:
+    """The largest head bank (geodesic_bd_multires: 12 x 200 delta heads of
+    2048 -> 100 -> 3): its main step against [5]'s geodesic_bd step on the
+    same 96-image batch in interleaved pairs (host clock, synchronized), and
+    the head bank's per-forward bf16 copy and product."""
+    cfg = get_config("geodesic_bd", compute_dtype="bfloat16", stem_pool="kernel",
+                     items_per_batch=4, max_iterations=1)
+    base = Trainer(cfg, dictionary=dictionary, device=dev)
+    batch = multires._to_device(next(_interleave(real, render)))
+    n_img = len(batch["label"])
+    step_m = multires.train_step_fn("main", dual_stream=True)
+    step_b = base.train_step_fn("main", dual_stream=True)
+    state_m, state_b = multires.init_state(), base.init_state()
+    state_m, _ = timed_steps(step_m, state_m, batch, 2)
+    state_b, _ = timed_steps(step_b, state_b, batch, 2)
+    t_m, t_b = [], []
+    for i in range(5):
+        for which in (("m", "b") if i % 2 == 0 else ("b", "m")):
+            if which == "m":
+                state_m, t = timed_steps(step_m, state_m, batch, 1)
+                t_m += t
+            else:
+                state_b, t = timed_steps(step_b, state_b, batch, 1)
+                t_b += t
+    bank = multires.model.res_models
+    w = bank.fc1_kernel
+    feat = torch.randn(n_img // 2, w.shape[1], device=dev, dtype=torch.bfloat16)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    cast_ms = cuda_ms(lambda: w.to(torch.bfloat16), flush, reps=10, held=True)
+    wb = w.to(torch.bfloat16)
+    mm_ms = cuda_ms(lambda: torch.matmul(feat, wb), flush, reps=10, held=True)
+    n_params = sum(p.numel() for p in bank.parameters())
+    med_m, med_b = statistics.median(t_m), statistics.median(t_b)
+    print(f"[13] geodesic_bd_multires head bank: {w.shape[0]} heads, res_models "
+          f"{n_params / 1e6:.1f} M parameters ({4 * n_params / 2**30:.2f} GiB float32 master "
+          f"weights); per forward its fc1 kernel {tuple(w.shape)} is cast to bf16 "
+          f"({2 * w.numel() / 2**30:.2f} GiB) in {cast_ms:.3f} ms and multiplied by a "
+          f"({n_img // 2}, {w.shape[1]}) stream as a broadcast batched product in {mm_ms:.3f} ms "
+          f"(device time: CUDA events, L2 flushed, medians of 10); 2 forwards a dual-stream "
+          f"step; {smi}")
+    print(f"[13] bf16 main train step, {n_img} images, 5 interleaved pairs (host clock): "
+          f"geodesic_bd_multires median {med_m * 1e3:.3f} ms = {n_img / med_m:.1f} img/s "
+          f"(min {min(t_m) * 1e3:.3f}, max {max(t_m) * 1e3:.3f}); [5]'s geodesic_bd median "
+          f"{med_b * 1e3:.3f} ms = {n_img / med_b:.1f} img/s (min {min(t_b) * 1e3:.3f}, max "
+          f"{max(t_b) * 1e3:.3f}); {smi}")
+    del base, state_b, step_b, wb, feat, flush
+    torch.cuda.empty_cache()
+    return {"step_ms": med_m * 1e3, "base_step_ms": med_b * 1e3, "cast_ms": cast_ms,
+            "mm_ms": mm_ms}
+
+
+def zoo_cli(dev, smi: str, user: dict, tmp: Path) -> None:
+    """`cli train` of geodesic_bd_quaternion and of geodesic_regression (no
+    --dictionary) over [10]'s trees, both subprocesses at once; then `cli
+    evaluate` of the quaternion run's `final` in this process."""
+    root = Path(__file__).resolve().parent
+    args, data = user["args"], user["data"]
+    npz = args[args.index("--dictionary") + 1]
+    common = ["--data-root", str(data), "--compute-dtype", "bfloat16", "--items-per-batch",
+              "4"]
+    cut = ["--num-warmup-epochs", "1", "--num-epochs", "1", "--max-iterations", "2"]
+    runs = {
+        "geodesic_bd_quaternion": ["--dictionary", npz, *common, *cut],
+        "geodesic_regression": [*common, *cut],
+    }
+    t0 = time.perf_counter()
+    procs = {
+        p: subprocess.Popen([sys.executable, "-m", f"{PORT}.cli", "train", "--preset", p, *a,
+                             "--workdir", str(tmp / f"zoo_{p}")], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for p, a in runs.items()
+    }
+    outs = {}
+    for p, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            raise
+        if proc.returncode != 0:
+            raise AssertionError(f"[13] cli train {p} exited {proc.returncode}:\n{out}{err}")
+        outs[p] = out
+    wall = time.perf_counter() - t0
+    meds = {p: float(o.split("final MedErr ")[1].split()[0]) for p, o in outs.items()}
+    saved = torch.load(tmp / "zoo_geodesic_bd_quaternion" / "checkpoints" / "final",
+                       map_location="cpu", weights_only=True)
+    if not (all(np.isfinite(m) for m in meds.values()) and saved["step"] == 4
+            and saved["config"]["problem"] == "geodesic_quat"):
+        raise AssertionError(f"[13] cli train: MedErrs {meds}, step {saved['step']}")
+    print(f"[13] cli train --preset geodesic_bd_quaternion and --preset geodesic_regression "
+          f"(no --dictionary), two subprocesses at once over [10]'s trees (1 warm-up + 1 "
+          f"main epoch of 2 steps): both exit 0 in {wall:.1f} s wall; final MedErr (the "
+          f"quaternion error) {meds['geodesic_bd_quaternion']:.3f} deg, regression "
+          f"{meds['geodesic_regression']:.3f} deg; {smi}")
+    eval_args = ["evaluate", "--preset", "geodesic_bd_quaternion", "--dictionary", npz,
+                 *common, "--workdir", str(tmp / "zoo_geodesic_bd_quaternion"),
+                 "--checkpoint", "final", "--eval-num-epochs", "1"]
+    seen = []
+    ensemble = SnapshotEnsembleEvaluator.ensemble
+
+    def spy(self):
+        seen.append(ensemble(self))
+        return seen[-1]
+
+    SnapshotEnsembleEvaluator.ensemble = spy
+    try:
+        with tee_stdout():
+            if cli.main(eval_args) != 0:
+                raise AssertionError("[13] cli evaluate failed")
+    finally:
+        SnapshotEnsembleEvaluator.ensemble = ensemble
+    res = tmp / "zoo_geodesic_bd_quaternion" / "results_run"
+    snaps = []
+    for f in sorted(res.glob("num*.npz")):
+        with np.load(f) as z:
+            snaps.append({k: z[k] for k in z.files})
+    ens = mean_class_median_error(
+        snaps[0]["ytest"], ensemble_poses([z["yhat_test"] for z in snaps], "quaternion"),
+        snaps[0]["test_labels"], 12, representation="quaternion")
+    if not (snaps and snaps[0]["yhat_test"].shape[1] == 4 and len(seen) == 1
+            and abs(seen[0][0] - ens) <= 1e-6):
+        raise AssertionError(f"[13] cli evaluate: {len(snaps)} snapshots, run {seen}, "
+                             f"recomputed {ens}")
+    print(f"[13] cli evaluate --preset geodesic_bd_quaternion --checkpoint final "
+          f"--eval-num-epochs 1 (this process): {len(snaps)} snapshot of quaternions "
+          f"{snaps[0]['yhat_test'].shape}; ensembled MedErr {seen[0][0]:.6f} deg, from the "
+          f"files {ens:.6f} (<= 1e-6 deg)")
+
+
+def phase_zoo(dev, smi: str, kmeans_200, gmm, user: dict, tmp: Path) -> dict:
+    """[13]: the 19 presets of the single-model pose zoo at full width."""
+    dicts, assign_launches = zoo_dictionaries(dev, smi, kmeans_200, gmm)
+    rng = np.random.default_rng(13)
+    real, render = (make_loader(rng, 1, 4, 224, 12) for _ in range(2))
+    totals = {k: 0 for k in read_counts()}
+    serve_launches = {}
+    multires = None
+    t_all = time.perf_counter()
+    for preset in ZOO_PRESETS:
+        cfg = zoo_config(preset)
+        dictionary = zoo_dictionary(cfg, dicts)
+        t0 = time.perf_counter()
+        kern = Trainer(cfg, dictionary=dictionary, device=dev)
+        build_s = time.perf_counter() - t0
+        init_sd = ({k: v.clone() for k, v in kern.model.state_dict().items()}
+                   if preset in ZOO_COMPARE else None)
+        before = bn_stats(kern.model)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        assign.launches = 0
+        t0 = time.perf_counter()
+        kern.fit(kern.init_state(), real, render, log_every=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = read_counts()
+        if assign.launches:
+            raise AssertionError(f"[13] {preset}: {assign.launches} assign launches in its steps")
+        hist = kern.history
+        zoo_checks(preset, cfg, hist, launches, before, bn_stats(kern.model))
+        for k, v in launches.items():
+            totals[k] += v
+        n_params = sum(p.numel() for p in kern.model.parameters())
+        print(f"[13] {preset} ({cfg.model_kind}, {cfg.problem}, K {cfg.dict_size}, ndim "
+              f"{cfg.ndim}, stem_pool {cfg.stem_pool}): {n_params / 1e6:.1f} M parameters, built "
+              f"in {build_s:.1f} s; {len(hist)} steps in {fit_s:.2f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, peak {peak:.2f} GiB; "
+              + "; ".join(f"{r['phase']} lr {r['learning_rate']:.3g}: loss {r['loss']:.4f} "
+                          f"lc {r['lc']:.4f} lr {r['lr']:.4f}" for r in hist))
+        if preset == "geodesic_bd_multires":
+            multires = {"peak_gib": peak, "params_m": n_params / 1e6}
+            multires.update(zoo_multires_cost(dev, smi, kern, dicts[200], real, render))
+            print(f"[13] geodesic_bd_multires peak device memory during its fit: {peak:.2f} GiB "
+                  f"({n_params / 1e6:.1f} M parameters, Adam mu {cfg.optimizer_dtype}); {smi}")
+        if preset in ZOO_COMPARE:
+            plain = zoo_plain(preset, cfg, dictionary, init_sd, real, render, hist, dev)
+            plain.model.load_state_dict(kern.model.state_dict())
+            images, labels = make_requests(np.random.default_rng(14), (64,), 224, 12)[0]
+            infer = make_inference_fn(kern.model, kern.problem)
+            reset_counts()
+            served = infer(images, labels)
+            torch.cuda.synchronize()
+            serve_launches[preset] = {k: v for k, v in read_counts().items() if v}
+            bd = cfg.model_kind in BD_KINDS
+            want = {"normalize": 1, **({"stem_pool": 1} if bd else {})}
+            if serve_launches[preset] != want:
+                raise AssertionError(f"[13] {preset} serve launches {serve_launches[preset]}")
+            kern_out = zoo_outputs(kern.model, kern.problem, images, labels, dev, True)
+            plain_out = zoo_outputs(plain.model, plain.problem, images, labels, dev, False)
+            zoo_compare(preset, kern_out, plain_out, served, cfg, SERVE_RTOL[torch.bfloat16])
+            del plain, init_sd
+        del kern
+        torch.cuda.empty_cache()
+    print(f"[13] 19 presets trained, {len(ZOO_COMPARE)} of them against the plain path and "
+          f"served, in {time.perf_counter() - t_all:.1f} s; launches over the 38 steps "
+          f"{ {k: v for k, v in totals.items() if v} } and assign {assign_launches} for the "
+          f"two dictionary fits; {smi}")
+    zoo_cli(dev, smi, user, tmp)
+    return {**totals, "assign": assign_launches, "multires": multires}
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2381,11 +2793,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         user = phase_user_command(dev, smi, kmeans_dict, train, Path(tmp))
         eval_launches = phase_packed_eval(dev, smi, kmeans_dict, user)
-    with tempfile.TemporaryDirectory() as tmp:
-        gate = phase_gate(dev, smi, Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp_gate:
+            gate = phase_gate(dev, smi, Path(tmp_gate))
+        zoo = phase_zoo(dev, smi, kmeans_dict, gmm_dict, user, Path(tmp))
     # launches: each kernel's count over the 4 steps of its training path
     # ([5] unfused, [6] fused) or over the dictionary path's fit, predict and
-    # residuals ([7]); serving's counts are in [4], the gate's in [12]
+    # residuals ([7]); serving's counts are in [4], the gate's in [12]; the
+    # zoo's ([13]: the 38 steps of its 19 fits, and its two dictionary fits)
+    # in zoo_launches
     fused_src = f"{PORT}/csrc/fused_%s.cu"
     fused_at = f"{JAX_PACKAGE}/ops/fused_conv_bn.py:%d"
     kernels = [
@@ -2397,27 +2812,35 @@ def main() -> None:
          "cli_train_resume_launches": user["launches"],
          "cli_evaluate_launches": eval_launches,
          "verify_parity_launches": gate["normalize"],
-         "predict_det_path_launches": gate["predict_normalize"], **norm},
+         "predict_det_path_launches": gate["predict_normalize"],
+         "zoo_launches": zoo["normalize"], **norm},
         {"name": "stem_pool", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:162",
          "launches": train["launches"]["stem_pool"],
-         "serving_launches": serve["launches"]["stem_pool"], **stem},
+         "serving_launches": serve["launches"]["stem_pool"],
+         "zoo_launches": zoo["stem_pool"], **stem},
         {"name": "stem_pool_bwd", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:186",
-         "launches": train["launches"]["stem_pool_bwd"], **stem_bwd},
+         "launches": train["launches"]["stem_pool_bwd"],
+         "zoo_launches": zoo["stem_pool_bwd"], **stem_bwd},
         {"name": "mm_stats", "route": "cuda", "source": fused_src % "mm",
-         "replaces": fused_at % 215, "launches": fused["launches"]["mm"], **mm},
+         "replaces": fused_at % 215, "launches": fused["launches"]["mm"],
+         "zoo_launches": zoo["mm"], **mm},
         {"name": "mm_stats_bwd", "route": "cuda", "source": fused_src % "mm",
-         "replaces": fused_at % 447, "launches": fused["launches"]["mm_bwd"], **mm_bwd},
+         "replaces": fused_at % 447, "launches": fused["launches"]["mm_bwd"],
+         "zoo_launches": zoo["mm_bwd"], **mm_bwd},
         {"name": "c3_fwd", "route": "cuda", "source": fused_src % "c3",
-         "replaces": fused_at % 805, "launches": fused["launches"]["c3"], **c3},
+         "replaces": fused_at % 805, "launches": fused["launches"]["c3"],
+         "zoo_launches": zoo["c3"], **c3},
         {"name": "c3_bwd", "route": "cuda", "source": fused_src % "c3",
-         "replaces": fused_at % 878, "launches": fused["launches"]["c3_bwd"], **c3_bwd},
+         "replaces": fused_at % 878, "launches": fused["launches"]["c3_bwd"],
+         "zoo_launches": zoo["c3_bwd"], **c3_bwd},
         {"name": "assign", "route": "cuda", "source": f"{PORT}/csrc/assign.cu",
          "replaces": f"{JAX_PACKAGE}/ops/assign.py:45", "launches": assign_launches,
-         "verify_parity_launches": gate["assign"], **assign_rec},
+         "verify_parity_launches": gate["assign"], "zoo_launches": zoo["assign"],
+         **assign_rec},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

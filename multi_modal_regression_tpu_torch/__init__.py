@@ -6,27 +6,28 @@ library, and on the host side PIL and scipy (image files, `.mat` files):
 never JAX, flax, optax, orbax or the JAX package, so it runs on a machine
 that has none of them.
 
-What is ported so far: the `geodesic_bd` serving and training paths, the
-pose-dictionary path that comes before every bin-delta training run, the
-soft-bin presets that train on those dictionaries, and the chain from a
-raw release through the detection metrics to the quality-parity gate:
+What is ported so far: the serving and training paths of the single-model
+pose zoo (23 of the JAX package's 42 presets), the pose-dictionary path
+that comes before every bin-delta training run, and the chain from a raw
+release through the detection metrics to the quality-parity gate:
 
 data        ImageNet constants, plain `normalize_images`, `euler_to_pose`,
-            hard, GMM-posterior and RBF soft bin targets; file-name pose
-            parsing (`naming`) and the class-balanced index (`index`)
+            hard, GMM-posterior, RBF soft and SO(3) tangent targets;
+            file-name pose parsing (`naming`) and the class-balanced index
+            (`index`)
 ops         hand-written CUDA kernels (normalize; stem BN+ReLU+max-pool,
             forward and backward; fused conv+BN; pose-bin assignment), each
             beside its plain PyTorch version; `_build` compiles them
-geometry    SO(3) exp/log maps and Euler angles
+geometry    SO(3) exp/log maps and Euler angles; quaternions
 dictionary  `fit_kmeans` (greedy kmeans++, Lloyd), `fit_gmm` (EM),
             `KMeansDictionary`, `GMMDictionary` over the JAX package's
             `.npz` files, `get_gamma`, `pairwise_sqeuclidean`
-models      ResNet trunk and per-class head banks in eval and train mode,
-            `OneBinDeltaModel`, `from_jax_variables` weight conversion
-losses      `decode_bin_delta`, `expected_regression`, the primitive
-            losses, self-balance
-train       the `geodesic_bd`, `probabilistic_bd`, `relaxed_bd` and
-            `ablation_xbd` presets, their problems, Adam, the epoch
+models      ResNet trunk, per-class head banks and `SharedMLP` in eval and
+            train mode, the bin-delta and multires models, the regression,
+            classification and class-agnostic models (`pose`),
+            `from_jax_variables` weight conversion
+losses      the primitive and composed bin-delta losses, self-balance
+train       23 presets (`PRESETS`), their 15 problems, Adam, the epoch
             learning-rate factors, the train and eval steps, `TrainState`,
             `Trainer.fit`
 metrics     pose errors, MedErr, Acc@30; AP / AVP / ARP (`detection`)

@@ -1,9 +1,14 @@
 """On-device pose targets (port of the JAX package's data/targets.py).
 
-Ported so far: Euler angles -> axis-angle poses, the hard bin + residual
-targets of the bin-delta problems, and the GMM-posterior and RBF soft-bin
-targets of the probabilistic and relaxed problems. The tangent targets of
-the other problems arrive with their presets (ROADMAP.md).
+  euler_to_pose             Euler (az, el, ct) -> axis-angle / quaternion
+  hard_bin_targets          kmeans hard bin + Euclidean residual
+  gmm_soft_targets          GMM posterior soft bins + posterior-mean residual
+  rbf_soft_targets          exp(-gamma * d^2) normalized soft bins
+  tangent_residual_targets  hard bin + log(R_bin^T R) (RBDGenerator)
+  per_bin_tangent_residuals the residual target of every bin
+                            (dataGenerators.py:173-178)
+
+Each is one batched computation on the batch's device: no host loop.
 """
 
 from __future__ import annotations
@@ -13,7 +18,9 @@ import math
 import torch
 
 from multi_modal_regression_tpu_torch.dictionary.common import pairwise_sqeuclidean
+from multi_modal_regression_tpu_torch.geometry.quaternion import quat_from_rotation
 from multi_modal_regression_tpu_torch.geometry.so3 import (
+    exp_so3,
     log_so3,
     rotation_from_euler,
 )
@@ -22,17 +29,15 @@ from multi_modal_regression_tpu_torch.geometry.so3 import (
 def euler_to_pose(
     euler: torch.Tensor, ydata_type: str = "axis_angle"
 ) -> torch.Tensor:
-    """Euler (B, 3) degrees -> axis-angle poses (B, 3).
-
-    The quaternion form waits for `geometry/quaternion.py` (ROADMAP.md).
-    """
-    if ydata_type != "axis_angle":
-        raise ValueError(
-            f"ydata_type {ydata_type!r} is not ported yet; only 'axis_angle' "
-            "is (see ROADMAP.md)"
-        )
+    """Euler (B, 3) degrees -> pose targets: axis-angle (B, 3) or unit
+    quaternion (B, 4). The tilt-sign convention (render -ct) is applied by
+    the loader before this point."""
     R = rotation_from_euler(euler[:, 0], euler[:, 1], euler[:, 2])
-    return log_so3(R)
+    if ydata_type == "axis_angle":
+        return log_so3(R)
+    if ydata_type == "quaternion":
+        return quat_from_rotation(R)
+    raise ValueError(f"unknown ydata_type {ydata_type!r}")
 
 
 def hard_bin_targets(
@@ -92,3 +97,28 @@ def rbf_soft_targets(
     # softmax over -gamma*d == normalized exp(-gamma*d), but stable
     soft = torch.softmax(-gamma * d, dim=-1)
     return soft, y - soft @ centers.to(soft.dtype)
+
+
+def tangent_residual_targets(
+    y: torch.Tensor, centers: torch.Tensor, key_rotations: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hard bin + SO(3) tangent residual at the assigned bin + R matrices.
+
+    Returns (bins (B,) int64, residual (B, 3) = log(R_bin^T R), R (B, 3, 3)),
+    the RBDGenerator targets (binDeltaGenerators.py:125-139) with batched
+    exp/log maps. The key rotations are taken in y's dtype.
+    """
+    bins = torch.argmin(pairwise_sqeuclidean(y, centers), dim=-1)
+    R = exp_so3(y)
+    key = key_rotations.to(R.dtype)[bins]
+    return bins, log_so3(key.transpose(-2, -1) @ R), R
+
+
+def per_bin_tangent_residuals(
+    y: torch.Tensor, key_rotations: torch.Tensor
+) -> torch.Tensor:
+    """Residual target per bin: res[b, k] = log(R_k^T R_b) (B, K, 3), all
+    B x K rotations in one batched product and one batched log map."""
+    R = exp_so3(y)  # (B, 3, 3)
+    rel = key_rotations.to(R.dtype).transpose(-2, -1)[None] @ R[:, None]  # (B, K, 3, 3)
+    return log_so3(rel)

@@ -33,17 +33,6 @@ def hat(v: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
-def _safe_normalize(
-    v: torch.Tensor, eps: float
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Return (v/|v|, |v|) with a zero vector (not NaN) when |v| <= eps."""
-    sq = torch.sum(v * v, dim=-1, keepdim=True)
-    norm = torch.sqrt(torch.clamp(sq, min=eps * eps))
-    small = sq <= (eps * eps)
-    unit = torch.where(small, torch.zeros_like(v), v / norm)
-    return unit, torch.sqrt(torch.clamp(sq, min=0.0))[..., 0]
-
-
 def rotation_from_euler(
     az: torch.Tensor, el: torch.Tensor, ct: torch.Tensor
 ) -> torch.Tensor:
@@ -82,17 +71,23 @@ def exp_so3(v: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Axis-angle vectors (..., 3) -> rotation matrices (..., 3, 3).
 
     Rodrigues as R = cos(t) I + sin(t) V + (1-cos(t)) u u^T for the unit
-    axis u (V = hat(u)); the identity for |v| < eps.
+    axis u (V = hat(u)); the identity for |v| < eps. The rows inside the
+    eps ball take their norm from a stand-in 1, so the gradient there is 0
+    (the derivative of the constant identity) and not 0 * inf = NaN: a
+    residual row of exactly 0 trains (riemannian's main loss).
     """
-    unit, theta = _safe_normalize(v, eps)
+    sq = torch.sum(v * v, dim=-1, keepdim=True)
+    small_sq = sq < eps * eps
+    theta = torch.sqrt(torch.where(small_sq, torch.ones_like(sq), sq))
+    unit = v / theta
+    theta = theta[..., 0]
     V = hat(unit)
     outer = unit[..., :, None] * unit[..., None, :]
     sin_t = torch.sin(theta)[..., None, None]
     cos_t = torch.cos(theta)[..., None, None]
     eye = torch.eye(3, dtype=v.dtype, device=v.device).expand(V.shape)
     R = cos_t * eye + sin_t * V + (1.0 - cos_t) * outer
-    small = (theta < eps)[..., None, None]
-    return torch.where(small, eye, R)
+    return torch.where(small_sq[..., None], eye, R)
 
 
 def log_so3(R: torch.Tensor, eps: float = EPS) -> torch.Tensor:

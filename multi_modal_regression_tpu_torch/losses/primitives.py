@@ -1,10 +1,10 @@
 """Loss primitives with the reference's reduction conventions.
 
-Port of the JAX package's losses/primitives.py, as far as the ported
-problems need. Reductions matter for parity: cross-entropy averages over the
-batch, MSE and the KL divergence over ALL elements (the nn.KLDivLoss()
-default the reference relies on, not batchmean); and the geodesic loss
-between axis-angle poses.
+Port of the JAX package's losses/primitives.py. Reductions matter for
+parity: cross-entropy averages over the batch, MSE, L1 and the KL
+divergence over ALL elements (the nn.KLDivLoss() default the reference
+relies on, not batchmean); and the geodesic losses between axis-angle
+poses, quaternions and rotation matrices.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.square(pred - target).mean()
 
 
+def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error over all elements."""
+    return torch.abs(pred - target).mean()
+
+
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize along the last axis (torch F.normalize semantics)."""
     norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
@@ -66,3 +71,25 @@ def geodesic_aa(
     )
     theta = 2.0 * torch.arccos(torch.clamp(tmp, -1.0 + eps, 1.0 - eps))
     return theta.mean() if reduce else theta
+
+
+def geodesic_quat(
+    ypred: torch.Tensor, ytrue: torch.Tensor, reduce: bool = True, eps: float = EPS
+) -> torch.Tensor:
+    """Geodesic distance between quaternions: the FIRST argument is
+    renormalized, the double cover is taken by |<., .>| (the loss form of
+    quaternion.geodesic_loss, quaternion.py:149-163)."""
+    tmp = torch.abs(torch.sum(ytrue * _normalize(ypred), dim=-1))
+    theta = 2.0 * torch.arccos(torch.clamp(tmp, -1.0 + eps, 1.0 - eps))
+    return theta.mean() if reduce else theta
+
+
+def geodesic_rotmat(
+    Rpred: torch.Tensor, Rtrue: torch.Tensor, reduce: bool = True, eps: float = EPS
+) -> torch.Tensor:
+    """Geodesic angle between rotation matrices by the trace formula with the
+    loss-style clamp (RiemannianLoss.my_loss, binDeltaLosses.py:220-225);
+    trace(R1^T R2) as the elementwise Frobenius inner product."""
+    tR = 0.5 * (torch.sum(Rpred * Rtrue, dim=(-2, -1)) - 1.0)
+    angle = torch.arccos(torch.clamp(tR, -1.0 + eps, 1.0 - eps))
+    return angle.mean() if reduce else angle

@@ -5,6 +5,8 @@ applied as one batched product, and the class is picked by a gather, as in
 the JAX package. Layer recipe: hidden layers are Linear(bias=False) + BN +
 ReLU; the last layer is a Linear with bias, then the output nonlinearity.
 BatchNorm in a bank is per (head, feature) over the batch, eps 1e-5.
+`SharedMLP` is the same recipe as one class-agnostic head without the
+head axis.
 
 Weights are held in `param_dtype` (float32 master weights for training, or
 the compute dtype for serving) and applied in the compute dtype; BN
@@ -19,8 +21,10 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from multi_modal_regression_tpu_torch import EPS
 from multi_modal_regression_tpu_torch.models.norm import bessel_factor
 
 
@@ -35,15 +39,32 @@ def torch_linear_init(
 
 
 def apply_output_nonlinearity(y: torch.Tensor, kind: str) -> torch.Tensor:
-    """Output nonlinearity of a head bank; 'none' is what the BD heads use.
+    """Output nonlinearities of the pose-head zoo:
 
-    The regression nonlinearities arrive with their presets (ROADMAP.md).
+      'none'     raw scores / residuals (the bin-delta heads)
+      'tanh'     tanh (model_2layer, poseModels.py:38)
+      'pi_tanh'  pi * tanh (regression 'valid', learnGeodesicRegressionModel.py:102)
+      'my_proj'  angle fmod(|y|, pi) along y/|y|, 0 for |y| <= EPS
+                 (regression 'correct', :76-80,104)
+      'quat'     L2-normalized tanh, a unit quaternion (quaternion.py:114,122-142)
     """
     if kind == "none":
         return y
-    raise ValueError(
-        f"output nonlinearity {kind!r} is not ported yet (see ROADMAP.md)"
-    )
+    if kind == "tanh":
+        return torch.tanh(y)
+    if kind == "pi_tanh":
+        return math.pi * torch.tanh(y)
+    if kind == "my_proj":
+        sq = torch.sum(y * y, dim=-1, keepdim=True)
+        norm = torch.sqrt(torch.clamp(sq, min=EPS * EPS))
+        angle = torch.fmod(norm, math.pi)
+        return torch.where(sq <= EPS * EPS, torch.zeros_like(y), angle * y / norm)
+    if kind == "quat":
+        # F.normalize(F.tanh(y)): torch's normalize clamps the norm at 1e-12
+        t = torch.tanh(y)
+        norm = torch.sqrt(torch.clamp(torch.sum(t * t, dim=-1, keepdim=True), min=1e-24))
+        return t / torch.clamp(norm, min=1e-12)
+    raise ValueError(f"unknown output nonlinearity {kind!r}")
 
 
 class HeadBatchNorm(nn.Module):
@@ -145,7 +166,61 @@ class MultiHeadMLP(nn.Module):
         )
 
 
+class SharedMLP(nn.Module):
+    """One class-agnostic MLP head: (B, F) -> (B, features[-1]).
+
+    The layer recipe of MultiHeadMLP without the head axis (the Independent*
+    models, learnIndependentBDModel.py:88-111). Layers are nn.Linear
+    `fc<i>` (bias on the last only) and nn.BatchNorm1d `bn<i>` (eps 1e-5,
+    momentum 0.1, torch's unbiased running variance, as the JAX
+    TorchBatchNorm), named as in the flax tree. Weights are held in
+    `param_dtype` and applied in `dtype`; BN runs in at least float32 and
+    the output is at least float32.
+    """
+
+    def __init__(
+        self, in_features: int, features: Sequence[int], *,
+        generator: torch.Generator, output_nonlinearity: str = "none",
+        dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        param_dtype = param_dtype or dtype
+        self.dtype = dtype
+        self.output_nonlinearity = output_nonlinearity
+        self.num_layers = len(features)
+        fan_in = in_features
+        for li, out_dim in enumerate(features, start=1):
+            last = li == self.num_layers
+            fc = nn.Linear(fan_in, out_dim, bias=last, dtype=param_dtype)
+            torch_linear_init(fc.weight, fan_in, generator)
+            if last:
+                torch_linear_init(fc.bias, fan_in, generator)
+            self.add_module(f"fc{li}", fc)
+            if not last:
+                self.add_module(f"bn{li}", nn.BatchNorm1d(
+                    out_dim, eps=1e-5, momentum=0.1,
+                    dtype=torch.promote_types(torch.float32, dtype),
+                ))
+            fan_in = out_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for li in range(1, self.num_layers + 1):
+            fc = getattr(self, f"fc{li}")
+            bias = None if fc.bias is None else fc.bias.to(self.dtype)
+            x = F.linear(x, fc.weight.to(self.dtype), bias)
+            if li < self.num_layers:
+                bn = getattr(self, f"bn{li}")
+                x = torch.relu(bn(x.to(bn.weight.dtype)).to(self.dtype))
+        return apply_output_nonlinearity(
+            x.to(torch.promote_types(torch.float32, x.dtype)),
+            self.output_nonlinearity,
+        )
+
+
 def select_class(per_head: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
-    """Pick each sample's head output: (B, H, D), (B,) int -> (B, D)."""
+    """Pick each sample's head output: (B, H, D), (B,) int -> (B, D); also
+    each sample's entry at a bin index (the multires deltas, per-bin
+    targets)."""
     idx = label.to(torch.int64)[:, None, None].expand(-1, 1, per_head.shape[-1])
     return torch.gather(per_head, 1, idx)[:, 0]

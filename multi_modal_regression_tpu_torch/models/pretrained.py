@@ -4,17 +4,19 @@ local torchvision ResNet state_dict file.
 `from_jax_variables` takes the JAX package's `params` and `batch_stats`
 trees, as nested dicts of numpy arrays (e.g. `jax.device_get(state.params)`),
 and returns a state_dict for the port's module of the same structure
-(`OneBinDeltaModel`, `ResNetBackbone`, `MultiHeadMLP`): module names are the
-same on both sides, so only leaf names and layouts change.
+(the pose models, `ResNetBackbone`, `MultiHeadMLP`, `SharedMLP`): module
+names are the same on both sides, so only leaf names and layouts change.
 
   conv `kernel` (kH, kW, I, O)      ->  `weight` (O, I, kH, kW)
+  Dense `kernel` (I, O)             ->  Linear `weight` (O, I); its `bias`
+                                        is copied as it is
   BN `scale` / `bias`               ->  `weight` / `bias`
   BN stats `mean` / `var`           ->  `running_mean` / `running_var`
   head banks `fc<i>_kernel` (H, I, O), `fc<i>_bias` (H, O), and the
   per-(head, feature) BN arrays (H, F)  ->  copied as they are
 
-Trunk BNs (1-D statistics) are torch BatchNorm2d modules and also get
-`num_batches_tracked` = 0. Everything is returned as float32;
+Trunk and SharedMLP BNs (1-D statistics) are torch BatchNorm2d / 1d
+modules and also get `num_batches_tracked` = 0. Everything is returned as float32;
 `load_state_dict` casts to the model's dtypes.
 
 `load_torchvision_backbone` reads a torchvision resnet state_dict (a local
@@ -55,9 +57,14 @@ def from_jax_variables(params: Mapping, batch_stats: Mapping) -> dict[str, torch
     for prefix, name, value in _walk(params, ""):
         if name == "kernel":
             a = np.asarray(value)
-            if a.ndim != 4:
-                raise ValueError(f"{prefix}kernel: expected an HWIO conv kernel")
-            sd[f"{prefix}weight"] = _tensor(a.transpose(3, 2, 0, 1))
+            if a.ndim == 2:  # nn.Dense (I, O) -> nn.Linear (O, I)
+                sd[f"{prefix}weight"] = _tensor(a.T)
+            elif a.ndim == 4:
+                sd[f"{prefix}weight"] = _tensor(a.transpose(3, 2, 0, 1))
+            else:
+                raise ValueError(
+                    f"{prefix}kernel: expected an HWIO conv or (I, O) Dense kernel"
+                )
         elif name == "scale":
             sd[f"{prefix}weight"] = _tensor(value)
         else:  # BN `bias`, head-bank fc<i>_kernel / fc<i>_bias

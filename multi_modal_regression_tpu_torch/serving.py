@@ -5,9 +5,10 @@ model and the problem directly (a Trainer's `model` and `problem` serve
 as they are). The whole path runs on the model's device, with the model in
 eval mode whatever mode it was left in: normalize kernel,
 ResNet trunk in eval mode (stem kernel when the model is built with
-stem_pool='kernel'), head banks, class select, bin argmax + dictionary
-decode. `export_inference`/`load_inference` (-> torch.export) wait
-(ROADMAP.md).
+stem_pool='kernel'), head banks, class select, the problem's decode. Any
+model that `train.presets.build_model` makes serves: the bin-delta,
+multires, regression, classification and class-agnostic models.
+`export_inference`/`load_inference` (-> torch.export) wait (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,17 +16,18 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch import nn
 
-from multi_modal_regression_tpu_torch.models.bin_delta import OneBinDeltaModel
 from multi_modal_regression_tpu_torch.train.problems import Problem
 from multi_modal_regression_tpu_torch.train.steps import make_eval_step
 
 
 def make_inference_fn(
-    model: OneBinDeltaModel, problem: Problem,
+    model: nn.Module, problem: Problem,
     compute_dtype: torch.dtype | None = None,
 ) -> Callable:
-    """(images uint8 (B, S, S, 3), labels int32/int64 (B,)) -> poses (B, D).
+    """(images uint8 (B, S, S, 3), labels int32/int64 (B,)) -> poses (B, D),
+    axis-angle or quaternions as the problem's representation.
 
     Inputs may be numpy arrays or tensors; they are moved to the model's
     device, and the poses (float32) stay there. compute_dtype None takes the

@@ -1,14 +1,14 @@
 """Experiment presets (port of the JAX package's train/presets.py).
 
-The ported presets (`PRESETS`): `geodesic_bd` (learnGeodesicBDModel.py, the
-north-star configuration), `probabilistic_bd` (learnProbabilisticBDModel.py,
-over a fitted GMM dictionary), `relaxed_bd` and `ablation_xbd`
-(ablationXBDModel.py, RBF soft bins over a kmeans dictionary), each with the
-JAX package's overrides, over a config that has the fields the serving and
-training paths read, under the JAX names and defaults. Settings that are not
-ported yet raise NotImplementedError when the config is made, so none is
-ignored; the other presets raise until they are ported, in the order
-ROADMAP.md gives.
+The ported presets (`PRESETS`) are the single-model pose zoo: 23 of the
+JAX package's 42 reference scripts, over the bin-delta, multires,
+regression, classification and class-agnostic models, each with the JAX
+package's overrides and comments, over a config that has the fields the
+serving and training paths read, under the JAX names and defaults.
+Settings that are not ported yet raise NotImplementedError when the config
+is made, so none is ignored; the other presets (the `_rene` fine-tunes, the
+joint, categorization and ObjectNet models) raise until they are ported, in
+the order ROADMAP.md gives.
 
 `build_model` and `build_problem` place what they build on the card
 ("cuda") unless the caller names another device, as `Trainer` does.
@@ -23,9 +23,25 @@ import numpy as np
 import torch
 
 from multi_modal_regression_tpu_torch.dictionary.common import get_gamma
+from torch import nn
+
 from multi_modal_regression_tpu_torch.models.backbones import FUSED_IMPLS
-from multi_modal_regression_tpu_torch.models.bin_delta import OneBinDeltaModel
-from multi_modal_regression_tpu_torch.train.problems import Problem, make_problem
+from multi_modal_regression_tpu_torch.models.bin_delta import (
+    OneBinDeltaModel,
+    OneDeltaPerBinModel,
+    ProbabilisticOneDeltaPerBinModel,
+)
+from multi_modal_regression_tpu_torch.models.pose import (
+    IndependentBDModel,
+    IndependentRegressionModel,
+    PerClassClassificationModel,
+    PerClassRegressionModel,
+)
+from multi_modal_regression_tpu_torch.train.problems import (
+    DICTIONARY_FREE,
+    Problem,
+    make_problem,
+)
 from multi_modal_regression_tpu_torch.train.schedules import EPOCH_LR_FACTORS
 
 # 'float64' exists for the parity tests against the JAX package's x64
@@ -54,6 +70,8 @@ class ExperimentConfig:
     fused_conv_bn, whose JAX default 'auto' resolves to off)."""
 
     preset: str = "geodesic_bd"
+    # model
+    model_kind: str = "one_bin_delta"  # see build_model
     feature_network: str = "resnet50"
     feature_layer: str = "layer4"
     num_classes: int = 12
@@ -61,7 +79,10 @@ class ExperimentConfig:
     N0: int = 2048
     N1: int = 1000
     N2: int = 500
+    N3: int = 100
     ndim: int = 3
+    nonlinearity: str = "pi_tanh"  # regression models
+    multires: bool = False
     # problem / loss
     problem: str = "geodesic"
     self_balance: bool = True  # False -> fixed loss Lc + alpha * Lr
@@ -155,33 +176,136 @@ class ExperimentConfig:
         return dataclasses.replace(self, **kw)
 
 
-# The ported presets with the JAX package's overrides (its PRESETS table).
-# Every one of them is the JAX model_kind 'one_bin_delta', the one model the
-# port has, so the port's config carries no model_kind field.
+# The ported presets with the JAX package's overrides (its PRESETS table,
+# in its order).
 PRESETS: dict[str, dict] = {
-    # learnGeodesicBDModel.py: the north-star config
-    "geodesic_bd": dict(problem="geodesic"),
+    # learnSimpleBDModel.py — CE + MSE(residual), self-balanced throughout
+    "simple_bd": dict(
+        model_kind="one_bin_delta", problem="simple",
+        num_warmup_epochs=0,  # single training() phase (learnSimpleBDModel.py:104)
+    ),
+    # learnGeodesicBDModel.py — the north-star config
+    "geodesic_bd": dict(model_kind="one_bin_delta", problem="geodesic"),
+    # learnGeodesicBDModel.py --multires
+    "geodesic_bd_multires": dict(
+        model_kind="one_delta_per_bin", problem="geodesic", multires=True
+    ),
+    # learnGeodesicBDModel_quaternion.py
+    "geodesic_bd_quaternion": dict(
+        model_kind="one_bin_delta", problem="geodesic_quat", ndim=4
+    ),
+    # learnEuclideanBDModel.py / learnLaplacianBDModel.py
+    "euclidean_bd": dict(model_kind="one_bin_delta", problem="euclidean"),
+    "laplacian_bd": dict(model_kind="one_bin_delta", problem="laplacian"),
+    # learnLogEuclideanModel.py ('m2' tangent residuals)
+    "log_euclidean_bd": dict(
+        model_kind="one_bin_delta", problem="log_euclidean",
+        num_warmup_epochs=0,  # single-phase script (learnLogEuclideanModel.py:111)
+    ),
+    # learnRiemannianBDModel.py — the one self-balanced two-phase script
+    # with NO s=0 reset between training_init() and training()
+    "riemannian_bd": dict(
+        model_kind="one_bin_delta", problem="riemannian",
+        reset_s_between_phases=False,
+    ),
     # learnProbabilisticBDModel.py (GMM soft bins, expected loss)
     "probabilistic_bd": dict(
-        problem="probabilistic",
+        model_kind="one_bin_delta", problem="probabilistic",
         num_warmup_epochs=0,  # single-phase (learnProbabilisticBDModel.py:106)
         epoch_lr_decay="step",  # StepLR(1, 0.1) stepped at :204
     ),
+    "probabilistic_bd_multires": dict(
+        model_kind="probabilistic", problem="probabilistic_multires",
+        multires=True, num_warmup_epochs=0, epoch_lr_decay="step",
+    ),
+    # RelaXedProbabilisticLossQ / RelaXedProbabilisticMultiresLossQ
+    # (binDeltaLosses.py:149-166,197-208) + XPBDGeneratorQ targets
+    # (binDeltaGenerators.py:86-110) — reference-dormant loss variants no
+    # learn* script invokes; preset conventions mirror probabilistic_bd
+    "probabilistic_bd_quaternion": dict(
+        model_kind="one_bin_delta", problem="probabilistic_quat", ndim=4,
+        num_warmup_epochs=0, epoch_lr_decay="step",
+    ),
+    "probabilistic_bd_quaternion_multires": dict(
+        model_kind="probabilistic", problem="probabilistic_quat_multires",
+        ndim=4, multires=True, num_warmup_epochs=0, epoch_lr_decay="step",
+    ),
     # ablationXBDModel.py (RBF-relaxed soft bins)
     "relaxed_bd": dict(
-        problem="relaxed_kmeans",
+        model_kind="one_bin_delta", problem="relaxed_kmeans",
         self_balance=False,  # fixed-alpha criteria, ablationXBDModel.py:67-69
         epoch_lr_decay="step",  # ablationXBDModel.py:96,218
         loss_stream_sum=True,  # loss_real + loss_render, ablationXBDModel.py:120
     ),
-    # ablationXBDModel.py: relaxed soft bins with data-driven gamma
+    # learnClassificationModel.py (dict_size=100) / _new.py (200)
+    "classification": dict(
+        model_kind="per_class_classification", problem="classification",
+        dict_size=100, num_warmup_epochs=0,
+        epoch_lr_decay="step",  # learnClassificationModel.py:94,167
+        loss_stream_sum=True,  # loss_real + loss_render, learnClassificationModel.py:118
+    ),
+    # learnGeodesicRegressionModel.py (--nonlinearity valid)
+    "geodesic_regression": dict(
+        model_kind="per_class_regression", problem="regression",
+        nonlinearity="pi_tanh",
+        epoch_lr_decay="step",  # learnGeodesicRegressionModel.py:114,234
+        loss_stream_sum=True,  # loss_real + loss_render, learnGeodesicRegressionModel.py:138,178
+    ),
+    # learnGeodesicRegression_quaternion.py
+    "geodesic_regression_quaternion": dict(
+        model_kind="per_class_regression", problem="regression_quat",
+        ndim=4, nonlinearity="quat",
+        epoch_lr_decay="step",  # learnGeodesicRegression_quaternion.py:99
+        loss_stream_sum=True,  # loss_real + loss_render, learnGeodesicRegression_quaternion.py:123,163
+    ),
+    # learnIndependentRegressionModel.py
+    "independent_regression": dict(
+        model_kind="independent_regression", problem="regression",
+        nonlinearity="pi_tanh",
+        epoch_lr_decay="step",  # learnIndependentRegressionModel.py:92
+    ),
+    # learnIndependentBDModel.py (fixed weights CE+MSE -> CE+10*geodesic)
+    "independent_bd": dict(
+        model_kind="independent_bd", problem="geodesic",
+        dict_size=16,  # learnIndependentBDModel.py:33
+        alpha=10.0, self_balance=False,
+        epoch_lr_decay="step",  # learnIndependentBDModel.py:115,255
+    ),
+    # learnRenderedBDModel.py (class-agnostic, dict 16, render+real)
+    "rendered_bd": dict(
+        model_kind="independent_bd", problem="geodesic", dict_size=16,
+        alpha=10.0, self_balance=False,
+        epoch_lr_decay="step",  # learnRenderedBDModel.py:115,234
+    ),
+    # ablationGeodesicBDModel.py — geodesic BD evaluated on the val split
+    # (model selection); identical objective, ablation data split
+    "ablation_geodesic_bd": dict(
+        model_kind="one_bin_delta", problem="geodesic", self_balance=False,
+        epoch_lr_decay="step",  # ablationGeodesicBDModel.py:95,217
+        loss_stream_sum=True,  # loss_real + loss_render, ablationGeodesicBDModel.py:117
+    ),
+    # ablationXBDModel.py — relaxed soft bins with data-driven gamma
     # (get_gamma over the dictionary, ablationXBDModel.py:61-62)
     "ablation_xbd": dict(
-        problem="relaxed_kmeans", gamma=None,
-        dict_size=100,  # ablationXBDModel.py:34 (not the usual 200)
+        model_kind="one_bin_delta", problem="relaxed_kmeans", gamma=None,
+        dict_size=100,  # ablationXBDModel.py:34 (GMM dictionary, not the usual 200)
         self_balance=False,  # fixed-alpha criteria, ablationXBDModel.py:67-69
         epoch_lr_decay="step",  # ablationXBDModel.py:96,218
         loss_stream_sum=True,  # loss_real + loss_render, ablationXBDModel.py:120
+    ),
+    # ablationGBDAugmentation.py — same objective; the augmented-vs-render
+    # data selection is the loader choice (--type real/render/both)
+    "ablation_gbd_augmentation": dict(
+        model_kind="one_bin_delta", problem="geodesic", self_balance=False,
+        dict_size=100,  # ablationGBDAugmentation.py:34 (not the usual 200)
+        epoch_lr_decay="step",  # ablationGBDAugmentation.py:99,205
+    ),
+    # ablationDictionarySizeC0.py — classification-only dict-size sweep
+    "ablation_c0": dict(
+        model_kind="per_class_classification", problem="classification",
+        num_warmup_epochs=0,
+        epoch_lr_decay="step",  # ablationDictionarySizeC0.py:97,168
+        loss_stream_sum=True,  # loss_real + loss_render, ablationDictionarySizeC0.py:120
     ),
 }
 
@@ -205,57 +329,110 @@ def resolve_compute_dtype(name: str) -> torch.dtype:
     return _COMPUTE_DTYPES[name]
 
 
+# model_kind -> the model class; the bin-delta kinds take the trunk's stem
+# and fused conv+BN settings, the models/pose kinds have neither (the JAX
+# _BackboneModel builds its trunk without them)
+_BD_KINDS = {
+    "one_bin_delta": OneBinDeltaModel,
+    "one_delta_per_bin": OneDeltaPerBinModel,
+    "probabilistic": ProbabilisticOneDeltaPerBinModel,
+}
+_POSE_KINDS = {
+    "per_class_regression": PerClassRegressionModel,
+    "per_class_classification": PerClassClassificationModel,
+    "independent_regression": IndependentRegressionModel,
+    "independent_bd": IndependentBDModel,
+}
+
+
 def build_model(
     cfg: ExperimentConfig, device: torch.device | str = "cuda",
     param_dtype: torch.dtype | None = None,
-) -> OneBinDeltaModel:
-    """The preset's model in eval mode on `device`, weights drawn from
-    `cfg.seed` (on the CPU, then moved).
+) -> nn.Module:
+    """The preset's model (by cfg.model_kind) in eval mode on `device`,
+    weights drawn from `cfg.seed` (on the CPU, then moved). Every model is
+    called as model(images, labels).
 
     param_dtype None holds the weights in the compute dtype (serving: no
     per-call cast); training passes at least float32 for master weights,
     as the JAX package keeps its params.
     """
-    model = OneBinDeltaModel(
-        num_classes=cfg.num_classes, num_clusters=cfg.dict_size, N0=cfg.N0,
-        N1=cfg.N1, N2=cfg.N2, ndim=cfg.ndim,
+    k = cfg.model_kind
+    common = dict(
+        num_classes=cfg.num_classes, N0=cfg.N0, N1=cfg.N1, N2=cfg.N2,
         feature_network=cfg.feature_network, feature_layer=cfg.feature_layer,
-        dtype=resolve_compute_dtype(cfg.compute_dtype),
-        stem_pool=cfg.stem_pool, seed=cfg.seed, param_dtype=param_dtype,
-        fused_bn=cfg.fused_conv_bn,
+        dtype=resolve_compute_dtype(cfg.compute_dtype), seed=cfg.seed,
+        param_dtype=param_dtype,
     )
+    if k in _BD_KINDS:
+        extra = {} if k == "one_bin_delta" else dict(N3=cfg.N3)
+        model = _BD_KINDS[k](
+            **common, **extra, num_clusters=cfg.dict_size, ndim=cfg.ndim,
+            stem_pool=cfg.stem_pool, fused_bn=cfg.fused_conv_bn,
+        )
+    elif k in _POSE_KINDS:
+        if cfg.stem_pool is not None or cfg.fused_conv_bn is not None:
+            raise ValueError(
+                f"model_kind {k!r} has no stem_pool or fused_conv_bn option (its "
+                f"trunk is the plain one, as in the JAX package); got stem_pool="
+                f"{cfg.stem_pool!r}, fused_conv_bn={cfg.fused_conv_bn!r}"
+            )
+        if k in ("per_class_regression", "independent_regression"):
+            extra = dict(ndim=cfg.ndim, nonlinearity=cfg.nonlinearity)
+        elif k == "per_class_classification":
+            extra = dict(num_clusters=cfg.dict_size)
+        else:
+            extra = dict(num_clusters=cfg.dict_size, N3=cfg.N3, ndim=cfg.ndim)
+        model = _POSE_KINDS[k](**common, **extra)
+    else:
+        raise ValueError(
+            f"model_kind {k!r} is not ported yet; the port has "
+            f"{sorted({**_BD_KINDS, **_POSE_KINDS})} (see ROADMAP.md)"
+        )
     return model.to(device)
 
 
 def build_problem(
-    cfg: ExperimentConfig, dictionary: Any,
+    cfg: ExperimentConfig, dictionary: Any = None,
     device: torch.device | str = "cuda",
 ) -> Problem:
     """dictionary: a GMMDictionary (its means are the atoms), a
-    KMeansDictionary or raw (K, ndim) centers. cfg.gamma None resolves to
-    `get_gamma` of the atoms."""
-    gmm_kw: dict = {}
-    if hasattr(dictionary, "means"):  # GMM
-        gmm_kw = dict(
-            gmm_means=dictionary.means,
-            gmm_covariances=dictionary.covariances,
-            gmm_weights=dictionary.weights,
-        )
-        centers = np.asarray(dictionary.means)
+    KMeansDictionary or raw (K, 3) axis-angle centers; the quaternion
+    problems convert the atoms themselves, and the regression problems take
+    none (a dictionary given to them is not read). cfg.gamma None resolves
+    to `get_gamma` of the atoms."""
+    if cfg.problem in DICTIONARY_FREE:
+        problem = make_problem(cfg.problem, None, device)
     else:
-        centers = np.asarray(getattr(dictionary, "cluster_centers", dictionary))
-    if centers.shape != (cfg.dict_size, cfg.ndim):
-        raise ValueError(
-            f"dictionary has shape {centers.shape}, the config expects "
-            f"({cfg.dict_size}, {cfg.ndim})"
+        if dictionary is None:
+            raise ValueError(
+                f"the {cfg.problem!r} problem needs a pose dictionary "
+                f"({cfg.dict_size}, 3); fit one with `cli dictionary`"
+            )
+        gmm_kw: dict = {}
+        if hasattr(dictionary, "means"):  # GMM
+            gmm_kw = dict(
+                gmm_means=dictionary.means,
+                gmm_covariances=dictionary.covariances,
+                gmm_weights=dictionary.weights,
+            )
+            centers = np.asarray(dictionary.means)
+        else:
+            centers = np.asarray(getattr(dictionary, "cluster_centers", dictionary))
+        if centers.shape != (cfg.dict_size, 3):
+            raise ValueError(
+                f"dictionary has shape {centers.shape}, the config expects an "
+                f"axis-angle dictionary ({cfg.dict_size}, 3)"
+            )
+        if cfg.problem in ("probabilistic", "probabilistic_multires") and not gmm_kw:
+            raise ValueError(
+                f"the {cfg.problem!r} problem needs a GMMDictionary (means, "
+                "covariances, weights); fit one with dictionary.fit_gmm"
+            )
+        gamma = get_gamma(centers) if cfg.gamma is None else cfg.gamma
+        problem = make_problem(
+            cfg.problem, centers, device, gamma=gamma, multires=cfg.multires, **gmm_kw
         )
-    if cfg.problem == "probabilistic" and not gmm_kw:
-        raise ValueError(
-            "the probabilistic problem needs a GMMDictionary (means, "
-            "covariances, weights); fit one with dictionary.fit_gmm"
-        )
-    gamma = get_gamma(centers) if cfg.gamma is None else cfg.gamma
-    problem = make_problem(cfg.problem, centers, device, gamma=gamma, **gmm_kw)
     if not cfg.self_balance:
         problem = dataclasses.replace(
             problem, warmup_balance=None, main_balance=None

@@ -1,19 +1,41 @@
-"""Problems (port of the JAX package's train/problems.py).
+"""Problems (port of the JAX package's train/problems.py): per-preset
+target transforms, losses and decoders.
 
-Ported problems, all over the one-bin-delta model's (scores, residual):
+  simple          CE + MSE(residual), the warm-up balance form for the whole
+                  run (learnSimpleBDModel.py:124-131)
+  geodesic        warm-up CE + MSE(residual), then CE + geodesic loss on the
+                  decoded pose (learnGeodesicBDModel.py:106-205), the north
+                  star
+  euclidean       main Lr = MSE on the decoded pose, with the warm-up
+                  balance form in the main phase too
+                  (learnEuclideanBDModel.py:176-183)
+  laplacian       main Lr = L1 on the decoded pose (learnLaplacianBDModel.py:178)
+  geodesic_quat   quaternion dictionary + quaternion geodesic; renormalized
+                  test predictions (learnGeodesicBDModel_quaternion.py)
+  relaxed_kmeans  RBF soft bins over a kmeans dictionary (width gamma), KL
+                  in place of CE, fixed weights (ablationXBDModel.py)
+  probabilistic   GMM posterior soft bins; warm-up KL + MSE on the soft
+                  residual; main KL + the expected geodesic loss under the
+                  softmax posterior (learnProbabilisticBDModel.py:124-129);
+                  the multires variant takes per-cluster deltas
+  probabilistic_quat[_multires]
+                  the reference-dormant quaternion variants: RBF soft bins
+                  over the quaternion dictionary, expected quaternion
+                  geodesic (binDeltaLosses.py:149-166,197-208)
+  riemannian      tangent residual targets; main loss composes
+                  R_bin @ exp(delta) with a trace-angle geodesic
+                  (learnRiemannianBDModel.py:186-233)
+  log_euclidean   MSE vs the tangent residual at the PREDICTED bin ('m2',
+                  learnLogEuclideanModel.py:103-134), every bin's residual
+                  target made on the device; warm-up balance form throughout
+  classification  CE only; prediction = dictionary atom at argmax
+                  (learnClassificationModel.py)
+  regression      no bins: warm-up MSE, then the geodesic loss on the raw
+                  pose output (learnGeodesicRegressionModel.py:122-199);
+                  regression_quat in quaternions
 
-  geodesic        learnGeodesicBDModel.py:106-205, the north star: hard bin +
-                  residual targets; warm-up CE + MSE on the residual; main
-                  CE + geodesic loss on the decoded pose, main self-balance
-  relaxed_kmeans  ablationXBDModel.py: RBF soft bins over a kmeans
-                  dictionary (width gamma), KL in place of CE, fixed weights
-                  (no self-balance)
-  probabilistic   learnProbabilisticBDModel.py: GMM posterior soft bins;
-                  warm-up KL + MSE on the soft residual; main KL + the
-                  expected geodesic loss under the softmax posterior; argmax
-                  decode over the GMM means
-
-The rest of the problem zoo arrives with its presets (ROADMAP.md).
+The `_rene`, `objectnet_quat` and joint problems wait with their presets
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,8 +50,12 @@ import torch.nn.functional as F
 from multi_modal_regression_tpu_torch.data.targets import (
     gmm_soft_targets,
     hard_bin_targets,
+    per_bin_tangent_residuals,
     rbf_soft_targets,
+    tangent_residual_targets,
 )
+from multi_modal_regression_tpu_torch.geometry.quaternion import convert_dictionary
+from multi_modal_regression_tpu_torch.geometry.so3 import exp_so3, log_so3
 from multi_modal_regression_tpu_torch.losses.bin_delta import (
     decode_bin_delta,
     expected_regression,
@@ -37,11 +63,22 @@ from multi_modal_regression_tpu_torch.losses.bin_delta import (
 from multi_modal_regression_tpu_torch.losses.primitives import (
     cross_entropy,
     geodesic_aa,
+    geodesic_quat,
+    geodesic_rotmat,
     kl_div_mean,
+    l1,
     mse,
 )
+from multi_modal_regression_tpu_torch.models.heads import select_class
 
-PORTED_PROBLEMS = ("geodesic", "relaxed_kmeans", "probabilistic")
+PORTED_PROBLEMS = (
+    "simple", "geodesic", "euclidean", "laplacian", "geodesic_quat",
+    "relaxed_kmeans", "probabilistic", "probabilistic_multires",
+    "probabilistic_quat", "probabilistic_quat_multires", "riemannian",
+    "log_euclidean", "classification", "regression", "regression_quat",
+)
+# the problems that train without a pose dictionary
+DICTIONARY_FREE = ("regression", "regression_quat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +89,8 @@ class Problem:
       warmup_losses(out, tg)     -> (lc, lr) for the warm-up phase
       main_losses(out, tg)       -> (lc, lr) for the main phase
       decode(out)                -> predicted poses (test protocol)
-    `out` is the model output (scores, residual). The balance modes are
+    `out` is the model output: (scores, residual), or one tensor for the
+    classification and regression models. The balance modes are
     'warmup' | 'main' | None (fixed weights Lc + alpha * Lr).
     """
 
@@ -66,6 +104,22 @@ class Problem:
     main_balance: str | None = "main"
 
 
+def _first(out):
+    """The scores or poses of a model output: the tensor itself, or the first
+    of a tuple."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _zero(like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=like.dtype, device=like.device)
+
+
+def _unit(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion test predictions renormalized, the norm floored at the
+    reference's 1e-10 (learnGeodesicBDModel_quaternion.py:217-218)."""
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-10)
+
+
 def make_problem(
     name: str,
     centers: np.ndarray | None = None,
@@ -75,23 +129,21 @@ def make_problem(
     gmm_covariances: np.ndarray | None = None,
     gmm_weights: np.ndarray | None = None,
     gamma: float = 10.0,
+    multires: bool = False,
 ) -> Problem:
     """Build a Problem by name. `centers` is the (K, 3) axis-angle dictionary
-    of the kmeans problems; the `gmm_*` arrays are the fitted mixture of the
-    probabilistic problem; `gamma` is the RBF width of `relaxed_kmeans`. The
-    arrays are placed on `device` once (the card unless the caller asks for
-    "cpu")."""
-    if name == "probabilistic_multires":
-        raise NotImplementedError(
-            "the multires probabilistic problem needs "
-            "ProbabilisticOneDeltaPerBinModel, which is not ported yet "
-            "(see ROADMAP.md)"
-        )
+    (converted to quaternions for the quaternion problems, quaternion.py:
+    79-92; unused by the regression problems); the `gmm_*` arrays are the
+    fitted mixture of the probabilistic problems; `gamma` is the RBF width
+    of the soft-bin problems; `multires` selects per-cluster deltas for the
+    probabilistic ones (also implied by a `_multires` name). The arrays are
+    placed on `device` once (the card unless the caller asks for "cpu")."""
     if name not in PORTED_PROBLEMS:
         raise ValueError(
             f"problem {name!r} is not ported yet; the port has "
             f"{list(PORTED_PROBLEMS)} (see ROADMAP.md)"
         )
+    is_multires = multires or name.endswith("multires")
 
     def on_device(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -99,26 +151,60 @@ def make_problem(
     def soft_lc(scores, tg):
         return kl_div_mean(F.log_softmax(scores, dim=-1), tg["soft"])
 
-    if name == "geodesic":
-        C = on_device(centers)
+    def soft_warmup(out, tg):
+        # multires: every per-cluster delta regresses the shared soft residual
+        scores, residual = out
+        res = tg["res"][:, None, :] if is_multires else tg["res"]
+        return soft_lc(scores, tg), mse(residual, res)
+
+    def candidates(atoms, residual):
+        # (B, K, D): the atoms plus the per-cluster or the shared delta
+        return atoms[None, :, :] + (residual if is_multires else residual[:, None, :])
+
+    def decode_soft(atoms, out):
+        # argmax decode (the per-argmax-bin delta if multires): the
+        # reference's LIVE test path; its softmax-expectation decode is
+        # commented out (learnProbabilisticBDModel.py:168-181)
+        scores, residual = out
+        ind = torch.argmax(scores, dim=-1)
+        if is_multires:
+            residual = select_class(residual, ind)
+        return atoms[ind] + residual
+
+    def hard_warmup(out, tg):
+        scores, residual = out
+        return cross_entropy(scores, tg["bins"]), mse(residual, tg["res"])
+
+    if name in ("simple", "geodesic", "euclidean", "laplacian", "geodesic_quat"):
+        quat = name == "geodesic_quat"
+        C = convert_dictionary(on_device(centers)) if quat else on_device(centers)
+        reg = {"simple": None, "geodesic": geodesic_aa, "euclidean": mse,
+               "laplacian": l1, "geodesic_quat": geodesic_quat}[name]
 
         def targets(y):
             bins, res = hard_bin_targets(y, C)
             return {"y": y, "bins": bins, "res": res}
 
-        def warmup(out, tg):
-            scores, residual = out
-            return cross_entropy(scores, tg["bins"]), mse(residual, tg["res"])
-
         def main(out, tg):
             # the decode's argmax passes no gradient: Lr reaches the residual only
             scores, residual = out
             ypred = decode_bin_delta(scores, residual, C)
-            return cross_entropy(scores, tg["bins"]), geodesic_aa(ypred, tg["y"])
+            return cross_entropy(scores, tg["bins"]), reg(ypred, tg["y"])
 
+        def decode(out):
+            q = decode_bin_delta(out[0], out[1], C)
+            return _unit(q) if quat else q
+
+        if name == "simple":
+            # one phase, CE + MSE(residual) in the warm-up balance form
+            return Problem(name, "axis_angle", targets, hard_warmup, hard_warmup, decode,
+                           warmup_balance="warmup", main_balance="warmup")
+        # learnEuclideanBDModel.py keeps the WARM-UP balance form in its main
+        # phase (loss = Lc + 0.5*exp(-2s)*Lr + s, s' = 0.5*log(Lr), :178,183);
+        # geodesic (:189) and laplacian (:179) switch to the main form
         return Problem(
-            name, "axis_angle", targets, warmup, main,
-            lambda out: decode_bin_delta(out[0], out[1], C),
+            name, "quaternion" if quat else "axis_angle", targets, hard_warmup, main,
+            decode, main_balance="warmup" if name == "euclidean" else "main",
         )
 
     if name == "relaxed_kmeans":
@@ -128,10 +214,6 @@ def make_problem(
             soft, res = rbf_soft_targets(y, C, gamma=gamma)
             return {"y": y, "soft": soft, "res": res}
 
-        def warmup(out, tg):
-            scores, residual = out
-            return soft_lc(scores, tg), mse(residual, tg["res"])
-
         def main(out, tg):
             scores, residual = out
             ypred = decode_bin_delta(scores, residual, C)
@@ -140,33 +222,130 @@ def make_problem(
         # the relaxed ablation trains with FIXED weights (alpha), no
         # self-balance scalar anywhere (ablationXBDModel.py:63-170)
         return Problem(
-            name, "axis_angle", targets, warmup, main,
+            name, "axis_angle", targets, soft_warmup, main,
             lambda out: decode_bin_delta(out[0], out[1], C),
             warmup_balance=None, main_balance=None,
         )
 
-    mu, cov, w = on_device(gmm_means), on_device(gmm_covariances), on_device(gmm_weights)
+    if name in ("probabilistic", "probabilistic_multires"):
+        mu, cov, w = on_device(gmm_means), on_device(gmm_covariances), on_device(gmm_weights)
 
-    def targets(y):
-        resp, res = gmm_soft_targets(y, mu, cov, w)
-        return {"y": y, "soft": resp, "res": res}
+        def targets(y):
+            resp, res = gmm_soft_targets(y, mu, cov, w)
+            return {"y": y, "soft": resp, "res": res}
+
+        def main(out, tg):
+            scores, residual = out
+            lr = expected_regression(
+                scores, candidates(mu, residual), tg["y"],
+                lambda p, t: geodesic_aa(p, t, reduce=False),
+            )
+            return soft_lc(scores, tg), lr
+
+        return Problem(name, "axis_angle", targets, soft_warmup, main,
+                       lambda out: decode_soft(mu, out))
+
+    if name in ("probabilistic_quat", "probabilistic_quat_multires"):
+        # the reference-dormant quaternion variants (RelaXedProbabilisticLossQ
+        # / ...MultiresLossQ, binDeltaLosses.py:149-166,197-208): RBF soft
+        # bins over quaternion distances with the soft-mean residual
+        # (XPBDGeneratorQ, binDeltaGenerators.py:86-110), KL bin term and the
+        # expected quaternion geodesic under the softmax posterior
+        Cq = convert_dictionary(on_device(centers))
+
+        def targets(y):
+            soft, res = rbf_soft_targets(y, Cq, gamma=gamma)
+            return {"y": y, "soft": soft, "res": res}
+
+        def main(out, tg):
+            scores, residual = out
+            # the reference's argument order my_loss(ytrue, candidate)
+            # (binDeltaLosses.py:163-164): geodesic_quat normalizes its FIRST
+            # argument, the (unit) ground truth, so the candidates enter
+            # un-normalized, |<cand, y>| clamped
+            lr = expected_regression(
+                scores, candidates(Cq, residual), tg["y"],
+                lambda p, t: geodesic_quat(t, p, reduce=False),
+            )
+            return soft_lc(scores, tg), lr
+
+        return Problem(name, "quaternion", targets, soft_warmup, main,
+                       lambda out: _unit(decode_soft(Cq, out)))
+
+    if name in ("riemannian", "log_euclidean"):
+        C = on_device(centers)
+        # the key rotations exp(centers), computed once on the host in
+        # float64 as the reference's startup `rotations_dict` (numpy doubles,
+        # learnRiemannianBDModel.py:61, learnLogEuclideanModel.py:58); kept
+        # in float64 and taken in the dtype of the rotations they meet
+        key_R = exp_so3(torch.as_tensor(np.asarray(centers, np.float64))).to(device)
+
+        def keys_at(ind, like):
+            return key_R.to(like.dtype)[ind]
+
+        def decode(out):
+            scores, residual = out
+            R = exp_so3(residual)
+            return log_so3(keys_at(torch.argmax(scores, dim=-1), R) @ R)
+
+        if name == "riemannian":
+            def targets(y):
+                bins, res, R = tangent_residual_targets(y, C, key_R)
+                return {"y": y, "bins": bins, "res": res, "R": R}
+
+            def main(out, tg):
+                scores, residual = out
+                R = exp_so3(residual)
+                R_pred = keys_at(torch.argmax(scores, dim=-1), R) @ R
+                return cross_entropy(scores, tg["bins"]), geodesic_rotmat(R_pred, tg["R"])
+
+            return Problem(name, "axis_angle", targets, hard_warmup, main, decode)
+
+        def targets(y):
+            bins, _ = hard_bin_targets(y, C)
+            return {"y": y, "bins": bins, "res_per_bin": per_bin_tangent_residuals(y, key_R)}
+
+        def losses(out, tg):
+            scores, residual = out
+            res_true = select_class(tg["res_per_bin"], torch.argmax(scores, dim=-1))
+            return cross_entropy(scores, tg["bins"]), mse(residual, res_true)
+
+        # a single-phase script with the warm-up balance form for its whole
+        # run: Lc + 0.5*exp(-2s)*Lr + s, s = 0.5*log(Lr)
+        # (learnLogEuclideanModel.py:135,140)
+        return Problem(name, "axis_angle", targets, losses, losses, decode,
+                       warmup_balance="warmup", main_balance="warmup")
+
+    if name == "classification":
+        C = on_device(centers)
+
+        def targets(y):
+            bins, _ = hard_bin_targets(y, C)
+            return {"y": y, "bins": bins}
+
+        def losses(out, tg):
+            scores = _first(out)
+            return cross_entropy(scores, tg["bins"]), _zero(scores)
+
+        return Problem(
+            name, "axis_angle", targets, losses, losses,
+            lambda out: C[torch.argmax(_first(out), dim=-1)],
+            warmup_balance=None, main_balance=None,
+        )
+
+    # regression, regression_quat: no bins, no dictionary
+    quat = name == "regression_quat"
+    reg = geodesic_quat if quat else geodesic_aa
 
     def warmup(out, tg):
-        scores, residual = out
-        return soft_lc(scores, tg), mse(residual, tg["res"])
+        y = _first(out)
+        return _zero(y), mse(y, tg["y"])
 
     def main(out, tg):
-        scores, residual = out
-        cand = mu[None, :, :] + residual[:, None, :]  # (B, K, D)
-        lr = expected_regression(
-            scores, cand, tg["y"], lambda p, t: geodesic_aa(p, t, reduce=False)
-        )
-        return soft_lc(scores, tg), lr
+        y = _first(out)
+        return _zero(y), reg(y, tg["y"])
 
-    # argmax decode: dict[argmax] + delta, the reference's LIVE test path; its
-    # softmax-expectation decode is commented out
-    # (learnProbabilisticBDModel.py:168-181)
     return Problem(
-        name, "axis_angle", targets, warmup, main,
-        lambda out: decode_bin_delta(out[0], out[1], mu),
+        name, "quaternion" if quat else "axis_angle", lambda y: {"y": y}, warmup, main,
+        _first, warmup_balance=None, main_balance=None,
     )

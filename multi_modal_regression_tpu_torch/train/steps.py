@@ -1,8 +1,8 @@
 """Train and eval steps (port of the JAX package's train/steps.py).
 
 One train step, on the batch's device with no host synchronisation: the
-uint8 batch -> normalize kernel -> Euler -> axis-angle -> hard bin +
-residual targets -> forward in training mode -> losses -> self-balance ->
+uint8 batch -> normalize kernel -> Euler -> axis-angle or quaternion
+poses -> the problem's targets -> forward in training mode -> losses -> self-balance ->
 backward -> optimizer update, with the BN running statistics updated in the
 forward. `s`, the loss and the metrics stay on the device; nothing in the
 step calls `.item()`, `float()` or `.cpu()`.
@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from multi_modal_regression_tpu_torch.data.targets import euler_to_pose
+from multi_modal_regression_tpu_torch.geometry.quaternion import quat_from_axis_angle
 from multi_modal_regression_tpu_torch.losses.self_balance import self_balanced
 from multi_modal_regression_tpu_torch.ops.preprocess import normalize_images_cuda
 from multi_modal_regression_tpu_torch.train.problems import Problem
@@ -96,7 +97,8 @@ def make_train_step(
     normalizes each stream by its own batch statistics and the running
     statistics take two updates per step, real first. The batch is the
     Trainer's interleaved layout, first half real, second half render; the
-    losses see the concatenated outputs. dual_stream_fused is the JAX
+    losses see the concatenated outputs (a tuple of tensors, or one tensor
+    for the regression and classification models). dual_stream_fused is the JAX
     package's choice of execution for the same semantics (one vmapped
     forward with the two updates composed, identical up to ~1 ulp of the
     running statistics); here both values run the literal two forwards.
@@ -138,6 +140,9 @@ def make_train_step(
         out_a = model(images[:n], labels[:n])
         # the render forward's running-stat update composes on the real one's
         out_b = model(images[n:], labels[n:])
+        # one tensor (regression, classification) or a tuple of them
+        if isinstance(out_a, torch.Tensor):
+            return torch.cat([out_a, out_b])
         return tuple(torch.cat([a, b]) for a, b in zip(out_a, out_b))
 
     def train_step(state: TrainState, batch: dict):
@@ -177,8 +182,9 @@ def make_eval_step(
     """batch -> (ypred, ytrue) on the batch's device.
 
     batch holds `xdata` uint8 (B, H, W, 3) and `label` (B,) on the model's
-    device, and optionally `euler` (B, 3) degrees (ytrue = its axis-angle
-    pose) or `ydata` (ytrue as given); with neither, ytrue is None. The model
+    device, and optionally `euler` (B, 3) degrees (ytrue = its pose in the
+    problem's representation) or axis-angle `ydata` (ytrue as given, turned
+    into quaternions for a quaternion problem); with neither, ytrue is None. The model
     runs in eval mode (running statistics, none updated), as the JAX eval
     step does, and is left in the mode it was in.
     """
@@ -191,7 +197,11 @@ def make_eval_step(
             if "euler" in batch:
                 y = euler_to_pose(batch["euler"], problem.ydata_type)
             else:
+                # .mat crops ship axis-angle `ydata`; quaternion problems
+                # compare quaternions
                 y = batch.get("ydata")
+                if y is not None and problem.ydata_type == "quaternion":
+                    y = quat_from_axis_angle(y)
             outputs = model(images, batch["label"])
             return problem.decode(outputs), y
 

@@ -1020,3 +1020,85 @@ def test_verify_parity_on_the_card(dev, tmp_path):
     for k in ("dictionary", "train", "evaluate", "detections"):
         assert again["stages"][k] == table["stages"][k], k
     assert assign.launches == a0 and preprocess.launches - n0 >= 1
+
+
+# --- the single-model pose zoo ---------------------------------------------------
+
+ZOO_KINDS = {
+    "one_delta_per_bin": "geodesic_bd_multires",
+    "probabilistic": "probabilistic_bd_multires",
+    "per_class_regression": "geodesic_regression",
+    "per_class_classification": "classification",
+    "independent_regression": "independent_regression",
+    "independent_bd": "independent_bd",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ZOO_KINDS))
+def test_zoo_train_step_kernel_matches_plain(dev, kind, monkeypatch):
+    """One dual-stream f32 main step (TF32 off, SGD(lr=1), ResNet50 to
+    layer4 at 64 px, 24 images, N1 32, N2 16, N3 8, K 8, 3 classes) of each
+    new model kind, kernel path against plain path from the same weights.
+    The bin-delta kinds run the stem kernels against the plain stem, both
+    after the normalize kernel: 1 normalize, 2 stem and 2 stem backward
+    launches against 1, 0, 0; loss within 1e-5 relative, every gradient
+    leaf within 1e-4 of its largest magnitude. The models/pose kinds have
+    no stem option: the normalize kernel against the plain normalize, 1
+    launch against 0, loss within 1e-4 relative and each gradient leaf
+    within 5e-2 of its norm: the two normalizes differ by up to 7.2e-7,
+    which flips a few ReLU and max-pool masks, and conv1's gradient, which
+    every flip reaches, moved by 1.8-2.3% of its norm on an H100."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    preset = ZOO_KINDS[kind]
+    small = dict(N1=32, N2=16, N3=8, dict_size=8, num_classes=3, image_size=64,
+                 compute_dtype="float32")
+    bin_delta = kind in ("one_delta_per_bin", "probabilistic")
+    rng = np.random.default_rng(1)
+    centers = rng.standard_normal((8, 3)).astype(np.float32)
+    if kind == "probabilistic":
+        from multi_modal_regression_tpu_torch.dictionary.gmm import GMMDictionary
+
+        covs = np.tile(0.2 * np.eye(3, dtype=np.float32), (8, 1, 1))
+        dictionary = GMMDictionary(centers, covs, np.full(8, 1 / 8, np.float32))
+    else:
+        dictionary = centers
+    batch = {
+        "xdata": torch.from_numpy(rng.integers(0, 256, (24, 64, 64, 3), np.uint8)).to(dev),
+        "euler": torch.from_numpy(rng.uniform(-90, 90, (24, 3)).astype(np.float32)).to(dev),
+        "label": torch.from_numpy(np.tile(np.arange(3), 8).astype(np.int32)).to(dev),
+    }
+    results = {}
+    weights = None
+    for path in ("kernel", "plain"):
+        stem = path if bin_delta else None
+        cfg = get_config(preset, stem_pool=stem, **small)
+        model = build_model(cfg, dev)
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        if path == "plain" and not bin_delta:
+            monkeypatch.setattr("multi_modal_regression_tpu_torch.train.steps."
+                                "normalize_images_cuda", normalize_images)
+        sgd = torch.optim.SGD(model.parameters(), lr=1.0)
+        step = make_train_step(model, build_problem(cfg, dictionary, dev), sgd, phase="main",
+                               alpha=cfg.alpha, dual_stream_bn=True,
+                               dual_loss_sum=cfg.loss_stream_sum)
+        counts = (preprocess.launches, stem_pool.launches, stem_pool.bwd_launches)
+        _, m = step(TrainState(0, model, sgd, torch.zeros((), device=dev)), batch)
+        counts = tuple(n - n0 for n, n0 in zip(
+            (preprocess.launches, stem_pool.launches, stem_pool.bwd_launches), counts))
+        want = ((1, 2, 2) if path == "kernel" else (1, 0, 0)) if bin_delta else (
+            (1, 0, 0) if path == "kernel" else (0, 0, 0))
+        assert counts == want, (path, counts)
+        assert torch.isfinite(m["loss"])
+        results[path] = (float(m["loss"]), {k: p.grad for k, p in model.named_parameters()})
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    assert abs(lk - lp) <= (1e-5 if bin_delta else 1e-4) * abs(lp)
+    if bin_delta:
+        for k, w in gp.items():
+            assert float((gk[k] - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
+    else:
+        errs = sorted(((float((gk[k] - w).norm()) / max(float(w.norm()), 1e-30), k)
+                       for k, w in gp.items()), reverse=True)
+        assert errs[0][0] <= 5e-2, errs[:3]

@@ -220,10 +220,9 @@ def test_soft_problems_main_gradients_match_jax_f64(x64, name):
 def test_problems_refuse_what_is_not_ported():
     means, covs, w = _gmm_arrays()
     kw = dict(gmm_means=means, gmm_covariances=covs, gmm_weights=w)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_problem("probabilistic_multires", None, "cpu", **kw)
-    with pytest.raises(ValueError, match="relaxed_kmeans.*probabilistic|not ported yet"):
-        make_problem("riemannian", _centers(), "cpu")
+    for name in ("simple_rene", "objectnet_quat", "joint_bd"):
+        with pytest.raises(ValueError, match="not ported yet"):
+            make_problem(name, _centers(), "cpu", **kw)
     cfg = get_config("probabilistic_bd", dict_size=8)
     with pytest.raises(ValueError, match="GMMDictionary"):
         build_problem(cfg, _centers(), "cpu")
@@ -236,16 +235,16 @@ def test_problems_refuse_what_is_not_ported():
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_preset_fields_match_jax(preset):
-    """Every field the port's config has equals the JAX get_config's, except
-    stem_pool and fused_conv_bn, whose JAX default 'auto' resolves to off."""
+    """Every field the port's config has (model_kind, N3, multires and
+    nonlinearity among them) equals the JAX get_config's, except stem_pool
+    and fused_conv_bn, whose JAX default 'auto' resolves to off."""
     cfg, ref = get_config(preset), jax_get_config(preset)
-    assert ref.model_kind == "one_bin_delta" and not ref.multires
     for f in cfg.__dataclass_fields__:
         if f in ("stem_pool", "fused_conv_bn"):
             continue
         assert getattr(cfg, f) == getattr(ref, f), f
     with pytest.raises(ValueError, match="not ported yet"):
-        get_config("riemannian_bd")
+        get_config("simple_bd_rene")
 
 
 def test_build_problem_resolves_gamma_and_dictionaries():

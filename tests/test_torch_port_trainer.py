@@ -384,7 +384,6 @@ def test_cli_train_refuses_mismatched_classes(cli_tree, tmp_path):
     ["--warm-start-preset", "geodesic_bd"], ["--warm-start-checkpoint", "final"],
     ["--warm-start-kind", "oracle"], ["--compile-cache", "off"], ["--frozen-bn"],
     ["--remat", "block"], ["--train-flip"], ["--device-resize-from", "64"],
-    ["--N3", "8"], ["--multires"],
 ], ids=lambda f: f[0])
 def test_cli_train_refuses_what_is_not_ported(cli_tree, tmp_path, flag):
     """Each flag whose machinery is not ported raises NotImplementedError
@@ -392,6 +391,18 @@ def test_cli_train_refuses_what_is_not_ported(cli_tree, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.main(_cli_args(cli_tree, "--workdir", str(tmp_path / "run"), *flag))
     assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["--N3", "8"], "N3", 8), (["--multires"], "multires", True),
+], ids=lambda f: f[0] if isinstance(f, list) else None)
+def test_cli_train_takes_the_multires_flags(cli_tree, flag, field, value):
+    """--N3 and --multires reach the config (fields of the JAX names, ported
+    with the multires models); without them the preset's values stand."""
+    parse = cli.build_parser().parse_args
+    base = cli._config_from_args(parse(_cli_args(cli_tree)))
+    assert getattr(base, field) == {"N3": 100, "multires": False}[field]
+    assert getattr(cli._config_from_args(parse(_cli_args(cli_tree, *flag))), field) == value
 
 
 def test_cli_train_defaults_to_the_card():
