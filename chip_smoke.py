@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: its kernels, serving, training,
-evaluation, the quality-parity gate and the single-model pose zoo.
+evaluation, the quality-parity gate, the single-model pose zoo and the
+two-stage and joint category + pose pipelines.
 
     python3 chip_smoke.py
 
@@ -175,10 +176,38 @@ line each (or more), in order:
      --checkpoint final --eval-num-epochs 1` of the quaternion run in this
      process: its ensembled MedErr within 1e-6 deg of the one recomputed
      from the snapshot file
+  14 the two-stage and joint category + pose pipelines at full width
+     (ResNet50 to layer4, N0 2048, N1 1000, N2 500, N3 100, K 200 or the
+     preset's own 16, 12 classes, 224 px, bf16, 96 images a step):
+     Trainer.fit of each of the 14 presets, 1 warm-up + 1 main step (2 main
+     epochs of 1 step for a single-phase preset), stem_pool 'kernel' for the
+     _rene presets' one_bin_delta trunk: per step exactly 1 normalize, 2
+     stem (0 for the other kinds) and no stem backward launch (the _rene
+     trunk is frozen: no gradient runs into it), no assign launch; finite
+     metrics, Lc zero exactly for the _rene problems and Lr for the category
+     problem, each step's rate, every train_only-frozen leaf bit-equal,
+     running statistics moved exactly where BN trains (none under
+     frozen_bn, res_models' alone under bn_train_only); 4 of them
+     (JOINT_COMPARE) through the plain path from the same weights within
+     TRAIN_TOL; one 64-image request of each of the 6 new kinds through
+     make_inference_fn (1 normalize launch) against the plain path on the
+     rows whose argmax choices (category, bin, joint posterior) the two
+     paths cannot make differently (a top-2 margin over twice the paths'
+     largest difference); then
+     `cli dictionary` in this process (K 200 over [10]'s timing render
+     tree, exactly 4 x 101 assign launches), chain 1 as one subprocess
+     (`cli train classification` -> `cli train simple_bd_rene
+     --warm-start-kind classifier`: the rene run's trunk and bin heads the
+     classifier's bits after its frozen fine-tune) beside chain 2 in this
+     process ([10]'s geodesic_bd `final` -> `cli train joint_cat_pose_top1
+     --warm-start-kind oracle` -> `cli train cat_given_pose --warm-start-kind
+     oracle` -> `cli predict --analysis --checkpoint final,last`: grafted
+     tensors bit-equal to their sources, launches exact, the .mat's
+     ypred_pose (N, 3, 12), the analysis kernel vs plain on clear rows)
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
-     rate of their type; `zoo_launches` their launches in [13]), then the
-     result line
+     rate of their type; `zoo_launches` their launches in [13],
+     `joint_launches` in [14]), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 With --profile, [6] also prints the device-time table (torch.profiler) of 3
@@ -229,6 +258,7 @@ from multi_modal_regression_tpu_torch.dictionary.kmeans import (  # noqa: E402
     fit_kmeans,
 )
 from multi_modal_regression_tpu_torch.metrics import mean_class_median_error  # noqa: E402
+from multi_modal_regression_tpu_torch.models import surgery  # noqa: E402
 from multi_modal_regression_tpu_torch.models.heads import HeadBatchNorm  # noqa: E402
 from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
     _build,
@@ -255,6 +285,7 @@ from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
     fused_inputs,
 )
 from multi_modal_regression_tpu_torch.train import steps  # noqa: E402
+from multi_modal_regression_tpu_torch.train.analysis import run_joint_analysis  # noqa: E402
 from multi_modal_regression_tpu_torch.train.evaluator import (  # noqa: E402
     SnapshotEnsembleEvaluator,
     ensemble_poses,
@@ -263,6 +294,7 @@ from multi_modal_regression_tpu_torch.train.presets import (  # noqa: E402
     build_model,
     build_problem,
     get_config,
+    trained_parameters,
 )
 from multi_modal_regression_tpu_torch.train.problems import DICTIONARY_FREE  # noqa: E402
 from multi_modal_regression_tpu_torch.train.schedules import epoch_lr_factor  # noqa: E402
@@ -2536,7 +2568,8 @@ def zoo_checks(preset: str, cfg, hist, launches: dict, before: dict, after: dict
               f"{m['lc'] + m['lr']:.5f})")
 
 
-def zoo_plain(preset, cfg, dictionary, init_sd, real, render, hist, dev) -> Trainer:
+def zoo_plain(preset, cfg, dictionary, init_sd, real, render, hist, dev,
+              phase: str = "13") -> Trainer:
     """The same steps through the plain path from the same weights, held
     within TRAIN_TOL of the kernel path's metrics."""
     plain = Trainer(cfg.replace(stem_pool="plain" if cfg.stem_pool else None),
@@ -2556,9 +2589,9 @@ def zoo_plain(preset, cfg, dictionary, init_sd, real, render, hist, dev) -> Trai
             else:
                 limit, worst = TRAIN_TOL, max(worst, err)
             if not err <= limit:
-                raise AssertionError(f"[13] {preset} step {rk['step']} {k}: kernel {rk[k]} "
-                                     f"plain {rp[k]}")
-    print(f"[13] {preset} kernel vs plain path, {len(hist)} steps from the same weights: "
+                raise AssertionError(f"[{phase}] {preset} step {rk['step']} {k}: kernel "
+                                     f"{rk[k]} plain {rp[k]}")
+    print(f"[{phase}] {preset} kernel vs plain path, {len(hist)} steps from the same weights: "
           f"worst metric difference {worst:.3g} (<= {TRAIN_TOL})"
           + (f", the second step's loss, Lr and alpha through the argmax bin's target "
              f"{worst_argmax:.3g} (<= {SOFT_DECODE_TOL})" if worst_argmax else "") + "; "
@@ -2766,7 +2799,509 @@ def phase_zoo(dev, smi: str, kmeans_200, gmm, user: dict, tmp: Path) -> dict:
           f"{ {k: v for k, v in totals.items() if v} } and assign {assign_launches} for the "
           f"two dictionary fits; {smi}")
     zoo_cli(dev, smi, user, tmp)
-    return {**totals, "assign": assign_launches, "multires": multires}
+    return {**totals, "assign": assign_launches, "multires": multires, "dicts": dicts}
+
+
+# --- [14] the two-stage and joint category + pose pipelines ------------------------------
+
+# the 14 presets this slice ports, in ROADMAP order (4.6, 4.7, 5, 4.8's two)
+JOINT_PRESETS = (
+    "simple_bd_rene", "euclidean_bd_rene", "joint_cat_pose_top1", "joint_cat_pose_top1_new",
+    "joint_cat_pose_weighted", "joint_cat_pose2_top1", "joint_cat_pose2_weighted",
+    "joint_cat_pose3_top1", "joint_cat_pose3_weighted", "elhoseiny_bd", "elhoseiny_regression",
+    "categorization", "cat_given_pose", "cat_given_pose3",
+)
+# the same steps through the plain path: a variant-1 joint_top1, a variant-2
+# weighted, the one-stage BD and a _rene fine-tune (the stem kernels under eval BN)
+JOINT_COMPARE = ("joint_cat_pose_top1_new", "joint_cat_pose2_weighted", "elhoseiny_bd",
+                 "simple_bd_rene")
+# one preset of each new model kind: a request served from its trained model
+JOINT_SERVE = {
+    "joint_cat_pose_top1_new": "joint_bd_v1", "joint_cat_pose2_weighted": "joint_bd_v2",
+    "joint_cat_pose3_top1": "joint_reg_v3", "elhoseiny_bd": "elhoseiny_bd",
+    "elhoseiny_regression": "elhoseiny_reg", "categorization": "categorization",
+}
+
+
+def joint_config(preset: str):
+    """Full width, bf16, 4 items a class a stream, 2 steps: 1 warm-up + 1 main
+    step, or 2 main epochs of 1 step for a single-phase preset; the stem
+    kernels for the one_bin_delta trunk of the _rene presets (the joint kinds
+    have no stem option, in the JAX package either)."""
+    base = get_config(preset)
+    warm = base.num_warmup_epochs > 0
+    return get_config(
+        preset, compute_dtype="bfloat16", items_per_batch=4, max_iterations=1,
+        stem_pool="kernel" if base.model_kind in BD_KINDS else None,
+        num_warmup_epochs=1 if warm else 0, num_epochs=1 if warm else 2,
+    )
+
+
+def joint_dictionary(cfg, dicts):
+    if cfg.problem in ("joint_reg", "elhoseiny_reg", "category"):
+        return None
+    return dicts[cfg.dict_size]
+
+
+def joint_checks(preset: str, cfg, trainer: Trainer, launches: dict, before: dict) -> dict:
+    """Exact launches (the frozen trunk of a _rene step runs no stem backward),
+    finite metrics, the terms that must be nonzero, each step's rate, the
+    train_only leaves bit-equal, running statistics moved exactly where BN
+    trains (none under frozen_bn, res_models' alone under bn_train_only).
+    Returns the counts of trained and frozen leaves and of moved statistics."""
+    hist, n = trainer.history, len(trainer.history)
+    stem = cfg.stem_pool is not None
+    want = {**{k: 0 for k in launches}, "normalize": n, "stem_pool": 2 * n if stem else 0}
+    if n != 2 or launches != want:
+        raise AssertionError(f"[14] {preset}: {n} steps, launches {launches}, expected {want}")
+    for rec in hist:
+        if not all(np.isfinite(rec[k]) for k in ("loss", "lc", "lr", "s", "alpha")):
+            raise AssertionError(f"[14] {preset}: non-finite metrics {rec}")
+        if (rec["lc"] != 0) != (not cfg.problem.endswith("rene")):
+            raise AssertionError(f"[14] {preset}: lc {rec['lc']} (problem {cfg.problem})")
+        if (rec["lr"] != 0) != (cfg.problem != "category"):
+            raise AssertionError(f"[14] {preset}: lr {rec['lr']} (problem {cfg.problem})")
+    epochs = [0] * cfg.num_warmup_epochs + [e + 1 for e in range(cfg.num_epochs)]
+    rates = [cfg.init_lr * (epoch_lr_factor(cfg.epoch_lr_decay, e) if cfg.epoch_lr_decay
+                            else 1.0) for e in epochs]
+    if not np.allclose([r["learning_rate"] for r in hist], rates, rtol=1e-12):
+        raise AssertionError(f"[14] {preset}: rates {[r['learning_rate'] for r in hist]}")
+    trained = {id(p) for p in trained_parameters(cfg, trainer.model)}
+    names = {k for k, p in trainer.model.named_parameters() if id(p) in trained}
+    after = trainer.model.state_dict()
+    counts = {"trained": 0, "frozen": 0, "stats_moved": 0, "stats_kept": 0}
+    for k, v in after.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        same = torch.equal(v, before[k])
+        if "running" in k:
+            scope = cfg.bn_train_only
+            trains = not cfg.frozen_bn and (scope is None or k.split(".")[0] in scope)
+            if same == trains:
+                raise AssertionError(f"[14] {preset}: running statistic {k} "
+                                     f"{'did not move' if trains else 'moved'}")
+            counts["stats_moved" if trains else "stats_kept"] += 1
+        elif k in names:
+            counts["trained"] += 1
+        elif not same:
+            raise AssertionError(f"[14] {preset}: frozen leaf {k} changed")
+        else:
+            counts["frozen"] += 1
+    if not any(not torch.equal(after[k], before[k]) for k in names):
+        raise AssertionError(f"[14] {preset}: no trained leaf moved")
+    return counts
+
+
+def _clear(q_kern: torch.Tensor, q_plain: torch.Tensor, rows=None) -> torch.Tensor:
+    """The rows whose argmax over the last axis cannot differ between the two
+    paths: the plain path's top-2 margin exceeds twice the largest
+    difference E between the paths' q (over `rows`, default all), which no
+    perturbation of at most E per element can overturn. With E = 0 (the same
+    bits) every row is clear but an exact tie."""
+    diff = (q_kern - q_plain).abs()
+    if rows is not None:
+        diff = diff[rows]
+    e = float(diff.max()) if diff.numel() else 0.0
+    top2 = torch.topk(q_plain, 2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > 2 * e
+
+
+def _log_joint(cat: torch.Tensor, per_head: torch.Tensor) -> torch.Tensor:
+    """log(softmax(per-class bin scores) x softmax(category logits)),
+    flattened (class, bin): joint_top1's argmax, as a continuous quantity."""
+    q = torch.log_softmax(per_head, -1) + torch.log_softmax(cat, -1)[:, :, None]
+    return q.reshape(q.shape[0], -1)
+
+
+def joint_clear_rows(kind: str, mixing: str, kern, plain) -> torch.Tensor:
+    """The rows whose argmax choices (category, bin, joint posterior) the two
+    paths cannot make differently (`_clear`), from each path's forward
+    outputs and, for the variants 1 and 2, its `analysis` outputs (the
+    per-class scores): a category argmax only where the mixing takes one
+    (top1, top1_st; joint_top1's over (class, bin)), a bin argmax for the
+    decoded BD kinds, the class argmax for the classifier."""
+    (outs_k, ana_k), (outs_p, ana_p) = kern, plain
+    n = outs_p[0].shape[0]
+    clear = torch.ones(n, dtype=torch.bool, device=outs_p[0].device)
+    if kind in ("joint_bd_v1", "joint_bd_v2"):
+        if mixing == "joint_top1":
+            return _clear(_log_joint(ana_k[0], ana_k[1]), _log_joint(ana_p[0], ana_p[1]))
+        if mixing != "weighted":
+            clear &= _clear(outs_k[0], outs_p[0])
+        # the mixed bin scores are continuous once the class choice is
+        return clear & _clear(outs_k[1], outs_p[1], clear)
+    if kind == "joint_reg_v3" and mixing != "weighted" or kind == "categorization":
+        return _clear(outs_k[0], outs_p[0])
+    if kind == "elhoseiny_bd":
+        return _clear(outs_k[1], outs_p[1])
+    return clear
+
+
+def joint_serve(preset: str, kind: str, trainer: Trainer, dev) -> dict:
+    """One 64-image request through make_inference_fn (1 normalize launch,
+    no other) against the plain path (the plain normalize, the same model):
+    raw outputs and served poses, or class ids, on the clear rows within
+    SERVE_RTOL (ids equal)."""
+    rtol = SERVE_RTOL[torch.bfloat16]
+    images, labels = make_requests(np.random.default_rng(15), (64,), 224, 12)[0]
+    model = trainer.model
+    infer = make_inference_fn(model, trainer.problem)
+    reset_counts()
+    served = infer(images, labels)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    if launches != {"normalize": 1}:
+        raise AssertionError(f"[14] {preset} serve launches {launches}")
+    paths = []
+    for kernel in (True, False):
+        outs, dec = zoo_outputs(model, trainer.problem, images, labels, dev, kernel)
+        ana = None
+        if hasattr(model, "analysis"):
+            norm = preprocess.normalize_images_cuda if kernel else normalize_images
+            with torch.inference_mode():
+                ana = model.analysis(norm(torch.from_numpy(images).to(dev), torch.bfloat16))
+        paths.append(((outs, ana), dec))
+    ((outs_k, ana_k), _), ((outs_p, ana_p), dec_p) = paths
+    clear = joint_clear_rows(kind, getattr(model, "mixing", None), (outs_k, ana_k),
+                             (outs_p, ana_p))
+    if not clear.any():
+        raise AssertionError(f"[14] {preset}: no row clear of a tie between the two paths")
+    every = max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p))  # all rows
+    worst = 0.0
+    for k, p in zip(outs_k, outs_p, strict=True):
+        err = float((k[clear] - p[clear]).abs().max())
+        if not err <= rtol * float(p.abs().max()):
+            raise AssertionError(f"[14] {preset} outputs on clear rows: max err {err:.3g}")
+        worst = max(worst, err)
+    if dec_p.dtype == torch.int32:
+        if not torch.equal(served[clear], dec_p[clear]):
+            raise AssertionError(f"[14] {preset} served class ids differ on clear rows")
+        perr = 0.0
+    else:
+        perr = float((served[clear] - dec_p[clear]).abs().max())
+        if not perr <= rtol * max(float(dec_p.abs().max()), 1.0):
+            raise AssertionError(f"[14] {preset} served poses: max err {perr:.3g}")
+    print(f"[14] {preset} ({kind}): one 64-image request through make_inference_fn (launches "
+          f"{launches}) against the plain path: outputs max err {worst:.3g}, served "
+          f"{'class ids equal' if dec_p.dtype == torch.int32 else f'poses max err {perr:.3g}'} "
+          f"on {int(clear.sum())}/{len(clear)} rows clear of a tie (rtol {rtol:g} of max); "
+          f"outputs max err {every:.3g} over all 64 rows")
+    return {"outputs_err": worst, "served_err": perr, "clear": int(clear.sum())}
+
+
+def chain_dictionary(smi: str, user: dict, tmp: Path) -> tuple[Path, int]:
+    """`cli dictionary` in this process: a K 200 kmeans over the poses of
+    [10]'s timing render tree (the default n_init 4 x 100 Lloyd steps:
+    exactly 4 x 101 assign launches). Chain 1 trains on it."""
+    npz = tmp / "chain_kmeans_200.npz"
+    assign.launches = 0
+    t0 = time.perf_counter()
+    with tee_stdout() as out:
+        if cli.main(["dictionary", "--data-root", str(user["timing"] / "renderforcnn"),
+                     "--out", str(npz), "--size", "200"]) != 0:
+            raise AssertionError("[14] cli dictionary failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_poses = int(out.getvalue().split(" poses parsed")[0].split()[-1])
+    if assign.launches != 4 * 101 or KMeansDictionary.load(npz).cluster_centers.shape != (200, 3):
+        raise AssertionError(f"[14] cli dictionary: {assign.launches} assign launches")
+    print(f"[14] cli dictionary (this process) over {n_poses} poses of [10]'s timing render "
+          f"tree, K 200, n_init 4 x 100 steps: {wall:.2f} s wall, assign launches "
+          f"{assign.launches} = 4 x 101; {smi}")
+    return npz, assign.launches
+
+
+def chain_common(user: dict, npz) -> list[str]:
+    return ["--data-root", str(user["data"]), "--dictionary", str(npz), "--compute-dtype",
+            "bfloat16", "--items-per-batch", "4", "--max-iterations", "2", "--num-epochs", "1"]
+
+
+def _sub(sd: dict, prefix: str) -> dict:
+    return {k[len(prefix) + 1:]: v for k, v in sd.items() if k.startswith(prefix + ".")}
+
+
+def _bit_equal(tag: str, got: dict, want: dict) -> int:
+    if not got or sorted(got) != sorted(want) or not all(
+            torch.equal(got[k].cpu(), want[k].cpu()) for k in got):
+        raise AssertionError(f"[14] {tag}: not bit-equal")
+    return len(got)
+
+
+def chain_one_start(user: dict, npz: Path, tmp: Path) -> subprocess.Popen:
+    """Chain 1, one subprocess: `cli train classification` then `cli train
+    simple_bd_rene --warm-start-kind classifier` from it."""
+    common = chain_common(user, npz)
+    cls = ["train", "--preset", "classification", *common, "--workdir", str(tmp / "chain_cls")]
+    rene = ["train", "--preset", "simple_bd_rene", *common, "--workdir",
+            str(tmp / "chain_rene"), "--warm-start-workdir", str(tmp / "chain_cls"),
+            "--warm-start-preset", "classification", "--warm-start-kind", "classifier"]
+    script = (f"from {PORT} import cli\n"
+              f"for args in ({cls!r}, {rene!r}):\n"
+              f"    assert cli.main(list(args)) == 0\n")
+    return subprocess.Popen([sys.executable, "-c", script], cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def chain_one_finish(proc: subprocess.Popen, tmp: Path, t0: float) -> dict:
+    """Exit 0; the rene run's trunk and bin heads are the classifier's bits
+    after its fine-tune (grafted, then frozen with BN on running statistics)."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[14] chain 1 exited {proc.returncode}:\n{out}{err}")
+    cls = torch.load(tmp / "chain_cls" / "checkpoints" / "final", map_location="cpu",
+                     weights_only=True)
+    rene = torch.load(tmp / "chain_rene" / "checkpoints" / "final", map_location="cpu",
+                      weights_only=True)
+    n = _bit_equal("chain 1 trunk", _sub(rene["model"], "feature_model"),
+                   _sub(cls["model"], "feature_model"))
+    n += _bit_equal("chain 1 bin heads", _sub(rene["model"], "bin_models"),
+                    _sub(cls["model"], "pose_models"))
+    meds = [float(x.split()[0]) for x in out.split("final MedErr ")[1:]]
+    if "warm-started (classifier)" not in out or len(meds) != 2 or not all(
+            np.isfinite(m) for m in meds) or len(rene["optimizer"]) != 8:
+        raise AssertionError(f"[14] chain 1 output:\n{out}")
+    print(f"[14] chain 1 (one subprocess): cli train classification -> cli train simple_bd_rene "
+          f"--warm-start-kind classifier, exit 0 in {wall:.1f} s wall (beside chain 2); the "
+          f"rene `final`'s trunk and bin heads bit-equal to the classifier's `final` ({n} "
+          f"tensors: grafted, then frozen); Adam state for res_models' 8 leaves only; final "
+          f"MedErrs {meds[0]:.3f}, {meds[1]:.3f} deg")
+    return {"wall_s": wall, "bit_equal": n}
+
+
+def chain_two(dev, smi: str, user: dict, tmp: Path) -> dict:
+    """Chain 2, in this process: [10]'s geodesic_bd run as the oracle ->
+    `cli train joint_cat_pose_top1 --warm-start-kind oracle` -> `cli train
+    cat_given_pose --warm-start-kind oracle` from it -> `cli predict
+    --analysis` over the joint run's final and last; the analysis kernel vs
+    plain path. Returns the normalize launches."""
+    args10 = user["args"]
+    oracle_wd = Path(args10[args10.index("--workdir") + 1])
+    npz = args10[args10.index("--dictionary") + 1]
+    common = chain_common(user, npz)
+    grafts = []
+    graft = surgery.graft_oracle_into_joint
+
+    def spy(dst, src, kind):
+        out = graft(dst, src, kind)
+        grafts.append({k: v.detach().cpu().clone() for k, v in out.items()})
+        return out
+
+    n_test = len(list((user["data"] / "test").rglob("*.png")))
+    test_batches = -(-n_test // get_config("geodesic_bd").eval_batch)
+    launches = 0
+    surgery.graft_oracle_into_joint = spy
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with tee_stdout() as out_joint:
+            if cli.main(["train", "--preset", "joint_cat_pose_top1", *common, "--workdir",
+                         str(tmp / "chain_joint"), "--warm-start-workdir", str(oracle_wd),
+                         "--warm-start-preset", "geodesic_bd"]) != 0:
+                raise AssertionError("[14] chain 2 joint train failed")
+        torch.cuda.synchronize()
+        joint_s = time.perf_counter() - t0
+        counts = read_counts()
+        want = {**{k: 0 for k in counts}, "normalize": 2 + 2 * test_batches}
+        if counts != want:
+            raise AssertionError(f"[14] chain 2 joint launches {counts}, expected {want}")
+        launches += counts["normalize"]
+        reset_counts()
+        t0 = time.perf_counter()
+        with tee_stdout() as out_cat:
+            if cli.main(["train", "--preset", "cat_given_pose", *common, "--workdir",
+                         str(tmp / "chain_cat"), "--warm-start-workdir", str(tmp / "chain_joint"),
+                         "--warm-start-preset", "joint_cat_pose_top1"]) != 0:
+                raise AssertionError("[14] chain 2 cat_given_pose train failed")
+        torch.cuda.synchronize()
+        cat_s = time.perf_counter() - t0
+        counts = read_counts()
+        # 1 warm-up + 1 main epoch of 2 steps; an eval after the main epoch and the final one
+        want = {**{k: 0 for k in counts}, "normalize": 4 + 2 * test_batches}
+        if counts != want:
+            raise AssertionError(f"[14] chain 2 cat_given_pose launches {counts}, expected {want}")
+        launches += counts["normalize"]
+    finally:
+        surgery.graft_oracle_into_joint = graft
+    oracle = torch.load(oracle_wd / "checkpoints" / "final", map_location="cpu",
+                        weights_only=True)
+    joint = torch.load(tmp / "chain_joint" / "checkpoints" / "final", map_location="cpu",
+                       weights_only=True)
+    cat = torch.load(tmp / "chain_cat" / "checkpoints" / "final", map_location="cpu",
+                     weights_only=True)
+    if len(grafts) != 2:
+        raise AssertionError(f"[14] chain 2: {len(grafts)} grafts")
+    n_graft = n_frozen = 0
+    for m in ("feature_model", "bin_models", "res_models"):
+        n_graft += _bit_equal(f"chain 2 oracle graft {m}", _sub(grafts[0], m),
+                              _sub(oracle["model"], m))
+        n_graft += _bit_equal(f"chain 2 joint graft {m}", _sub(grafts[1], m),
+                              _sub(joint["model"], m))
+        n_frozen += _bit_equal(f"chain 2 cat_given_pose {m}", _sub(cat["model"], m),
+                               _sub(joint["model"], m))
+    acc = float(out_cat.getvalue().split("final Acc ")[1].split()[0])
+    med = float(out_joint.getvalue().split("final MedErr ")[1].split()[0])
+    if not (np.isfinite(med) and 0 <= acc <= 1 and len(cat["optimizer"]) == 2):
+        raise AssertionError(f"[14] chain 2: MedErr {med}, Acc {acc}")
+    print(f"[14] chain 2 (this process): [10]'s geodesic_bd `final` (step {oracle['step']}) -> "
+          f"cli train joint_cat_pose_top1 --warm-start-kind oracle ({joint_s:.1f} s wall, final "
+          f"MedErr {med:.3f} deg) -> cli train cat_given_pose --warm-start-kind oracle "
+          f"({cat_s:.1f} s, final Acc {acc:.4f}); the grafted tensors bit-equal to their "
+          f"sources' `final` ({n_graft} tensors over the two grafts), cat_given_pose's trunk and "
+          f"banks still the joint run's bits after its frozen fine-tune ({n_frozen} tensors); "
+          f"Adam state for the fc's 2 leaves only; {smi}")
+
+    # predict --analysis over two checkpoints
+    reset_counts()
+    t0 = time.perf_counter()
+    pred = ["predict", "--preset", "joint_cat_pose_top1", *common, "--workdir",
+            str(tmp / "chain_joint"), "--analysis", "--checkpoint", "final,last"]
+    with tee_stdout() as out_pred:
+        if cli.main(pred) != 0:
+            raise AssertionError("[14] cli predict --analysis failed")
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != {**{k: 0 for k in counts}, "normalize": 2 * test_batches}:
+        raise AssertionError(f"[14] predict --analysis launches {counts}")
+    launches += counts["normalize"]
+    mat = spio.loadmat(tmp / "chain_joint" / "results_run_analysis.mat")
+    runs = sorted(k for k in mat if k.endswith("_results"))
+    r = mat["pose_results"][0, 0]
+    shape = r["ypred_pose"].shape
+    if runs != ["cat_results", "pose_results"] or shape != (n_test, 3, 12) or not np.isfinite(
+            r["ypred_pose"]).all():
+        raise AssertionError(f"[14] analysis .mat: runs {runs}, ypred_pose {shape}")
+    reports = [ln for ln in out_pred.getvalue().splitlines() if "cat acc" in ln]
+    print(f"[14] cli predict --analysis --checkpoint final,last ({pred_s:.1f} s wall, "
+          f"{counts['normalize']} normalize launches = 2 checkpoints x {test_batches} test "
+          f"batch): results_run_analysis.mat with {runs}, ypred_pose {shape}; "
+          + " / ".join(reports))
+
+    # the analysis, kernel path against the plain path (the plain normalize)
+    parsed = cli.build_parser().parse_args(pred)
+    cfg = cli._config_from_args(parsed)
+    trainer = Trainer(cfg, dictionary=cli._load_dictionary_cached(str(npz)),
+                      workdir=tmp / "chain_joint", device=dev)
+    state = trainer.restore_checkpoint("final")
+    test = cli._make_test_loader(parsed, cfg, PASCAL3D_CLASSES, cfg.image_size)
+    centers = cli._load_dictionary_cached(str(npz)).cluster_centers
+    got = run_joint_analysis(trainer, state, test, centers)
+    batches = [trainer._to_device(b) for b in test]
+    with torch.inference_mode():
+        raw_k = [trainer.model.analysis(preprocess.normalize_images_cuda(b["xdata"],
+                                                                         torch.bfloat16))
+                 for b in batches]
+    with plain_normalize():
+        want = run_joint_analysis(trainer, state, test, centers)
+        with torch.inference_mode():
+            raw_p = [trainer.model.analysis(normalize_images(b["xdata"], torch.bfloat16))
+                     for b in batches]
+    valid = np.concatenate([np.asarray(b["valid"], bool) for b in test])
+
+    def cat_rows(i):  # output i of every batch, joined, valid rows
+        return (torch.cat([r[i] for r in raw_k]), torch.cat([r[i] for r in raw_p]))
+
+    cat_clear = _clear(*cat_rows(0)).cpu().numpy()[valid]
+    bin_clear = _clear(*cat_rows(1)).cpu().numpy()[valid]  # (N, C): each class's bin
+    rtol = SERVE_RTOL[torch.bfloat16]
+    if not (cat_clear.any() and bin_clear.any()
+            and np.array_equal(got["ytrue_cat"], want["ytrue_cat"])
+            and np.array_equal(got["ypred_cat"][cat_clear], want["ypred_cat"][cat_clear])):
+        raise AssertionError("[14] analysis class ids differ on clear rows")
+    gp = np.transpose(got["ypred_pose"], (0, 2, 1))[bin_clear]  # (entries, D)
+    wp = np.transpose(want["ypred_pose"], (0, 2, 1))[bin_clear]
+    perr = float(np.abs(gp - wp).max())
+    if not perr <= rtol * max(float(np.abs(wp).max()), 1.0):
+        raise AssertionError(f"[14] analysis poses: max err {perr:.3g}")
+    print(f"[14] run_joint_analysis of the joint `final`, kernel path against the plain "
+          f"normalize: class ids equal on {int(cat_clear.sum())}/{len(cat_clear)} rows clear "
+          f"of a tie, per-class poses max err {perr:.3g} on {int(bin_clear.sum())}/"
+          f"{bin_clear.size} (row, class) entries with a clear bin (rtol {rtol:g} of max)")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"normalize": launches, "joint_s": joint_s, "cat_s": cat_s, "predict_s": pred_s,
+            "analysis_err": perr}
+
+
+def phase_joint(dev, smi: str, dicts: dict, user: dict, tmp: Path) -> dict:
+    """[14]: the 14 two-stage and joint presets at full width, then the two
+    chains through the command line."""
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(14)
+    real, render = (make_loader(rng, 1, 4, 224, 12) for _ in range(2))
+    totals = {k: 0 for k in read_counts()}
+    peaks, served = {}, {}
+    for preset in JOINT_PRESETS:
+        cfg = joint_config(preset)
+        dictionary = joint_dictionary(cfg, dicts)
+        t0 = time.perf_counter()
+        kern = Trainer(cfg, dictionary=dictionary, device=dev)
+        build_s = time.perf_counter() - t0
+        before = {k: v.clone() for k, v in kern.model.state_dict().items()}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        assign.launches = 0
+        t0 = time.perf_counter()
+        kern.fit(kern.init_state(), real, render, log_every=1)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peaks[preset] = torch.cuda.max_memory_allocated() / 2**30
+        launches = read_counts()
+        if assign.launches:
+            raise AssertionError(f"[14] {preset}: {assign.launches} assign launches in its steps")
+        counts = joint_checks(preset, cfg, kern, launches, before)
+        for k, v in launches.items():
+            totals[k] += v
+        hist = kern.history
+        n_params = sum(p.numel() for p in kern.model.parameters())
+        n_trained = sum(p.numel() for p in trained_parameters(cfg, kern.model))
+        print(f"[14] {preset} ({cfg.model_kind}, {cfg.problem}, mixing {cfg.mixing}, K "
+              f"{cfg.dict_size}, stem_pool {cfg.stem_pool}, frozen_bn {cfg.frozen_bn}, "
+              f"train_only {cfg.train_only}, bn_train_only {cfg.bn_train_only}): "
+              f"{n_params / 1e6:.1f} M parameters ({n_trained / 1e6:.2f} M trained), built in "
+              f"{build_s:.1f} s; {len(hist)} steps in {fit_s:.2f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, peak {peaks[preset]:.2f} GiB; "
+              f"leaves trained {counts['trained']}, frozen and bit-equal {counts['frozen']}; "
+              f"running statistics moved {counts['stats_moved']}, kept {counts['stats_kept']}; "
+              + "; ".join(f"{r['phase']} lr {r['learning_rate']:.3g}: loss {r['loss']:.4f} "
+                          f"lc {r['lc']:.4f} lr {r['lr']:.4f}" for r in hist))
+        if preset in JOINT_COMPARE:
+            # the same steps from the same weights (`before`), stem_pool 'plain' for
+            # the _rene trunk and the plain normalize
+            zoo_plain(preset, cfg, dictionary, before, real, render, hist, dev, phase="14")
+        if preset in JOINT_SERVE:
+            served[preset] = joint_serve(preset, JOINT_SERVE[preset], kern, dev)
+        del kern, before
+        torch.cuda.empty_cache()
+    print(f"[14] 14 presets trained, {len(JOINT_COMPARE)} of them against the plain path, "
+          f"{len(served)} kinds served, in {time.perf_counter() - t_all:.1f} s; launches over "
+          f"the 28 steps { {k: v for k, v in totals.items() if v} }; peak device memory "
+          f"v1 {peaks['joint_cat_pose_top1']:.2f} GiB, v2 (a second layer4) "
+          f"{peaks['joint_cat_pose2_top1']:.2f}, v3 {peaks['joint_cat_pose3_top1']:.2f}, "
+          f"_rene {peaks['simple_bd_rene']:.2f}, categorization {peaks['categorization']:.2f}; "
+          f"{smi}")
+    npz, assign_launches = chain_dictionary(smi, user, tmp)
+    t0 = time.perf_counter()
+    proc = chain_one_start(user, npz, tmp)
+    try:
+        two = chain_two(dev, smi, user, tmp)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    one = chain_one_finish(proc, tmp, t0)
+    wall = time.perf_counter() - t_all
+    print(f"[14] done in {wall:.1f} s (chains {time.perf_counter() - t0:.1f} s); {smi}")
+    return {"normalize": totals["normalize"] + two["normalize"],
+            "stem_pool": totals["stem_pool"], "stem_pool_bwd": totals["stem_pool_bwd"],
+            "assign": assign_launches, "wall_s": wall, "peaks": peaks, "chain1": one,
+            "chain2": two}
+
 
 
 def main() -> None:
@@ -2796,11 +3331,13 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp_gate:
             gate = phase_gate(dev, smi, Path(tmp_gate))
         zoo = phase_zoo(dev, smi, kmeans_dict, gmm_dict, user, Path(tmp))
+        joint = phase_joint(dev, smi, zoo["dicts"], user, Path(tmp))
     # launches: each kernel's count over the 4 steps of its training path
     # ([5] unfused, [6] fused) or over the dictionary path's fit, predict and
     # residuals ([7]); serving's counts are in [4], the gate's in [12]; the
     # zoo's ([13]: the 38 steps of its 19 fits, and its two dictionary fits)
-    # in zoo_launches
+    # in zoo_launches; [14]'s (the 28 steps of its 14 fits, chain 2 in this
+    # process and the chain's dictionary fit) in joint_launches
     fused_src = f"{PORT}/csrc/fused_%s.cu"
     fused_at = f"{JAX_PACKAGE}/ops/fused_conv_bn.py:%d"
     kernels = [
@@ -2813,18 +3350,19 @@ def main() -> None:
          "cli_evaluate_launches": eval_launches,
          "verify_parity_launches": gate["normalize"],
          "predict_det_path_launches": gate["predict_normalize"],
-         "zoo_launches": zoo["normalize"], **norm},
+         "zoo_launches": zoo["normalize"], "joint_launches": joint["normalize"], **norm},
         {"name": "stem_pool", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:162",
          "launches": train["launches"]["stem_pool"],
          "serving_launches": serve["launches"]["stem_pool"],
-         "zoo_launches": zoo["stem_pool"], **stem},
+         "zoo_launches": zoo["stem_pool"], "joint_launches": joint["stem_pool"], **stem},
         {"name": "stem_pool_bwd", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:186",
          "launches": train["launches"]["stem_pool_bwd"],
-         "zoo_launches": zoo["stem_pool_bwd"], **stem_bwd},
+         "zoo_launches": zoo["stem_pool_bwd"], "joint_launches": joint["stem_pool_bwd"],
+         **stem_bwd},
         {"name": "mm_stats", "route": "cuda", "source": fused_src % "mm",
          "replaces": fused_at % 215, "launches": fused["launches"]["mm"],
          "zoo_launches": zoo["mm"], **mm},
@@ -2840,7 +3378,7 @@ def main() -> None:
         {"name": "assign", "route": "cuda", "source": f"{PORT}/csrc/assign.cu",
          "replaces": f"{JAX_PACKAGE}/ops/assign.py:45", "launches": assign_launches,
          "verify_parity_launches": gate["assign"], "zoo_launches": zoo["assign"],
-         **assign_rec},
+         "joint_launches": joint["assign"], **assign_rec},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -4,6 +4,8 @@
         --preset geodesic_bd --data-root data/ \\
         --dictionary kmeans_dictionary_axis_angle_200.npz [--save-str g0] \\
         [--workdir runs/g0] [--resume] [--pretrained-backbone resnet50.pth] \\
+        [--warm-start-workdir runs/oracle --warm-start-preset geodesic_bd \\
+         [--warm-start-checkpoint final] [--warm-start-kind oracle|classifier]] \\
         [--device cuda|cpu] [config overrides ...]
 
     python -m multi_modal_regression_tpu_torch.cli pack \\
@@ -17,7 +19,7 @@
     python -m multi_modal_regression_tpu_torch.cli predict \\
         --preset geodesic_bd --data-root data/ --dictionary d.npz \\
         [--checkpoint final] [--packed-cache auto] [--det-path <set>] \\
-        [--device cuda|cpu]
+        [--analysis [--analysis-names pose,cat]] [--device cuda|cpu]
 
     python -m multi_modal_regression_tpu_torch.cli dictionary \\
         --data-root <render tree> --out kmeans_dictionary_axis_angle_200.npz \\
@@ -44,7 +46,9 @@ from the PNG trees under --data-root (<real-subdir>, <render-subdir> and
 <test-subdir>, each <class>/*.png with the pose in the file name),
 evaluates MedErr after every main epoch and writes checkpoints `last`,
 `best` and `final` under <workdir>/checkpoints; `--resume` continues from
-`last`. With `--packed-cache` every tree is first decoded once into a
+`last`; `--warm-start-*` grafts a source run's checkpoint into the new
+model first (models/surgery: a classifier into a bin-delta model, an
+oracle into a joint model), the two-stage pipelines. With `--packed-cache` every tree is first decoded once into a
 uint8 cache (data/packed.py; `auto` puts it in `.packed/` beside the tree)
 and the loaders gather from it; `pack` builds those caches and stops.
 `evaluate` is the reference's snapshot-ensemble protocol: it fine-tunes a
@@ -53,7 +57,10 @@ the rate (<workdir>/results_<save-str>/num<k>.npz) and prints the
 per-snapshot and the ensembled MedErr. `predict` runs the test set through
 a checkpoint and writes <workdir>/results_<save-str>.npz; with
 `--det-path` it runs a detector's crop set instead and writes
-<workdir>/results_<save-str>_<set>.mat. `dictionary` parses the pose of
+<workdir>/results_<save-str>_<set>.mat; with `--analysis` (a joint BD
+preset) it runs the per-class analysis forward over the comma-separated
+`--checkpoint` list and writes <workdir>/results_<save-str>_analysis.mat.
+`dictionary` parses the pose of
 every image of a tree from its file name and fits a kmeans or GMM pose
 dictionary on the device. `prepare-data` writes a synthetic tree or walks
 a PASCAL3D+ / ObjectNet3D release into the training trees (host code);
@@ -62,10 +69,9 @@ a PASCAL3D+ / ObjectNet3D release into the training trees (host code);
 `verify-parity` chains prepare-data, dictionary, train, the snapshot
 ensemble and the detection metrics into one table (tools/parity.py). All
 take the JAX package's arguments. Those whose machinery is not ported yet
-(`--distributed`, `--warm-start-*`, `--compile-cache`, predict's
-`--analysis`, and the config settings that presets.py refuses) raise
-NotImplementedError when given; the other subcommands arrive with their
-slices (ROADMAP.md).
+(`--distributed`, `--compile-cache`, and the config settings that
+presets.py refuses) raise NotImplementedError when given; the other
+subcommands arrive with their slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -153,8 +159,9 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
                    help="global-batch LR rule: scale init_lr by "
                         "(items-per-batch/8) [linear] or its sqrt")
     p.add_argument("--frozen-bn", action="store_true", default=None,
-                   help="BatchNorm in eval mode during training: not "
-                        "ported yet")
+                   help="BatchNorm in eval mode during training (running "
+                        "statistics, none updated); every trained weight "
+                        "still trains")
     p.add_argument("--device-resize-from", type=int, default=None,
                    help="resize on the device: not ported yet")
     p.add_argument("--checkpoint-async",
@@ -184,9 +191,7 @@ _OVERRIDE_FIELDS = (
 # flags whose machinery is not ported: giving one raises
 _NOT_PORTED_FLAGS = (
     "distributed", "coordinator_address", "num_processes",
-    "process_id", "warm_start_workdir", "warm_start_preset",
-    "warm_start_checkpoint", "warm_start_kind", "compile_cache",
-    "analysis", "analysis_names",
+    "process_id", "compile_cache",
 )
 
 
@@ -455,6 +460,46 @@ def _load_pretrained(trainer, path: str) -> None:
     print(f"loaded pretrained backbone from {path}", flush=True)
 
 
+# the fields a warm start's source config takes from the new run's
+# (the JAX cli's _warm_start), dict_size among them
+_WARM_START_FIELDS = ("feature_network", "feature_layer", "num_classes", "N0", "N1",
+                      "N2", "image_size", "dict_size")
+
+
+def _warm_start(trainer, args) -> None:
+    """Two-stage chaining: graft a source run's checkpoint into this model.
+
+    --warm-start-kind classifier: a classification model's trunk and bin
+    heads into a bin-delta model (learnSimpleBDModel_rene.py:89-130);
+    oracle: a BD or regression oracle into a joint model
+    (learnJointCatPoseModel_*.py). The source is restored through a Trainer
+    of --warm-start-preset, its config taking this run's widths."""
+    from multi_modal_regression_tpu_torch.models.surgery import (
+        graft_classifier_into_bd,
+        graft_oracle_into_joint,
+    )
+    from multi_modal_regression_tpu_torch.train.presets import get_config
+    from multi_modal_regression_tpu_torch.train.trainer import Trainer
+
+    if not args.warm_start_preset:
+        raise SystemExit("--warm-start-workdir needs --warm-start-preset, the source "
+                         "run's preset")
+    cfg = trainer.config
+    src_cfg = get_config(args.warm_start_preset,
+                         **{k: getattr(cfg, k) for k in _WARM_START_FIELDS})
+    src = Trainer(src_cfg, dictionary=_load_dictionary_cached(args.dictionary),
+                  workdir=args.warm_start_workdir, device=args.device)
+    src.restore_checkpoint(args.warm_start_checkpoint)
+    dst_sd, src_sd = trainer.model.state_dict(), src.model.state_dict()
+    if args.warm_start_kind == "classifier":
+        grafted = graft_classifier_into_bd(dst_sd, src_sd)
+    else:
+        grafted = graft_oracle_into_joint(dst_sd, src_sd, cfg.model_kind)
+    trainer.model.load_state_dict(grafted)
+    print(f"warm-started ({args.warm_start_kind}) from {args.warm_start_workdir}",
+          flush=True)
+
+
 def cmd_train(args) -> int:
     _refuse_not_ported(args)
     from multi_modal_regression_tpu_torch.train.trainer import Trainer
@@ -473,6 +518,8 @@ def cmd_train(args) -> int:
         state = trainer.init_state()
         if args.pretrained_backbone:
             _load_pretrained(trainer, args.pretrained_backbone)
+        if args.warm_start_workdir:
+            _warm_start(trainer, args)
     state = trainer.fit(state, real, render, test_loader=test)
     trainer.save_checkpoint(state, "final")
     med = trainer.evaluate(state, test)  # overlaps the background save
@@ -525,21 +572,29 @@ def cmd_predict(args) -> int:
     """Inference from a checkpoint over the GT test crops (the
     evaluateJointModel.py protocol): <workdir>/results_<save-str>.npz and
     the per-class table; with --det-path over a detector's crop set (the
-    evaluateModelDetectedBBoxes.py protocol): the results .mat. The
-    joint-model analysis (--analysis) is not ported yet."""
+    evaluateModelDetectedBBoxes.py protocol): the results .mat; with
+    --analysis the joint models' per-class analysis (evaluateJointModel.py)
+    over one or more checkpoints: one analysis .mat."""
     _refuse_not_ported(args)
     from multi_modal_regression_tpu_torch.metrics import (
+        mean_class_accuracy,
         mean_class_median_error,
         per_class_report,
     )
     from multi_modal_regression_tpu_torch.train.trainer import Trainer
 
+    if args.analysis and args.det_path:
+        raise SystemExit(
+            "--analysis and --det-path are mutually exclusive protocols "
+            "(evaluateJointModel vs evaluateModelDetectedBBoxes); run two "
+            "predict invocations"
+        )
     cfg = _config_from_args(args)
     workdir = args.workdir or f"runs/{args.save_str}"
-    trainer = Trainer(
-        cfg, dictionary=_load_dictionary_cached(args.dictionary), workdir=workdir,
-        device=args.device,
-    )
+    dictionary = _load_dictionary_cached(args.dictionary)
+    trainer = Trainer(cfg, dictionary=dictionary, workdir=workdir, device=args.device)
+    if args.analysis:
+        return _predict_analysis(args, cfg, trainer, dictionary, workdir)
     state = trainer.restore_checkpoint(args.checkpoint)
     if args.det_path:
         from multi_modal_regression_tpu_torch.detection import (
@@ -566,6 +621,11 @@ def cmd_predict(args) -> int:
     ytrue, ypred, labels = trainer.predict(state, test)
     out = Path(workdir) / f"results_{args.save_str}.npz"
     np.savez(out, ytest=ytrue, yhat_test=ypred, test_labels=labels)
+    if trainer.problem.metric == "category_accuracy":
+        # class ids: the mean per-class accuracy, no pose table
+        acc = mean_class_accuracy(labels, ypred, cfg.num_classes)
+        print(f"wrote {out}; Acc {acc:.4f}", flush=True)
+        return 0
     rep = "quaternion" if trainer.problem.ydata_type == "quaternion" else "axis_angle"
     med = mean_class_median_error(ytrue, ypred, labels, cfg.num_classes, representation=rep)
     if len(names) != cfg.num_classes:
@@ -578,6 +638,47 @@ def cmd_predict(args) -> int:
             flush=True,
         )
     print(f"wrote {out}; MedErr {med:.4f}", flush=True)
+    return 0
+
+
+def _predict_analysis(args, cfg, trainer, dictionary, workdir) -> int:
+    """evaluateJointModel[2].py: the same per-class analysis forward over up
+    to four checkpoints, one combined results .mat."""
+    from multi_modal_regression_tpu_torch.train.analysis import (
+        analysis_report,
+        parse_analysis_runs,
+        run_joint_analysis,
+        save_analysis_mat,
+    )
+
+    if not hasattr(trainer.model, "analysis"):
+        raise SystemExit(
+            f"--analysis needs a joint BD preset (model_kind joint_bd_*), not "
+            f"{cfg.model_kind!r}"
+        )
+    runs = parse_analysis_runs(
+        args.checkpoint.split(","),
+        args.analysis_names.split(",") if args.analysis_names else None,
+    )
+    centers = getattr(dictionary, "cluster_centers", None)
+    if centers is None:
+        centers = dictionary.means
+    test = _make_test_loader(args, cfg, _classes_from_args(args), cfg.image_size)
+    results = {}
+    for name, ckpt in runs:
+        state = trainer.restore_checkpoint(ckpt)
+        r = run_joint_analysis(trainer, state, test, centers)
+        results[name] = r
+        rep = analysis_report(r, cfg.num_classes)
+        print(f"{name}: cat acc {rep['cat_acc']:.4f} | "
+              f"MedErr oracle {rep['mederr_oracle']:.2f} deg "
+              f"(Acc@30 {rep['acc30_oracle']:.1f}%) | "
+              f"pred-cat {rep['mederr_predcat']:.2f} deg "
+              f"(Acc@30 {rep['acc30_predcat']:.1f}%) | "
+              f"{len(r['ytrue_cat'])} samples", flush=True)
+    out = Path(workdir) / f"results_{args.save_str}_analysis.mat"
+    save_analysis_mat(out, results)
+    print(f"wrote {out}", flush=True)
     return 0
 
 
@@ -830,10 +931,13 @@ def build_parser() -> argparse.ArgumentParser:
     p_train.add_argument("--train-data", choices=("both", "real", "render"),
                          default="both",
                          help="training data selection (augmentation ablation)")
-    for flag in ("--warm-start-workdir", "--warm-start-preset",
-                 "--warm-start-checkpoint", "--warm-start-kind"):
-        p_train.add_argument(flag, type=str, default=None,
-                             help="two-stage chaining: not ported yet")
+    p_train.add_argument("--warm-start-workdir", type=str, default=None,
+                         help="source run workdir for two-stage chaining")
+    p_train.add_argument("--warm-start-preset", type=str, default=None,
+                         help="preset of the source run")
+    p_train.add_argument("--warm-start-checkpoint", type=str, default="final")
+    p_train.add_argument("--warm-start-kind", choices=("classifier", "oracle"),
+                         default="oracle")
     _add_distributed_args(p_train)
     _add_common_data_args(p_train)
     _add_config_overrides(p_train)
@@ -870,10 +974,12 @@ def build_parser() -> argparse.ArgumentParser:
     p_pred.add_argument("--det-path", type=str, default=None,
                         help="detector crop set (dbinfo.mat + all/*.mat)")
     p_pred.add_argument("--analysis", action="store_true",
-                        help="joint-model analysis protocol: not ported yet")
+                        help="joint-model analysis protocol "
+                             "(evaluateJointModel.py): --checkpoint may list "
+                             "up to 4 comma-separated checkpoints")
     p_pred.add_argument("--analysis-names", type=str, default=None,
-                        help="names of the --analysis checkpoints: not "
-                             "ported yet")
+                        help="comma-separated run names for the --analysis "
+                             "checkpoints (default pose,cat,top1,wgt)")
     _add_common_data_args(p_pred, required_data_root=False)
     _add_distributed_args(p_pred)
     _add_config_overrides(p_pred)

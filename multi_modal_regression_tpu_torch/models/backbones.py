@@ -1,9 +1,11 @@
 """ResNet feature trunks (port of the JAX package's models/backbones.py).
 
 ResNet18/34/50/101/152 truncated after stage 2, 3 or 4, then a global
-average pool. Module and parameter names follow the flax trees (`conv1`,
-`bn1`, `layer<s>_<b>/conv<i>`, `downsample_conv`, ...) so
-models/pretrained.py maps one onto the other.
+average pool (or, with pool=False, the spatial features), and
+`ResNetStage`, one residual stage on its own over such features (the
+joint variant-2 model's second layer4). Module and parameter names follow
+the flax trees (`conv1`, `bn1`, `layer<s>_<b>/conv<i>`, `downsample_conv`,
+...) so models/pretrained.py maps one onto the other.
 
 Layout and dtypes:
   - `forward` takes NHWC images (B, H, W, 3), as the JAX package does, and
@@ -268,12 +270,17 @@ class ResNetBackbone(nn.Module):
     conv+BN path (bfloat16 only; BasicBlock trunks ignore it); with `fused`
     set and stem_pool None the stem takes the folded BN with eager ReLU and
     max-pool, as the JAX package does.
+
+    pool=False returns the last stage's spatial features (B, H, W, C) in
+    the compute dtype, an NHWC view of the channels_last activations (the
+    JAX package's layout), for a `ResNetStage` to continue.
     """
 
     def __init__(
         self, arch: str = "resnet50", num_stages: int = 4,
         dtype: torch.dtype = torch.float32, stem_pool: str | None = None,
         param_dtype: torch.dtype | None = None, fused: str | None = None,
+        pool: bool = True,
     ):
         super().__init__()
         if not 2 <= num_stages <= 4:
@@ -292,6 +299,7 @@ class ResNetBackbone(nn.Module):
         expansion = 4 if bottleneck else 1
         self.dtype = dtype
         self.stem_pool = stem_pool
+        self.pool = pool
         # BasicBlock trunks have no fused form and ignore the setting
         self.fused = fused if bottleneck else None
         kwargs = {"fused": self.fused} if bottleneck else {}
@@ -332,7 +340,52 @@ class ResNetBackbone(nn.Module):
             x = stem_bn_relu_pool(x, a, b, self.stem_pool or "plain")
         for name in self.block_names:
             x = getattr(self, name)(x)
+        if not self.pool:
+            return x.permute(0, 2, 3, 1)
         # global average pool, accumulated in at least float32
+        return x.to(torch.promote_types(torch.float32, x.dtype)).mean(dim=(2, 3))
+
+
+class ResNetStage(nn.Module):
+    """One residual stage on its own (1-indexed `stage`), over the spatial
+    features (B, H, W, C) that `ResNetBackbone(..., pool=False)` returns;
+    then the global average pool in at least float32, or with pool=False
+    the spatial output. Blocks are named as the trunk's (`layer<s>_<b>`),
+    so a trunk's stage grafts in by renaming its prefix (models/surgery).
+    Conv weights are drawn by the caller (`init_conv_weights`)."""
+
+    def __init__(
+        self, arch: str = "resnet50", stage: int = 4,
+        dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None,
+        pool: bool = True,
+    ):
+        super().__init__()
+        if not 1 <= stage <= 4:
+            raise ValueError(f"stage must be in [1, 4], got {stage}")
+        param_dtype = param_dtype or dtype
+        stage_sizes, bottleneck = RESNET_CONFIGS[arch]
+        block_cls = BottleneckBlock if bottleneck else BasicBlock
+        expansion = 4 if bottleneck else 1
+        self.dtype = dtype
+        self.pool = pool
+        width = 64 * 2 ** (stage - 1)
+        cin = 64 if stage == 1 else (width // 2) * expansion
+        self.block_names: list[str] = []
+        for block in range(stage_sizes[stage - 1]):
+            stride = 2 if stage > 1 and block == 0 else 1
+            name = f"layer{stage}_{block}"
+            self.add_module(name, block_cls(cin, width, stride, dtype, param_dtype))
+            self.block_names.append(name)
+            cin = width * expansion
+        self.feature_dim = cin
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # NHWC -> NCHW view; the trunk's NHWC view is channels_last already
+        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        if not self.pool:
+            return x.permute(0, 2, 3, 1)
         return x.to(torch.promote_types(torch.float32, x.dtype)).mean(dim=(2, 3))
 
 

@@ -56,6 +56,12 @@ class OneBinDeltaModel(nn.Module):
     the compute `dtype`). The model is built in eval mode; its BNs follow
     the module's mode, as flax's `train` argument selects them. `fused_bn`
     is the trunk's fused conv+BN setting (models/backbones.ResNetBackbone).
+
+    bn_train_scope names the submodules whose BNs may run in training mode
+    (None: all of them): `train()` leaves every other submodule in eval
+    mode, on its running statistics, and so does the train step
+    (train/steps.train_modes). The _rene fine-tunes' model.eval() +
+    res_models.train() (learnSimpleBDModel_rene.py:133,148).
     """
 
     def __init__(
@@ -64,11 +70,12 @@ class OneBinDeltaModel(nn.Module):
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, stem_pool: str | None = None,
         seed: int = 0, param_dtype: torch.dtype | None = None,
-        fused_bn: str | None = None,
+        fused_bn: str | None = None, bn_train_scope: tuple[str, ...] | None = None,
     ):
         super().__init__()
         g = torch.Generator().manual_seed(seed)  # init draws on the CPU
         self.num_classes = num_classes
+        self.bn_train_scope = None if bn_train_scope is None else tuple(bn_train_scope)
         self.feature_model = make_trunk(
             feature_network, feature_layer, N0, dtype, g, param_dtype, stem_pool, fused_bn
         )
@@ -81,6 +88,14 @@ class OneBinDeltaModel(nn.Module):
             param_dtype=param_dtype,
         )
         self.eval()
+
+    def train(self, mode: bool = True) -> "OneBinDeltaModel":
+        super().train(mode)
+        if mode and self.bn_train_scope is not None:
+            for name, child in self.named_children():
+                if name not in self.bn_train_scope:
+                    child.train(False)
+        return self
 
     def forward(
         self, x: torch.Tensor, label: torch.Tensor

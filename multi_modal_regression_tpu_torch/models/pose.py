@@ -13,9 +13,11 @@ JAX package's models/pose.py):
   IndependentBDModel           shared bin head + per-cluster delta heads,
                                class-agnostic (learnIndependentBDModel.py:88-111,
                                 learnRenderedBDModel.py:88-111)
+  CategorizationModel          the object-category classifier, one linear
+                               head over the trunk (learnCategorizationModel.py)
 
 Every model is called as model(images, labels), as the bin-delta models
-are; the two class-agnostic ones ignore the labels. Their trunks have no
+are; the class-agnostic ones and the classifier ignore the labels. Their trunks have no
 stem or fused conv+BN option, as in the JAX package. Weights are drawn on
 the CPU from `seed` and held in `param_dtype` (default: the compute
 `dtype`); the models are built in eval mode.
@@ -149,3 +151,25 @@ class IndependentBDModel(_BackboneModel):
         scores = self.bin_model(feat)  # (B, K)
         deltas = self.res_models(feat)  # (B, K, ndim)
         return scores, select_class(deltas, torch.argmax(scores, dim=-1))
+
+
+class CategorizationModel(_BackboneModel):
+    """Object-category classifier: one linear head `category_model` over the
+    trunk's features. forward(x, label) -> category logits (B, num_classes);
+    `label` is ignored."""
+
+    def __init__(
+        self, num_classes: int = 12, N0: int = 2048, N1: int = 1000, N2: int = 500,
+        feature_network: str = "resnet50", feature_layer: str = "layer4",
+        dtype: torch.dtype = torch.float32, seed: int = 0,
+        param_dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        del N1, N2  # the config's head widths; the classifier has one layer
+        kw = self._build_trunk(num_classes, N0, feature_network, feature_layer, dtype,
+                               seed, param_dtype)
+        self.category_model = SharedMLP(N0, (num_classes,), **kw)
+        self.eval()
+
+    def forward(self, x: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+        return self.category_model(self.feature_model(x))

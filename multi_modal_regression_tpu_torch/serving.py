@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from multi_modal_regression_tpu_torch.models.backbones import ResNetBackbone
 from multi_modal_regression_tpu_torch.train.problems import Problem
 from multi_modal_regression_tpu_torch.train.steps import make_eval_step
 
@@ -36,7 +37,9 @@ def make_inference_fn(
     on the device are not (an out-of-range label then fails in the gather).
     """
     device = next(model.parameters()).device
-    dtype = compute_dtype or model.feature_model.dtype
+    # the trunk's compute dtype (every model has one ResNet trunk)
+    dtype = compute_dtype or next(
+        m.dtype for m in model.modules() if isinstance(m, ResNetBackbone))
     eval_step = make_eval_step(model, problem, compute_dtype=dtype)
 
     def infer(images, labels) -> torch.Tensor:

@@ -1,14 +1,15 @@
 """Experiment presets (port of the JAX package's train/presets.py).
 
-The ported presets (`PRESETS`) are the single-model pose zoo: 23 of the
-JAX package's 42 reference scripts, over the bin-delta, multires,
-regression, classification and class-agnostic models, each with the JAX
-package's overrides and comments, over a config that has the fields the
-serving and training paths read, under the JAX names and defaults.
-Settings that are not ported yet raise NotImplementedError when the config
-is made, so none is ignored; the other presets (the `_rene` fine-tunes, the
-joint, categorization and ObjectNet models) raise until they are ported, in
-the order ROADMAP.md gives.
+The ported presets (`PRESETS`) are 37 of the JAX package's 42 reference
+scripts: the single-model pose zoo over the bin-delta, multires,
+regression, classification and class-agnostic models, and the two-stage
+and joint category + pose pipelines (the `_rene` fine-tunes, the joint
+variants 1-3, the Elhoseiny multi-task models, categorization and
+cat-given-pose), each with the JAX package's overrides and comments, over
+a config that has the fields the serving and training paths read, under
+the JAX names and defaults. Settings that are not ported yet raise
+NotImplementedError when the config is made, so none is ignored; the five
+ObjectNet presets raise until they are ported (ROADMAP.md).
 
 `build_model` and `build_problem` place what they build on the card
 ("cuda") unless the caller names another device, as `Trainer` does.
@@ -31,11 +32,24 @@ from multi_modal_regression_tpu_torch.models.bin_delta import (
     OneDeltaPerBinModel,
     ProbabilisticOneDeltaPerBinModel,
 )
+from multi_modal_regression_tpu_torch.models.joint import (
+    ElhoseinyBDModel,
+    ElhoseinyRegressionModel,
+    JointCatPoseBDModel,
+    JointCatPoseBDModel2,
+    JointCatPoseRegModel,
+)
 from multi_modal_regression_tpu_torch.models.pose import (
+    CategorizationModel,
     IndependentBDModel,
     IndependentRegressionModel,
     PerClassClassificationModel,
     PerClassRegressionModel,
+)
+from multi_modal_regression_tpu_torch.train.joint_problems import (
+    JOINT_DICTIONARY_FREE,
+    JOINT_PROBLEMS,
+    make_joint_problem,
 )
 from multi_modal_regression_tpu_torch.train.problems import (
     DICTIONARY_FREE,
@@ -54,12 +68,9 @@ _MU_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 # field -> the only value the port runs so far (the JAX package's "off" value)
 _NOT_PORTED = {
-    "frozen_bn": False,
     "remat": None,
     "train_flip": False,
     "device_resize_from": None,
-    "train_only": None,
-    "bn_train_only": None,
 }
 
 
@@ -92,6 +103,17 @@ class ExperimentConfig:
     # RBF soft-bin width; None -> derived from the dictionary geometry via
     # get_gamma (the ablationXBDModel.py:61-62 protocol)
     gamma: float | None = 10.0
+    # joint models: 'top1' | 'joint_top1' | 'top1_st' | 'weighted' (models/joint)
+    mixing: str = "top1"
+    # train only these top-level modules (None = all); the others' weights
+    # stay bit-equal and Adam keeps no moments for them
+    # (learnCatGivenPoseModel.py:108-126's frozen oracle; build_optimizer)
+    train_only: tuple[str, ...] | None = None
+    # BN in training mode only in these top-level modules (None = all);
+    # the rest runs on its running statistics in the train step too (the
+    # _rene scripts' model.eval() + res_models.train(),
+    # learnSimpleBDModel_rene.py:133,148); one_bin_delta only
+    bn_train_only: tuple[str, ...] | None = None
     # two loaders (real, render): per-stream BN statistics, two running-stat
     # updates per step, real first (learnGeodesicBDModel.py:116-121)
     bn_per_stream: bool = True
@@ -135,13 +157,14 @@ class ExperimentConfig:
     eval_alpha1: float = 1e-6
     eval_alpha2: float = 1e-8
     eval_num_epochs: int = 9
-    # not ported yet: setting any of them raises (ROADMAP.md)
+    # every BN in eval mode through training: running statistics, none
+    # updated, one forward over the whole batch (no per-stream split);
+    # every trained leaf still trains (learnCategorizationModel.py:66,75)
     frozen_bn: bool = False
+    # not ported yet: setting any of them raises (ROADMAP.md)
     remat: str | None = None
     train_flip: bool = False
     device_resize_from: int | None = None
-    train_only: tuple[str, ...] | None = None
-    bn_train_only: tuple[str, ...] | None = None
 
     def __post_init__(self):
         for name, off in _NOT_PORTED.items():
@@ -166,6 +189,12 @@ class ExperimentConfig:
                     "fused_conv_bn needs compute_dtype='bfloat16' (the fused "
                     f"convs write bf16), got {self.compute_dtype!r}"
                 )
+        for name in ("train_only", "bn_train_only"):
+            v = getattr(self, name)
+            if v is not None:
+                if isinstance(v, str) or not all(isinstance(m, str) for m in v):
+                    raise ValueError(f"{name} must be a tuple of module names, got {v!r}")
+                setattr(self, name, tuple(v))
         if self.optimizer_dtype not in _MU_DTYPES:
             raise ValueError(
                 f"optimizer_dtype must be one of {sorted(_MU_DTYPES)}, "
@@ -183,6 +212,28 @@ PRESETS: dict[str, dict] = {
     "simple_bd": dict(
         model_kind="one_bin_delta", problem="simple",
         num_warmup_epochs=0,  # single training() phase (learnSimpleBDModel.py:104)
+    ),
+    # learnSimpleBDModel_rene.py — fine-tune FRESH delta heads on a frozen
+    # classifier-grafted oracle (warm start: models.surgery.
+    # graft_classifier_into_bd / cli --warm-start-kind classifier):
+    # optimizer over res_models only (:136), model.eval() with
+    # res_models.train() (:133,148 — train-mode BN in the delta heads,
+    # running stats everywhere else), homoscedastic sigma balance on the
+    # raw-residual MSE (:160-170); a StepLR is constructed but its
+    # scheduler.step() is commented out (:137,223) — constant lr
+    "simple_bd_rene": dict(
+        model_kind="one_bin_delta", problem="simple_rene",
+        num_warmup_epochs=0,  # single training() phase
+        train_only=("res_models",),
+        bn_train_only=("res_models",),
+    ),
+    # learnEuclideanBDModel_rene.py — same protocol, sigma-balanced MSE on
+    # the DECODED pose (centers[argmax] + residual, :159-170)
+    "euclidean_bd_rene": dict(
+        model_kind="one_bin_delta", problem="euclidean_rene",
+        num_warmup_epochs=0,  # single training() phase
+        train_only=("res_models",),
+        bn_train_only=("res_models",),
     ),
     # learnGeodesicBDModel.py — the north-star config
     "geodesic_bd": dict(model_kind="one_bin_delta", problem="geodesic"),
@@ -277,6 +328,95 @@ PRESETS: dict[str, dict] = {
         alpha=10.0, self_balance=False,
         epoch_lr_decay="step",  # learnRenderedBDModel.py:115,234
     ),
+    # learnJointCatPoseModel_{top1,weighted}.py / _top1_new.py ('joint_top1')
+    "joint_cat_pose_top1": dict(
+        num_warmup_epochs=0,  # joint scripts fine-tune an oracle: no warm-up phase
+        model_kind="joint_bd_v1", problem="joint_bd", mixing="top1",
+        self_balance=False, num_epochs=50,  # learnJointCatPoseModel_top1.py:33
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnJointCatPoseModel_top1.py:141,219
+    ),
+    # the _top1_new variant selects the class (and, multires, the bin) by
+    # the argmax of the JOINT posterior softmax(bins)*softmax(cat), with a
+    # detached one-hot (learnJointCatPoseModel_top1_new.py:110-130)
+    "joint_cat_pose_top1_new": dict(
+        num_warmup_epochs=0,  # joint scripts fine-tune an oracle: no warm-up phase
+        model_kind="joint_bd_v1", problem="joint_bd", mixing="joint_top1",
+        self_balance=False, num_epochs=50,  # learnJointCatPoseModel_top1_new.py:34
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnJointCatPoseModel_top1_new.py:144
+    ),
+    "joint_cat_pose_weighted": dict(
+        num_warmup_epochs=0,  # joint scripts fine-tune an oracle: no warm-up phase
+        model_kind="joint_bd_v1", problem="joint_bd", mixing="weighted",
+        self_balance=False, num_epochs=50,  # learnJointCatPoseModel_weighted.py:34
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnJointCatPoseModel_weighted.py:140
+    ),
+    # learnJointCatPoseModel2_{top1,weighted}.py (separate category layer4)
+    # NOTE the v2 scripts are the ONLY joint scripts defaulting to
+    # init_lr=1e-5 (not 1e-4) and 20 (not 50) epochs
+    # (learnJointCatPoseModel2_top1.py:35,38)
+    "joint_cat_pose2_top1": dict(
+        num_warmup_epochs=0,  # joint scripts fine-tune an oracle: no warm-up phase
+        model_kind="joint_bd_v2", problem="joint_bd", mixing="top1",
+        self_balance=False, num_epochs=20, init_lr=1e-5,
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnJointCatPoseModel2_top1.py:148,226
+    ),
+    "joint_cat_pose2_weighted": dict(
+        num_warmup_epochs=0,  # joint scripts fine-tune an oracle: no warm-up phase
+        model_kind="joint_bd_v2", problem="joint_bd", mixing="weighted",
+        self_balance=False, num_epochs=20, init_lr=1e-5,
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnJointCatPoseModel2_weighted.py:147
+    ),
+    # learnJointCatPoseModel3_{top1,weighted}.py (regression oracle)
+    "joint_cat_pose3_top1": dict(
+        num_warmup_epochs=0,  # joint scripts fine-tune an oracle: no warm-up phase
+        model_kind="joint_reg_v3", problem="joint_reg", mixing="top1",
+        self_balance=False, num_epochs=50,  # learnJointCatPoseModel3_top1.py:31
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnJointCatPoseModel3_top1.py:129
+    ),
+    "joint_cat_pose3_weighted": dict(
+        num_warmup_epochs=0,  # joint scripts fine-tune an oracle: no warm-up phase
+        model_kind="joint_reg_v3", problem="joint_reg", mixing="weighted",
+        self_balance=False, num_epochs=50,  # learnJointCatPoseModel3_weighted.py:31
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnJointCatPoseModel3_weighted.py:127
+    ),
+    # learnElhoseinyBDModel.py / learnElhoseinyRegressionModel.py
+    "elhoseiny_bd": dict(
+        model_kind="elhoseiny_bd", problem="elhoseiny_bd",
+        dict_size=16,  # learnElhoseinyBDModel.py:33
+        alpha=10.0, self_balance=False,
+        epoch_lr_decay="step",  # learnElhoseinyBDModel.py:117
+    ),
+    "elhoseiny_regression": dict(
+        model_kind="elhoseiny_reg", problem="elhoseiny_reg",
+        self_balance=False,
+        epoch_lr_decay="step",  # learnElhoseinyRegressionModel.py:98
+    ),
+    # learnCategorizationModel.py (12-way category classifier over a FROZEN
+    # backbone: requires_grad=False + model.eval() during training, :64-66 —
+    # BN runs on running stats and never updates)
+    "categorization": dict(
+        model_kind="categorization", problem="category", self_balance=False,
+        num_epochs=50,  # learnCategorizationModel.py:36
+        train_only=("category_model",),
+        frozen_bn=True,  # model.eval() through training(), learnCategorizationModel.py:66,75
+        epoch_lr_decay="inv",  # LambdaLR 1/(1+ep), learnCategorizationModel.py:69,118
+    ),
+    # learnCatGivenPoseModel.py — category fc trained on a FROZEN BD oracle
+    "cat_given_pose": dict(
+        model_kind="joint_bd_v1", problem="category", self_balance=False,
+        num_epochs=50,  # learnCatGivenPoseModel.py:33
+        train_only=("fc",),
+        frozen_bn=True,  # feature_model.eval() + never model.train(), learnCatGivenPoseModel.py:109-117,135
+        epoch_lr_decay="inv",  # my_schedule 1/(1+ep), learnCatGivenPoseModel.py:121,127,204
+    ),
+    # learnCatGivenPoseModel3.py — frozen regression oracle
+    "cat_given_pose3": dict(
+        model_kind="joint_reg_v3", problem="category", self_balance=False,
+        num_epochs=50,  # learnCatGivenPoseModel3.py:30
+        train_only=("fc",),
+        frozen_bn=True,  # feature_model.eval() + never model.train(), learnCatGivenPoseModel3.py:113-118,135
+        epoch_lr_decay="inv",  # learnCatGivenPoseModel3.py:121,127,204
+    ),
     # ablationGeodesicBDModel.py — geodesic BD evaluated on the val split
     # (model selection); identical objective, ablation data split
     "ablation_geodesic_bd": dict(
@@ -330,8 +470,9 @@ def resolve_compute_dtype(name: str) -> torch.dtype:
 
 
 # model_kind -> the model class; the bin-delta kinds take the trunk's stem
-# and fused conv+BN settings, the models/pose kinds have neither (the JAX
-# _BackboneModel builds its trunk without them)
+# and fused conv+BN settings, the models/pose and models/joint kinds have
+# neither (the JAX _BackboneModel and joint models build their trunk
+# without them, joint.py:96-99)
 _BD_KINDS = {
     "one_bin_delta": OneBinDeltaModel,
     "one_delta_per_bin": OneDeltaPerBinModel,
@@ -342,7 +483,32 @@ _POSE_KINDS = {
     "per_class_classification": PerClassClassificationModel,
     "independent_regression": IndependentRegressionModel,
     "independent_bd": IndependentBDModel,
+    "categorization": CategorizationModel,
+    "joint_bd_v1": JointCatPoseBDModel,
+    "joint_bd_v2": JointCatPoseBDModel2,
+    "joint_reg_v3": JointCatPoseRegModel,
+    "elhoseiny_bd": ElhoseinyBDModel,
+    "elhoseiny_reg": ElhoseinyRegressionModel,
 }
+
+
+def _kind_args(cfg: ExperimentConfig) -> dict:
+    """The arguments of a models/pose or models/joint kind beyond the common ones."""
+    k = cfg.model_kind
+    reg = dict(ndim=cfg.ndim, nonlinearity=cfg.nonlinearity)
+    bd = dict(num_clusters=cfg.dict_size, N3=cfg.N3, ndim=cfg.ndim)
+    return {
+        "per_class_regression": reg,
+        "independent_regression": reg,
+        "per_class_classification": dict(num_clusters=cfg.dict_size),
+        "independent_bd": bd,
+        "categorization": {},
+        "joint_bd_v1": dict(bd, multires=cfg.multires, mixing=cfg.mixing),
+        "joint_bd_v2": dict(bd, multires=cfg.multires, mixing=cfg.mixing),
+        "joint_reg_v3": dict(reg, mixing=cfg.mixing),
+        "elhoseiny_bd": bd,
+        "elhoseiny_reg": reg,
+    }[k]
 
 
 def build_model(
@@ -364,8 +530,14 @@ def build_model(
         dtype=resolve_compute_dtype(cfg.compute_dtype), seed=cfg.seed,
         param_dtype=param_dtype,
     )
+    if cfg.bn_train_only is not None and k != "one_bin_delta":
+        raise ValueError(
+            "bn_train_only is only supported for model_kind 'one_bin_delta' "
+            "(the _rene fine-tune scripts)"
+        )
     if k in _BD_KINDS:
-        extra = {} if k == "one_bin_delta" else dict(N3=cfg.N3)
+        extra = dict(bn_train_scope=cfg.bn_train_only) if k == "one_bin_delta" else dict(
+            N3=cfg.N3)
         model = _BD_KINDS[k](
             **common, **extra, num_clusters=cfg.dict_size, ndim=cfg.ndim,
             stem_pool=cfg.stem_pool, fused_bn=cfg.fused_conv_bn,
@@ -377,13 +549,11 @@ def build_model(
                 f"trunk is the plain one, as in the JAX package); got stem_pool="
                 f"{cfg.stem_pool!r}, fused_conv_bn={cfg.fused_conv_bn!r}"
             )
-        if k in ("per_class_regression", "independent_regression"):
-            extra = dict(ndim=cfg.ndim, nonlinearity=cfg.nonlinearity)
-        elif k == "per_class_classification":
-            extra = dict(num_clusters=cfg.dict_size)
-        else:
-            extra = dict(num_clusters=cfg.dict_size, N3=cfg.N3, ndim=cfg.ndim)
-        model = _POSE_KINDS[k](**common, **extra)
+        if k == "joint_bd_v2":
+            # a stage-1..3 trunk and two layer4 stages of feature_network
+            common.pop("feature_layer")
+            common["arch"] = common.pop("feature_network")
+        model = _POSE_KINDS[k](**common, **_kind_args(cfg))
     else:
         raise ValueError(
             f"model_kind {k!r} is not ported yet; the port has "
@@ -400,16 +570,17 @@ def build_problem(
     KMeansDictionary or raw (K, 3) axis-angle centers; the quaternion
     problems convert the atoms themselves, and the regression problems take
     none (a dictionary given to them is not read). cfg.gamma None resolves
-    to `get_gamma` of the atoms."""
-    if cfg.problem in DICTIONARY_FREE:
-        problem = make_problem(cfg.problem, None, device)
-    else:
+    to `get_gamma` of the atoms. The joint problems (train/joint_problems)
+    take the atoms for their BD forms; variant 2 takes its category CE over
+    all images, the others over real ones
+    (learnJointCatPoseModel2_weighted.py:171 against _top1.py:176)."""
+    centers, gmm_kw = None, {}
+    if cfg.problem not in DICTIONARY_FREE + JOINT_DICTIONARY_FREE:
         if dictionary is None:
             raise ValueError(
                 f"the {cfg.problem!r} problem needs a pose dictionary "
                 f"({cfg.dict_size}, 3); fit one with `cli dictionary`"
             )
-        gmm_kw: dict = {}
         if hasattr(dictionary, "means"):  # GMM
             gmm_kw = dict(
                 gmm_means=dictionary.means,
@@ -429,9 +600,16 @@ def build_problem(
                 f"the {cfg.problem!r} problem needs a GMMDictionary (means, "
                 "covariances, weights); fit one with dictionary.fit_gmm"
             )
-        gamma = get_gamma(centers) if cfg.gamma is None else cfg.gamma
+    if cfg.problem in JOINT_PROBLEMS:
+        problem = make_joint_problem(cfg.problem, centers, device,
+                                     cat_on_real_only=cfg.model_kind != "joint_bd_v2")
+    else:
+        gamma = cfg.gamma
+        if gamma is None and centers is not None:
+            gamma = get_gamma(centers)
         problem = make_problem(
-            cfg.problem, centers, device, gamma=gamma, multires=cfg.multires, **gmm_kw
+            cfg.problem, centers, device, gamma=10.0 if gamma is None else gamma,
+            multires=cfg.multires, **gmm_kw,
         )
     if not cfg.self_balance:
         problem = dataclasses.replace(
@@ -533,13 +711,39 @@ class Adam(torch.optim.Optimizer):
                 st["count"] = count
 
 
-def build_optimizer(cfg: ExperimentConfig, params: Iterable) -> Adam:
+def trained_parameters(cfg: ExperimentConfig, model: nn.Module) -> list[nn.Parameter]:
+    """The parameters that train: all of the model's, or with cfg.train_only
+    those of the named top-level modules (the JAX build_optimizer's
+    optax.set_to_zero outside them). An unknown name raises."""
+    if cfg.train_only is None:
+        return list(model.parameters())
+    children = dict(model.named_children())
+    unknown = [n for n in cfg.train_only if n not in children]
+    if unknown:
+        raise ValueError(
+            f"train_only names {unknown}, which the {cfg.model_kind!r} model does not "
+            f"have; its modules are {sorted(children)}"
+        )
+    return [p for n in cfg.train_only for p in children[n].parameters()]
+
+
+def build_optimizer(cfg: ExperimentConfig, model: nn.Module | Iterable) -> Adam:
     """Adam at scaled_lr(cfg), b1 0.9, b2 0.999, eps 1e-8, first moment in
     bfloat16 for cfg.optimizer_dtype 'bfloat16', else in the parameters'
-    dtype (the JAX build_optimizer without the unported train_only masking,
-    which the config refuses). The rate is the optimizer's `lr` of each
-    param group, which `Trainer.apply_epoch_lr` sets per main epoch under
-    cfg.epoch_lr_decay; the moments are untouched by that."""
+    dtype, over `trained_parameters(cfg, model)` (a model), or over the
+    parameters given (an iterable; cfg.train_only then needs the model).
+    Frozen leaves are not in the optimizer: the train step computes no
+    gradient for them, Adam keeps no moments for them and they stay
+    bit-equal, as under the JAX package's optax.multi_transform. The rate is
+    the optimizer's `lr` of each param group, which `Trainer.apply_epoch_lr`
+    sets per main epoch under cfg.epoch_lr_decay; the moments are untouched
+    by that."""
+    if isinstance(model, nn.Module):
+        params = trained_parameters(cfg, model)
+    elif cfg.train_only is not None:
+        raise ValueError("train_only needs the model, to find its named modules")
+    else:
+        params = model
     return Adam(
         params, scaled_lr(cfg), mu_dtype=_MU_DTYPES[cfg.optimizer_dtype]
     )

@@ -3,6 +3,11 @@ target transforms, losses and decoders.
 
   simple          CE + MSE(residual), the warm-up balance form for the whole
                   run (learnSimpleBDModel.py:124-131)
+  simple_rene     the _rene fine-tunes of fresh delta heads on a frozen,
+  euclidean_rene  classifier-grafted oracle: the residual term alone (MSE of
+                  the raw residual, or of the decoded pose) under the sigma
+                  balance, no CE term (learnSimpleBDModel_rene.py:160-170,
+                  learnEuclideanBDModel_rene.py:159-170)
   geodesic        warm-up CE + MSE(residual), then CE + geodesic loss on the
                   decoded pose (learnGeodesicBDModel.py:106-205), the north
                   star
@@ -34,8 +39,8 @@ target transforms, losses and decoders.
                   pose output (learnGeodesicRegressionModel.py:122-199);
                   regression_quat in quaternions
 
-The `_rene`, `objectnet_quat` and joint problems wait with their presets
-(ROADMAP.md).
+The joint problems are in train/joint_problems.py; `objectnet_quat` waits
+with its preset (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ from multi_modal_regression_tpu_torch.losses.primitives import (
 from multi_modal_regression_tpu_torch.models.heads import select_class
 
 PORTED_PROBLEMS = (
-    "simple", "geodesic", "euclidean", "laplacian", "geodesic_quat",
+    "simple", "simple_rene", "euclidean_rene", "geodesic", "euclidean", "laplacian", "geodesic_quat",
     "relaxed_kmeans", "probabilistic", "probabilistic_multires",
     "probabilistic_quat", "probabilistic_quat_multires", "riemannian",
     "log_euclidean", "classification", "regression", "regression_quat",
@@ -91,7 +96,9 @@ class Problem:
       decode(out)                -> predicted poses (test protocol)
     `out` is the model output: (scores, residual), or one tensor for the
     classification and regression models. The balance modes are
-    'warmup' | 'main' | None (fixed weights Lc + alpha * Lr).
+    'warmup' | 'main' | 'sigma' | None (fixed weights Lc + alpha * Lr).
+    `metric` is the headline evaluation: 'pose' (MedErr) or
+    'category_accuracy' (mean per-class accuracy of decoded class ids).
     """
 
     name: str
@@ -102,6 +109,7 @@ class Problem:
     decode: Callable
     warmup_balance: str | None = "warmup"
     main_balance: str | None = "main"
+    metric: str = "pose"
 
 
 def _first(out):
@@ -138,6 +146,13 @@ def make_problem(
     of the soft-bin problems; `multires` selects per-cluster deltas for the
     probabilistic ones (also implied by a `_multires` name). The arrays are
     placed on `device` once (the card unless the caller asks for "cpu")."""
+    from multi_modal_regression_tpu_torch.train.joint_problems import JOINT_PROBLEMS
+
+    if name in JOINT_PROBLEMS:
+        raise ValueError(
+            f"{name!r} is a joint problem: train/joint_problems.make_joint_problem "
+            "builds it (train.presets.build_problem routes it there)"
+        )
     if name not in PORTED_PROBLEMS:
         raise ValueError(
             f"problem {name!r} is not ported yet; the port has "
@@ -205,6 +220,28 @@ def make_problem(
         return Problem(
             name, "quaternion" if quat else "axis_angle", targets, hard_warmup, main,
             decode, main_balance="warmup" if name == "euclidean" else "main",
+        )
+
+    if name in ("simple_rene", "euclidean_rene"):
+        # the bin heads come from a trained classifier and stay frozen
+        # (train_only=('res_models',) on the preset); the loss is the
+        # residual term alone under the homoscedastic sigma balance
+        C = on_device(centers)
+
+        def targets(y):
+            bins, res = hard_bin_targets(y, C)
+            return {"y": y, "bins": bins, "res": res}
+
+        def losses(out, tg):
+            scores, residual = out
+            if name == "simple_rene":
+                return _zero(residual), mse(residual, tg["res"])
+            return _zero(residual), mse(decode_bin_delta(scores, residual, C), tg["y"])
+
+        return Problem(
+            name, "axis_angle", targets, losses, losses,
+            lambda out: decode_bin_delta(out[0], out[1], C),
+            warmup_balance="sigma", main_balance="sigma",
         )
 
     if name == "relaxed_kmeans":

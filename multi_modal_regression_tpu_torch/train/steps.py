@@ -4,8 +4,11 @@ One train step, on the batch's device with no host synchronisation: the
 uint8 batch -> normalize kernel -> Euler -> axis-angle or quaternion
 poses -> the problem's targets -> forward in training mode -> losses -> self-balance ->
 backward -> optimizer update, with the BN running statistics updated in the
-forward. `s`, the loss and the metrics stay on the device; nothing in the
-step calls `.item()`, `float()` or `.cpu()`.
+forward. Only the optimizer's parameters take gradients (the others, frozen
+by a preset's train_only, get none and stay as they are); BN runs in
+training mode where `train_modes` says so. `s`, the loss and the metrics
+stay on the device; nothing in the step calls `.item()`, `float()` or
+`.cpu()`.
 
 One eval step: the normalize kernel -> the model in eval mode, whatever mode
 the module was left in -> decode.
@@ -44,16 +47,45 @@ def _preprocess(
 
 
 @contextlib.contextmanager
-def _mode(modules: list[nn.Module], training: bool):
-    """Run with every module in `training` mode, then restore each one's own."""
+def _mode(modules: list[nn.Module], training):
+    """Run with the modules in `training` mode (one bool for all, or one
+    each), then restore each one's own."""
+    modes = [training] * len(modules) if isinstance(training, bool) else training
     saved = [m.training for m in modules]
-    for m in modules:
-        m.training = training
+    for m, t in zip(modules, modes):
+        m.training = t
     try:
         yield
     finally:
         for m, t in zip(modules, saved):
             m.training = t
+
+
+@contextlib.contextmanager
+def _grads_for(params: list[nn.Parameter], trained: list[nn.Parameter]):
+    """Run with requires_grad on exactly the `trained` parameters of
+    `params`, then restore each one's own."""
+    on = {id(p) for p in trained}
+    saved = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(id(p) in on)
+    try:
+        yield
+    finally:
+        for p, r in zip(params, saved):
+            p.requires_grad_(r)
+
+
+def train_modes(model: nn.Module, frozen_bn: bool = False) -> list[bool]:
+    """The training flag of each of model.modules() in a train step: what
+    model.train() sets (all True, or, for a model with a `bn_train_scope`,
+    True only inside its named top-level modules), or all False under
+    frozen_bn (BN on running statistics, none updated). The model is left
+    in the modes it was in."""
+    modules = list(model.modules())
+    with _mode(modules, [m.training for m in modules]):
+        model.train(not frozen_bn)
+        return [m.training for m in modules]
 
 
 def validate_dual_stream_layout(batch: dict) -> None:
@@ -81,12 +113,16 @@ def make_train_step(
     dual_loss_sum: bool = False,
     dual_stream_fused: bool = True,
     compute_dtype: torch.dtype | None = None,
+    frozen_bn: bool = False,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build the train step (state, batch) -> (state, metrics) for
     (model, problem, optimizer, phase); the semantics of the JAX step.
 
     batch holds, on the model's device, `xdata` uint8 (B, S, S, 3), `euler`
-    float32 (B, 3) degrees and `label` (B,) int.
+    float32 (B, 3) degrees and `label` (B,) int, and optionally `is_real`
+    (B,) bool, the rows of real images (all rows when absent). The losses
+    see the problem's targets plus `class_label` (the labels) and
+    `is_real`: the joint problems take their category CE over real rows.
 
     phase 'warmup' uses problem.warmup_losses / warmup_balance, 'main'
     main_losses / main_balance. A balance of None is the fixed combination
@@ -106,10 +142,18 @@ def make_train_step(
     dual_loss_sum=True scales (loss, lc, lr) by 2, the scripts that sum the
     two streams' mean losses; it needs fixed weights (balance None).
 
-    The model runs in training mode for the step and is left in the mode it
-    was in. Metrics: loss, lc, lr, s (after the update) and alpha (the
-    effective Lr weight after the update, as the reference logs it), all
-    0-d tensors on the device.
+    frozen_bn=True runs one forward over the whole batch with every BN in
+    eval mode (running statistics, none updated), dual_stream_bn or not,
+    while every trained parameter still trains (the JAX step's frozen_bn,
+    torch's model.eval()-during-training, learnCategorizationModel.py:66).
+
+    Gradients are taken for the optimizer's parameters only: a parameter the
+    optimizer does not hold gets none and no backward runs into a module
+    with no trained parameter below it. The model runs in the modes
+    `train_modes` gives for the step and is left in the mode it was in.
+    Metrics: loss, lc, lr, s (after the update) and alpha (the effective Lr
+    weight after the update, as the reference logs it), all 0-d tensors on
+    the device.
     """
     if phase == "warmup":
         loss_pair, balance = problem.warmup_losses, problem.warmup_balance
@@ -125,11 +169,14 @@ def make_train_step(
     del dual_stream_fused  # same two forwards either way (see above)
     loss_scale = 2.0 if (dual_stream_bn and dual_loss_sum) else 1.0
     modules = list(model.modules())
-    device = next(model.parameters()).device
+    modes = train_modes(model, frozen_bn)
+    params = list(model.parameters())
+    trained = [p for group in optimizer.param_groups for p in group["params"]]
+    device = params[0].device
     fixed_alpha = torch.tensor(alpha, dtype=torch.float32, device=device)
 
     def forward(images, labels):
-        if not dual_stream_bn:
+        if frozen_bn or not dual_stream_bn:
             return model(images, labels)
         if images.shape[0] % 2:
             raise ValueError(
@@ -149,16 +196,22 @@ def make_train_step(
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this step")
         images = _preprocess(batch, None, compute_dtype)
-        tg = problem.targets(euler_to_pose(batch["euler"], problem.ydata_type))
-        with _mode(modules, True):
-            lc, lr = loss_pair(forward(images, batch["label"]), tg)
-        if balance is None:
-            lc, lr = loss_scale * lc, loss_scale * lr
-            loss, s_next = lc + alpha * lr, state.s
-        else:
-            loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        tg = dict(problem.targets(euler_to_pose(batch["euler"], problem.ydata_type)))
+        labels = batch["label"]
+        tg["class_label"] = labels
+        is_real = batch.get("is_real")
+        tg["is_real"] = (torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+                         if is_real is None else is_real)
+        with _grads_for(params, trained):
+            with _mode(modules, modes):
+                lc, lr = loss_pair(forward(images, labels), tg)
+            if balance is None:
+                lc, lr = loss_scale * lc, loss_scale * lr
+                loss, s_next = lc + alpha * lr, state.s
+            else:
+                loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         optimizer.step()
         if balance is None:
             alpha_logged = fixed_alpha
@@ -184,9 +237,10 @@ def make_eval_step(
     batch holds `xdata` uint8 (B, H, W, 3) and `label` (B,) on the model's
     device, and optionally `euler` (B, 3) degrees (ytrue = its pose in the
     problem's representation) or axis-angle `ydata` (ytrue as given, turned
-    into quaternions for a quaternion problem); with neither, ytrue is None. The model
-    runs in eval mode (running statistics, none updated), as the JAX eval
-    step does, and is left in the mode it was in.
+    into quaternions for a quaternion problem); with neither, ytrue is None.
+    ypred is the problem's decode: poses, or int32 class ids for the
+    category problem. The model runs in eval mode (running statistics, none
+    updated), as the JAX eval step does, and is left in the mode it was in.
     """
     _check_resize(resize_to)
     modules = list(model.modules())

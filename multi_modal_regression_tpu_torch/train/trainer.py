@@ -10,8 +10,10 @@ are any iterables of the BalancedLoader batch dicts (data/loader.py):
 host before a batch crosses to the device: on the card an out-of-range
 label would be a device-side assert that ends the process's CUDA context.
 
-Evaluation decodes poses on the device and computes MedErr (the mean of
-per-class median geodesic errors, metrics/pose_error.py) on the host.
+Evaluation decodes on the device and computes the problem's headline
+metric on the host: MedErr (the mean of per-class median geodesic errors,
+metrics/pose_error.py), or for the category problem the mean per-class
+accuracy of the decoded class ids (`best` then keeps the highest).
 
 Checkpoints (`workdir`) hold the full state, which the reference does not
 save (it saves parameters only, learnGeodesicBDModel.py:231-232): the
@@ -19,7 +21,7 @@ model's state_dict with its BN running statistics, Adam's per-parameter
 count and moments in their own dtypes (a bfloat16 first moment stays
 bfloat16), the learning rate, `s`, the step and the config. They are
 written with `torch.save` to `<workdir>/checkpoints/<name>` (`last` after
-every main epoch, `best` at the lowest MedErr, `final` by the CLI),
+every main epoch, `best` at the best headline metric, `final` by the CLI),
 atomically: a temporary file in the same directory, then `os.replace`.
 Metrics go to `<workdir>/metrics.jsonl` under the JAX package's record keys
 and the validation curve to `<workdir>/plots.npz`. The multi-host predict
@@ -40,7 +42,10 @@ import numpy as np
 import torch
 
 from multi_modal_regression_tpu_torch.losses.self_balance import init_log_balance
-from multi_modal_regression_tpu_torch.metrics.pose_error import mean_class_median_error
+from multi_modal_regression_tpu_torch.metrics.pose_error import (
+    mean_class_accuracy,
+    mean_class_median_error,
+)
 from multi_modal_regression_tpu_torch.train.presets import (
     ExperimentConfig,
     build_model,
@@ -59,8 +64,9 @@ from multi_modal_regression_tpu_torch.train.steps import (
 from multi_modal_regression_tpu_torch.utils.metrics_writer import MetricsWriter
 
 _METRIC_KEYS = ("loss", "lc", "lr", "s", "alpha")
-# the batch entries that cross to the device (`valid` and `is_real` stay)
-_DEVICE_KEYS = ("xdata", "euler", "ydata", "label")
+# the batch entries that cross to the device (`valid` stays on the host;
+# `is_real` goes too, as the joint losses' row mask)
+_DEVICE_KEYS = ("xdata", "euler", "ydata", "label", "is_real")
 
 
 def _interleave(real_loader: Iterable, render_loader: Iterable | None):
@@ -137,7 +143,8 @@ class Trainer:
             param_dtype=torch.promote_types(torch.float32, self.compute_dtype),
         )
         self.problem = build_problem(config, dictionary, self.device)
-        self.optimizer = build_optimizer(config, self.model.parameters())
+        # over the trained parameters only (cfg.train_only)
+        self.optimizer = build_optimizer(config, self.model)
         self._train_steps: dict = {}
         self._eval_step = make_eval_step(
             self.model, self.problem, compute_dtype=self.compute_dtype
@@ -162,6 +169,7 @@ class Trainer:
                 dual_loss_sum=dual_stream and cfg.loss_stream_sum,
                 dual_stream_fused=cfg.bn_stream_fused,
                 compute_dtype=self.compute_dtype,
+                frozen_bn=cfg.frozen_bn,
             )
         return self._train_steps[key]
 
@@ -327,7 +335,8 @@ class Trainer:
         the learning rate the step ran at, and written to metrics.jsonl; no
         other step waits for the device."""
         cfg = self.config
-        use_dual = render_loader is not None and cfg.bn_per_stream
+        # frozen_bn has no batch statistics, so there is nothing to split
+        use_dual = render_loader is not None and cfg.bn_per_stream and not cfg.frozen_bn
         step_fn = self.train_step_fn(phase, dual_stream=use_dual)
         n_steps = images_done = 0
         t0 = time.time()
@@ -375,9 +384,11 @@ class Trainer:
         cfg.epoch_lr_decay. After every main epoch: the `last` checkpoint,
         and with a test_loader MedErr, logged and kept in val_history, with
         the `best` checkpoint at the lowest so far. plots.npz holds the
-        curve; every save is on disk when fit returns."""
+        curve; every save is on disk when fit returns. `best` keeps the
+        lowest MedErr, or the highest accuracy for a category problem."""
         cfg = self.config
-        best = float("inf")
+        maximize = self.problem.metric == "category_accuracy"
+        best = -float("inf") if maximize else float("inf")
         for _ in range(cfg.num_warmup_epochs):
             state = self.run_epoch(
                 state, real_loader, render_loader, "warmup", test_loader, log_every
@@ -401,8 +412,8 @@ class Trainer:
                 )
                 self._log({"step": state.step, "epoch": epoch, "med_err": med})
                 self.val_history.append(med)
-                if med < best:  # keep the best-by-MedErr checkpoint
-                    best = med
+                if (med > best) if maximize else (med < best):
+                    best = med  # the best-by-headline-metric checkpoint
                     self.save_checkpoint(state, "best")
         if self.workdir and self.val_history:
             # validation-curve history (the reference's plots/<S>.mat,
@@ -415,7 +426,9 @@ class Trainer:
 
     def predict(self, state: TrainState, test_loader: Iterable) -> tuple[np.ndarray, ...]:
         """(ytrue, ypred, labels) on the host over the whole test set, the
-        padded rows (`valid` False) dropped. The model runs in eval mode."""
+        padded rows (`valid` False) dropped. The model runs in eval mode.
+        Float outputs come back in at least float32; class ids (the category
+        problem's decode) as int32."""
         if state.model is not self.model:
             raise ValueError("the state holds another model than this trainer")
         preds, trues, labels = [], [], []
@@ -423,19 +436,27 @@ class Trainer:
             valid = np.asarray(batch["valid"], bool)
             ypred, ytrue = self._eval_step(self._to_device(batch))
             for out, y in ((preds, ypred), (trues, ytrue)):
-                y = y.to(torch.promote_types(torch.float32, y.dtype))
+                if y.is_floating_point():
+                    y = y.to(torch.promote_types(torch.float32, y.dtype))
                 out.append(y.cpu().numpy()[valid])
             labels.append(np.asarray(batch["label"])[valid])
         return np.concatenate(trues), np.concatenate(preds), np.concatenate(labels)
 
     def metric_label(self, value: float) -> str:
-        """The headline metric as printed: 'MedErr 12.345 deg'."""
+        """The headline metric as printed: 'MedErr 12.345 deg', or 'Acc
+        0.9300' for a category problem (learnCategorizationModel.py:118)."""
+        if self.problem.metric == "category_accuracy":
+            return f"Acc {value:.4f}"
         return f"MedErr {value:.3f} deg"
 
     def evaluate(self, state: TrainState, test_loader: Iterable) -> float:
-        """MedErr: the mean over classes of the per-class median pose error
-        in degrees (get_error2 parity, axisAngle.py:70-95)."""
+        """The headline metric: MedErr, the mean over classes of the
+        per-class median pose error in degrees (get_error2 parity,
+        axisAngle.py:70-95); for a category problem the mean per-class
+        accuracy (helperFunctions.get_accuracy)."""
         ytrue, ypred, labels = self.predict(state, test_loader)
+        if self.problem.metric == "category_accuracy":
+            return mean_class_accuracy(labels, ypred, self.config.num_classes)
         rep = "quaternion" if self.problem.ydata_type == "quaternion" else "axis_angle"
         return mean_class_median_error(
             ytrue, ypred, labels, self.config.num_classes, representation=rep

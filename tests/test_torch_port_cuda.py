@@ -1102,3 +1102,76 @@ def test_zoo_train_step_kernel_matches_plain(dev, kind, monkeypatch):
         errs = sorted(((float((gk[k] - w).norm()) / max(float(w.norm()), 1e-30), k)
                        for k, w in gp.items()), reverse=True)
         assert errs[0][0] <= 5e-2, errs[:3]
+
+
+# --- the two-stage and joint pipelines --------------------------------------------------
+
+
+@pytest.mark.parametrize("preset", ["joint_cat_pose_top1", "simple_bd_rene"])
+def test_joint_and_rene_steps_kernel_matches_plain(dev, preset, monkeypatch):
+    """One dual-stream f32 main step (TF32 off, SGD(lr=1) over the preset's
+    trained leaves, ResNet50 to layer4 at 64 px, 24 images with the is_real
+    mask, N1 32, N2 16, K 8, 3 classes), kernel path against plain path
+    from the same weights. simple_bd_rene runs the stem kernels with the
+    trunk's BN on its running statistics (bn_train_only res_models) against
+    the plain stem, both after the normalize kernel: 1 normalize, 2 stem and
+    0 stem backward launches (the frozen trunk takes no gradient) against
+    1, 0, 0; the two forwards are the same bits, so the loss within 1e-6
+    relative and res_models' gradients within 1e-5 of each leaf's largest
+    magnitude; every frozen leaf bit-equal after the step on both paths.
+    joint_cat_pose_top1 has no stem option: the normalize kernel against the
+    plain normalize, 1 launch against 0, loss within 1e-4 relative and each
+    gradient leaf within 5e-2 of its norm, as the zoo's pose kinds."""
+    from multi_modal_regression_tpu_torch.train.presets import trained_parameters
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = dict(N1=32, N2=16, dict_size=8, num_classes=3, image_size=64,
+                 compute_dtype="float32")
+    rene = preset == "simple_bd_rene"
+    rng = np.random.default_rng(2)
+    centers = rng.standard_normal((8, 3)).astype(np.float32)
+    batch = {
+        "xdata": torch.from_numpy(rng.integers(0, 256, (24, 64, 64, 3), np.uint8)).to(dev),
+        "euler": torch.from_numpy(rng.uniform(-90, 90, (24, 3)).astype(np.float32)).to(dev),
+        "label": torch.from_numpy(np.tile(np.arange(3), 8).astype(np.int32)).to(dev),
+        "is_real": (torch.arange(24) < 12).to(dev),
+    }
+    results = {}
+    weights = None
+    for path in ("kernel", "plain"):
+        cfg = get_config(preset, stem_pool=path if rene else None, **small)
+        model = build_model(cfg, dev)
+        if weights is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        if path == "plain" and not rene:
+            monkeypatch.setattr("multi_modal_regression_tpu_torch.train.steps."
+                                "normalize_images_cuda", normalize_images)
+        trained = trained_parameters(cfg, model)
+        sgd = torch.optim.SGD(trained, lr=1.0)
+        step = make_train_step(model, build_problem(cfg, centers, dev), sgd, phase="main",
+                               alpha=cfg.alpha, dual_stream_bn=True)
+        counts = (preprocess.launches, stem_pool.launches, stem_pool.bwd_launches)
+        _, m = step(TrainState(0, model, sgd, torch.zeros((), device=dev)), batch)
+        counts = tuple(n - n0 for n, n0 in zip(
+            (preprocess.launches, stem_pool.launches, stem_pool.bwd_launches), counts))
+        want = ((1, 2, 0) if path == "kernel" else (1, 0, 0)) if rene else (
+            (1, 0, 0) if path == "kernel" else (0, 0, 0))
+        assert counts == want, (path, counts)
+        assert torch.isfinite(m["loss"])
+        ids = {id(p) for p in trained}
+        for k, p in model.named_parameters():
+            if id(p) not in ids:
+                assert p.grad is None and torch.equal(p, weights[k]), k
+        results[path] = (float(m["loss"]), {k: p.grad for k, p in model.named_parameters()
+                                            if id(p) in ids})
+    (lk, gk), (lp, gp) = results["kernel"], results["plain"]
+    assert abs(lk - lp) <= (1e-6 if rene else 1e-4) * abs(lp)
+    if rene:
+        for k, w in gp.items():
+            assert float((gk[k] - w).abs().max()) <= 1e-5 * float(w.abs().max()), k
+    else:
+        errs = sorted(((float((gk[k] - w).norm()) / max(float(w.norm()), 1e-30), k)
+                       for k, w in gp.items()), reverse=True)
+        assert errs[0][0] <= 5e-2, errs[:3]

@@ -396,13 +396,12 @@ def test_cli_predict(trained, protocol):
 
 
 @pytest.mark.parametrize("cmd,flag", [
-    ("predict", ["--analysis"]), ("verify-parity", ["--compile-cache", "off"]),
-    ("predict", ["--analysis-names", "pose"]), ("evaluate", ["--distributed"]),
+    ("verify-parity", ["--compile-cache", "off"]), ("evaluate", ["--distributed"]),
     ("predict", ["--coordinator-address", "localhost:1"]), ("pack", ["--compile-cache", "off"]),
 ], ids=lambda f: f if isinstance(f, str) else f[0])
 def test_cli_refuses_what_is_not_ported(cli_tree, cmd, flag):
-    """The joint-model analysis, multi-host runs and the compile cache (of
-    the gate too) raise NotImplementedError naming ROADMAP.md."""
+    """Multi-host runs and the compile cache (of the gate too) raise
+    NotImplementedError naming ROADMAP.md."""
     with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP.md\)"):
         cli.main(_args(cmd, cli_tree, *flag))
 

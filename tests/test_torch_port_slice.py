@@ -226,7 +226,7 @@ def test_presets_and_backbones_not_yet_ported_raise():
     assert (cfg.feature_network, cfg.feature_layer, cfg.N0, cfg.N1, cfg.N2,
             cfg.dict_size, cfg.num_classes, cfg.image_size) == (
         "resnet50", "layer4", 2048, 1000, 500, 200, 12, 224)
-    for preset in ("simple_bd_rene", "joint_cat_pose_top1", "objectnet_quat"):
+    for preset in ("objectnet_bd", "objectnet_regression", "objectnet_quat"):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             get_config(preset)
     with pytest.raises(ValueError, match="ROADMAP.md"):

@@ -220,9 +220,10 @@ def test_soft_problems_main_gradients_match_jax_f64(x64, name):
 def test_problems_refuse_what_is_not_ported():
     means, covs, w = _gmm_arrays()
     kw = dict(gmm_means=means, gmm_covariances=covs, gmm_weights=w)
-    for name in ("simple_rene", "objectnet_quat", "joint_bd"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_problem(name, _centers(), "cpu", **kw)
+    with pytest.raises(ValueError, match="not ported yet"):
+        make_problem("objectnet_quat", _centers(), "cpu", **kw)
+    with pytest.raises(ValueError, match="make_joint_problem"):
+        make_problem("joint_bd", _centers(), "cpu", **kw)
     cfg = get_config("probabilistic_bd", dict_size=8)
     with pytest.raises(ValueError, match="GMMDictionary"):
         build_problem(cfg, _centers(), "cpu")
@@ -244,7 +245,7 @@ def test_preset_fields_match_jax(preset):
             continue
         assert getattr(cfg, f) == getattr(ref, f), f
     with pytest.raises(ValueError, match="not ported yet"):
-        get_config("simple_bd_rene")
+        get_config("objectnet_quat")
 
 
 def test_build_problem_resolves_gamma_and_dictionaries():

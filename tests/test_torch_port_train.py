@@ -523,9 +523,8 @@ def test_build_optimizer_matches_optax(optimizer_dtype):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(frozen_bn=True), dict(remat="block"), dict(train_flip=True),
+    dict(remat="block"), dict(train_flip=True),
     dict(device_resize_from=256), dict(epoch_lr_decay="cosine"),
-    dict(train_only=("res_models",)), dict(bn_train_only=("res_models",)),
     dict(fused_conv_bn="kernel"),
 ])
 def test_unported_settings_raise(setting):

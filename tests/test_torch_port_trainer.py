@@ -380,9 +380,7 @@ def test_cli_train_refuses_mismatched_classes(cli_tree, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--coordinator-address", "localhost:1"], ["--distributed"], ["--warm-start-workdir", "w"],
-    ["--warm-start-preset", "geodesic_bd"], ["--warm-start-checkpoint", "final"],
-    ["--warm-start-kind", "oracle"], ["--compile-cache", "off"], ["--frozen-bn"],
+    ["--coordinator-address", "localhost:1"], ["--distributed"], ["--compile-cache", "off"],
     ["--remat", "block"], ["--train-flip"], ["--device-resize-from", "64"],
 ], ids=lambda f: f[0])
 def test_cli_train_refuses_what_is_not_ported(cli_tree, tmp_path, flag):
