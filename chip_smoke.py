@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: its kernels, serving, training,
-evaluation, the quality-parity gate, the single-model pose zoo and the
-two-stage and joint category + pose pipelines.
+evaluation, the quality-parity gate, the single-model pose zoo, the
+two-stage and joint category + pose pipelines, and the ObjectNet, VGG,
+resize, flip and remat slice.
 
     python3 chip_smoke.py
 
@@ -204,10 +205,38 @@ line each (or more), in order:
      oracle` -> `cli predict --analysis --checkpoint final,last`: grafted
      tensors bit-equal to their sources, launches exact, the .mat's
      ypred_pose (N, 3, 12), the analysis kernel vs plain on clear rows)
+  15 the ObjectNet slice at full width (ResNet50 to layer4, N1 1000, N2
+     500, N3 100, 100 classes, 224 px, bf16, one flat batch of 96 images a
+     step): Trainer.fit of each of the five objectnet_* presets, 1 warm-up
+     + 1 main step (2 main epochs of 1 step for objectnet_classification),
+     stem_pool 'kernel': per step exactly 1 normalize, 1 stem and 1 stem
+     backward launch, no assign launch, finite metrics, Lc nonzero but for
+     regression, Lr nonzero but for classification, each step's rate,
+     every running statistic moved; objectnet_bd and objectnet_bd_multires
+     again through the plain path within TRAIN_TOL; objectnet_bd on
+     vgg16/fc7 and vgg13/fc6 (1 normalize and no stem launch a step); one
+     64-image request of each label-concat kind and of the VGG16 model
+     through make_inference_fn against the plain path on the rows clear of
+     a tie (`_clear`); geodesic_bd (dual loaders, 96 images) one main step
+     with device_resize_from 256 + train_flip (no normalize launch: the
+     resize path normalizes with the plain version, as the JAX package
+     does) and one with train_flip alone (1), then a step under each remat
+     mode against remat None from the same weights: its metrics and every
+     parameter's gradient (difference over remat None's norm) within
+     TRAIN_TOL, 4 stem launches (the recomputed stem), every BN counter
+     advanced once a stream, a peak below remat None's; each mode's
+     host-clock step time and peak memory; and remat 'block' on the fused
+     trunk against its own remat None, metrics and gradients within
+     FUSED_TRAIN_TOL (the forward kernels launched twice); then one
+     subprocess: `cli prepare-data --dataset objectnet3d` on a synthesized
+     release, `cli dictionary` (K 16, exactly 4 x 101 assign launches),
+     `cli train --preset objectnet_bd_multires --train-flip` and `cli
+     predict` on its `final`: exit 0, finite MedErrs
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
      rate of their type; `zoo_launches` their launches in [13],
-     `joint_launches` in [14]), then the result line
+     `joint_launches` in [14], `objectnet_launches` in [15]), then the
+     result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 With --profile, [6] also prints the device-time table (torch.profiler) of 3
@@ -3304,6 +3333,403 @@ def phase_joint(dev, smi: str, dicts: dict, user: dict, tmp: Path) -> dict:
 
 
 
+OBJECTNET_PRESETS = ("objectnet_quat", "objectnet_bd", "objectnet_bd_multires",
+                     "objectnet_regression", "objectnet_classification")
+# the same steps through the plain path: the BD and the delta-per-bin kinds
+OBJECTNET_COMPARE = ("objectnet_bd", "objectnet_bd_multires")
+# one request of each label-concat kind from its trained model, and one from a VGG model
+OBJECTNET_SERVE = {
+    "objectnet_bd": "labelconcat_bd", "objectnet_bd_multires": "labelconcat_delta_per_bin",
+    "objectnet_regression": "labelconcat_regression",
+    "objectnet_classification": "labelconcat_classification",
+}
+OBJECTNET_VGG = (("vgg16", "fc7"), ("vgg13", "fc6"))
+OBJECTNET_IMAGES = 96  # a step's flat batch (learnObjectnetBDModel.py:74)
+REMAT_ORDER = ("block", "stage", "conv", "dots", "nothing")
+
+
+def objectnet_config(preset: str, **over):
+    """Full width (ResNet50 to layer4, N1 1000, N2 500, N3 100, the preset's
+    100 classes and K), bf16, stem_pool 'kernel' (None on a VGG trunk), 2
+    steps: 1 warm-up + 1 main step, or 2 main epochs of 1 step for the
+    single-phase classification preset."""
+    base = get_config(preset)
+    warm = base.num_warmup_epochs > 0
+    vgg = over.get("feature_network", "resnet50").startswith("vgg")
+    return get_config(
+        preset, compute_dtype="bfloat16", max_iterations=1,
+        stem_pool=None if vgg else "kernel", num_warmup_epochs=1 if warm else 0,
+        num_epochs=1 if warm else 2, **({"N0": 4096} if vgg else {}), **over,
+    )
+
+
+def make_flat_loader(rng: np.random.Generator, n_batches: int, n: int, size: int,
+                     classes: int) -> list[dict]:
+    """FlatLoader-style batches of n images: make_loader's images and poses,
+    labels drawn over all the classes."""
+    batches = make_loader(rng, n_batches, n, size, 1)
+    for b in batches:
+        b["label"] = rng.integers(0, classes, n).astype(np.int32)
+    return batches
+
+
+def objectnet_checks(tag: str, cfg, trainer: Trainer, launches: dict, before: dict) -> None:
+    """Exact launches (1 normalize a step; 1 stem and 1 stem backward a step on
+    a ResNet trunk with the stem kernel, single loader; none on VGG), finite
+    metrics, Lc nonzero but for regression, Lr nonzero but for
+    classification, each step's rate, every running statistic moved."""
+    hist, n = trainer.history, len(trainer.history)
+    stem = n if cfg.stem_pool == "kernel" else 0
+    want = {**{k: 0 for k in launches}, "normalize": n, "stem_pool": stem, "stem_pool_bwd": stem}
+    if n != 2 or launches != want:
+        raise AssertionError(f"[15] {tag}: {n} steps, launches {launches}, expected {want}")
+    for rec in hist:
+        if not all(np.isfinite(rec[k]) for k in ("loss", "lc", "lr", "s", "alpha")):
+            raise AssertionError(f"[15] {tag}: non-finite metrics {rec}")
+        if (rec["lc"] != 0) != (cfg.problem != "regression"):
+            raise AssertionError(f"[15] {tag}: lc {rec['lc']} (problem {cfg.problem})")
+        if (rec["lr"] != 0) != (cfg.problem != "classification"):
+            raise AssertionError(f"[15] {tag}: lr {rec['lr']} (problem {cfg.problem})")
+    epochs = [0] * cfg.num_warmup_epochs + [e + 1 for e in range(cfg.num_epochs)]
+    rates = [cfg.init_lr * (epoch_lr_factor(cfg.epoch_lr_decay, e) if cfg.epoch_lr_decay
+                            else 1.0) for e in epochs]
+    if not np.allclose([r["learning_rate"] for r in hist], rates, rtol=1e-12):
+        raise AssertionError(f"[15] {tag}: rates {[r['learning_rate'] for r in hist]}")
+    after = trainer.model.state_dict()
+    stuck = [k for k in before if "running" in k and torch.equal(before[k], after[k])]
+    if stuck:
+        raise AssertionError(f"[15] {tag}: running statistics that did not move: {stuck[:5]}")
+
+
+def objectnet_serve(tag: str, kind: str, trainer: Trainer, dev) -> dict:
+    """One 64-image request of 100 classes through make_inference_fn (1
+    normalize launch, 1 stem launch on a ResNet trunk with the stem kernel)
+    against the plain path (the plain normalize, the same model), on the
+    rows whose bin argmax the two paths cannot make differently (`_clear`;
+    every row for the regression kind)."""
+    rtol = SERVE_RTOL[torch.bfloat16]
+    images, labels = make_requests(np.random.default_rng(16), (64,), 224, 100)[0]
+    model = trainer.model
+    infer = make_inference_fn(model, trainer.problem)
+    reset_counts()
+    served = infer(images, labels)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    want = {"normalize": 1, **({"stem_pool": 1} if trainer.config.stem_pool else {})}
+    if launches != want:
+        raise AssertionError(f"[15] {tag} serve launches {launches}, expected {want}")
+    (outs_k, _), (outs_p, dec_p) = (zoo_outputs(model, trainer.problem, images, labels, dev, k)
+                                    for k in (True, False))
+    clear = (torch.ones(len(dec_p), dtype=torch.bool, device=dec_p.device)
+             if kind == "labelconcat_regression" else _clear(outs_k[0], outs_p[0]))
+    if not clear.any():
+        raise AssertionError(f"[15] {tag}: no row clear of a tie between the two paths")
+    worst = 0.0
+    for k, p in zip(outs_k, outs_p, strict=True):
+        err = float((k[clear] - p[clear]).abs().max())
+        if not err <= rtol * float(p.abs().max()):
+            raise AssertionError(f"[15] {tag} outputs on clear rows: max err {err:.3g}")
+        worst = max(worst, err)
+    perr = float((served[clear] - dec_p[clear]).abs().max())
+    if not perr <= rtol * max(float(dec_p.abs().max()), 1.0):
+        raise AssertionError(f"[15] {tag} served poses: max err {perr:.3g}")
+    print(f"[15] {tag} ({kind}): one 64-image request through make_inference_fn (launches "
+          f"{launches}) against the plain path: outputs max err {worst:.3g}, served poses "
+          f"{tuple(served.shape)} max err {perr:.3g} on {int(clear.sum())}/{len(clear)} rows "
+          f"clear of a tie (rtol {rtol:g} of max)")
+    return {"outputs_err": worst, "served_err": perr, "clear": int(clear.sum())}
+
+
+def objectnet_fit(tag: str, cfg, dictionary, batches, dev, totals: dict):
+    """Trainer.fit of cfg over the flat batches (single loader): checks,
+    launches added to `totals`; returns (trainer, the initial state_dict,
+    wall s, peak GiB)."""
+    kern = Trainer(cfg, dictionary=dictionary, device=dev)
+    before = {k: v.clone() for k, v in kern.model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    assign.launches = 0
+    t0 = time.perf_counter()
+    kern.fit(kern.init_state(), batches, None, log_every=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_counts()
+    if assign.launches:
+        raise AssertionError(f"[15] {tag}: {assign.launches} assign launches in its steps")
+    objectnet_checks(tag, cfg, kern, launches, before)
+    for k, v in launches.items():
+        totals[k] += v
+    n_params = sum(p.numel() for p in kern.model.parameters())
+    print(f"[15] {tag} ({cfg.model_kind}, {cfg.problem}, {cfg.feature_network}/"
+          f"{cfg.feature_layer}, K {cfg.dict_size}, {cfg.num_classes} classes, stem_pool "
+          f"{cfg.stem_pool}): {n_params / 1e6:.1f} M parameters; {len(kern.history)} steps of "
+          f"{OBJECTNET_IMAGES} images in {fit_s:.2f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, peak {peak:.2f} GiB; "
+          + "; ".join(f"{r['phase']} lr {r['learning_rate']:.3g}: loss {r['loss']:.4f} lc "
+                      f"{r['lc']:.4f} lr {r['lr']:.4f}" for r in kern.history))
+    return kern, before, fit_s, peak
+
+
+def remat_run(cfg, dictionary, real, render, dev, init_sd=None) -> dict:
+    """One main step of cfg from `init_sd` (or its seed's weights) with
+    launches counted and BN counters checked (exactly one update a stream),
+    the gradients that step's backward left on the parameters kept, then 3
+    timed steps on the same batch (host clock, each ending in a
+    synchronize) and the peak memory over them."""
+    t = Trainer(cfg, dictionary=dictionary, device=dev)
+    if init_sd is not None:
+        t.model.load_state_dict(init_sd)
+    # kept on the host, so that no run's peak holds another run's tensors
+    before = {k: v.cpu() for k, v in t.model.state_dict().items()}
+    reset_counts()
+    t.fit(t.init_state(), real, render, log_every=1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts().items() if v}
+    grads = {n: p.grad.float().cpu() for n, p in t.model.named_parameters()
+             if p.grad is not None}
+    after = t.model.state_dict()
+    for k, v in after.items():
+        if k.endswith("num_batches_tracked") and int(v) - int(before[k]) != 2:
+            raise AssertionError(f"[15] remat {cfg.remat}: {k} advanced by "
+                                 f"{int(v) - int(before[k])}, not once a stream")
+    step = t.train_step_fn("main", dual_stream=True)
+    batch = t._to_device(next(_interleave(real, render)))
+    state = t.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, times = timed_steps(step, state, batch, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = {"hist": t.history, "grads": grads, "launches": launches,
+           "ms": statistics.median(times) * 1e3, "peak": peak, "init": before}
+    del t, step, state, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def remat_close(tag: str, got: dict, want: dict, tol: float) -> tuple[float, float]:
+    """The step's metrics, and what its backward produced: each parameter's
+    gradient, as the norm of its difference over the norm of `want`'s (a
+    gradient 0 in `want` must be 0), within `tol`. Adam's first step moves
+    every weight by about +/-lr whatever its gradient, so the weights after
+    the step would hide a wrong gradient; the gradients show it. Returns the
+    worst metric and the worst gradient difference."""
+    worst = 0.0
+    for rk, rp in zip(got["hist"], want["hist"], strict=True):
+        for k in ("loss", "lc", "lr", "s", "alpha"):
+            err = abs(rk[k] - rp[k]) / (1.0 if k == "s" else max(abs(rp[k]), 1e-12))
+            if not err <= tol:
+                raise AssertionError(f"[15] {tag} {k}: {rk[k]} against {rp[k]}")
+            worst = max(worst, err)
+    if got["grads"].keys() != want["grads"].keys() or not want["grads"]:
+        raise AssertionError(f"[15] {tag}: gradients of other parameters than remat None's")
+    worst_grad = 0.0
+    for k, g0 in want["grads"].items():
+        diff, ref = float((got["grads"][k] - g0).norm()), float(g0.norm())
+        err = diff / ref if ref > 0 else (0.0 if diff == 0 else float("inf"))
+        if not err <= tol:
+            raise AssertionError(f"[15] {tag} gradient of {k}: {err:.3g} of its norm apart")
+        worst_grad = max(worst_grad, err)
+    return worst, worst_grad
+
+
+def objectnet_fields(dev, smi: str, dictionary) -> dict:
+    """geodesic_bd (dual loaders, 96 images a step) with the new fields: one
+    main step with device_resize_from 256 + train_flip (no normalize launch:
+    the resize path takes the plain normalize, as in the JAX package), one
+    with train_flip alone (1 normalize launch), then a step under each remat
+    mode against remat None (metrics and gradients within TRAIN_TOL, a lower
+    peak), and remat 'block' on the fused trunk against its own remat None
+    (metrics and gradients within FUSED_TRAIN_TOL)."""
+    rng = np.random.default_rng(151)
+    base = dict(compute_dtype="bfloat16", items_per_batch=4, max_iterations=1,
+                stem_pool="kernel", num_warmup_epochs=0, num_epochs=1)
+    counts = {k: 0 for k in read_counts()}
+    big = [make_loader(rng, 1, 4, 256, 12) for _ in range(2)]
+    for tag, over, real, render, normalize in (
+            ("device_resize_from 256 + train_flip", dict(device_resize_from=256, train_flip=True),
+             *big, 0),
+            ("train_flip", dict(train_flip=True), *(make_loader(rng, 1, 4, 224, 12)
+                                                    for _ in range(2)), 1)):
+        cfg = get_config("geodesic_bd", **base, **over)
+        t = Trainer(cfg, dictionary=dictionary, device=dev)
+        reset_counts()
+        t.fit(t.init_state(), real, render, log_every=1)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        want = {**{k: 0 for k in launches}, "normalize": normalize, "stem_pool": 2,
+                "stem_pool_bwd": 2}
+        rec = t.history[0]
+        if launches != want or not all(np.isfinite(rec[k]) for k in ("loss", "lc", "lr")):
+            raise AssertionError(f"[15] geodesic_bd {tag}: launches {launches}, expected "
+                                 f"{want}; {rec}")
+        for k, v in launches.items():
+            counts[k] += v
+        print(f"[15] geodesic_bd {tag}: one main step of 96 images, launches "
+              f"{ {k: v for k, v in launches.items() if v} } (expected {want['normalize']} "
+              f"normalize), loss {rec['loss']:.4f} lc {rec['lc']:.4f} lr {rec['lr']:.4f}")
+        del t
+        torch.cuda.empty_cache()
+    real, render = (make_loader(rng, 1, 4, 224, 12) for _ in range(2))
+    runs = {None: remat_run(get_config("geodesic_bd", **base), dictionary, real, render, dev)}
+    init = runs[None]["init"]
+    for mode in REMAT_ORDER:
+        runs[mode] = remat_run(get_config("geodesic_bd", **base, remat=mode), dictionary, real,
+                               render, dev, init)
+    rows = []
+    for mode, r in runs.items():
+        # a recomputed forward launches the stem kernel again in the backward
+        want = {"normalize": 1, "stem_pool": 2 if mode is None else 4, "stem_pool_bwd": 2}
+        if r["launches"] != want:
+            raise AssertionError(f"[15] remat {mode}: launches {r['launches']}, expected {want}")
+        err, gerr = ((0.0, 0.0) if mode is None else
+                     remat_close(f"remat {mode}", r, runs[None], TRAIN_TOL))
+        # every mode keeps less for the backward than no remat does
+        if mode is not None and not r["peak"] < runs[None]["peak"]:
+            raise AssertionError(f"[15] remat {mode}: peak {r['peak']:.2f} GiB, not below "
+                                 f"remat None's {runs[None]['peak']:.2f}")
+        rows.append(f"{mode}: step {r['ms']:.2f} ms, peak {r['peak']:.2f} GiB, launches "
+                    f"{r['launches']}, worst metric difference {err:.3g}, worst gradient "
+                    f"difference {gerr:.3g}")
+        for k, v in r["launches"].items():
+            counts[k] += v
+    print(f"[15] geodesic_bd remat modes, bf16 main step of 96 images from the same weights "
+          f"(host-clock median of 3 steps, peak device memory over them); every BN's "
+          f"num_batches_tracked advanced once a stream: " + "; ".join(rows)
+          + f" (<= {TRAIN_TOL}, the gradients per parameter as a share of remat None's "
+          f"norm); {smi}")
+    fused = {}
+    for mode in (None, "block"):
+        cfg = get_config("geodesic_bd", **base, fused_conv_bn="kernel", remat=mode)
+        fused[mode] = remat_run(cfg, dictionary, real, render, dev,
+                                init if mode is None else fused[None]["init"])
+        for k, v in fused[mode]["launches"].items():
+            counts[k] += v
+    err, gerr = remat_close("fused remat block", fused["block"], fused[None], FUSED_TRAIN_TOL)
+    fl = {m: fused[m]["launches"] for m in fused}
+    # 'block' runs each block's forward kernels again in the backward
+    want = {**fl[None], "mm": 2 * fl[None].get("mm", 0), "c3": 2 * fl[None].get("c3", 0),
+            "stem_pool": 2 * fl[None].get("stem_pool", 0)}
+    if fl["block"] != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"[15] fused remat block launches {fl}")
+    print(f"[15] fused trunk (fused_conv_bn 'kernel') remat 'block' against remat None: worst "
+          f"metric difference {err:.3g}, worst gradient difference {gerr:.3g} (<= "
+          f"{FUSED_TRAIN_TOL}); launches {fl['block']} against "
+          f"{fl[None]} (the forward kernels recomputed in the backward); step "
+          f"{fused['block']['ms']:.2f} ms against {fused[None]['ms']:.2f}, peak "
+          f"{fused['block']['peak']:.2f} GiB against {fused[None]['peak']:.2f}; {smi}")
+    return {"counts": counts, "remat": {str(m): {k: r[k] for k in ("ms", "peak", "launches")}
+                                        for m, r in runs.items()},
+            "fused_remat": {str(m): {k: r[k] for k in ("ms", "peak", "launches")}
+                            for m, r in fused.items()}}
+
+
+def objectnet_cli(tmp: Path) -> dict:
+    """One subprocess: `cli prepare-data --dataset objectnet3d` on a
+    synthesized release (72 train crops, 4 test crops), `cli dictionary`
+    (K 16 over the prepared train tree, the default 4 x 100 Lloyd steps:
+    exactly 4 x 101 assign launches), `cli train --preset
+    objectnet_bd_multires --train-flip` (1 + 1 epochs of 2 steps of 24
+    images, full width, the tree's 3 classes) and `cli predict` on its
+    `final`."""
+    root = tmp / "objectnet"
+    data, npz, work = root / "data", root / "kmeans16.npz", root / "run"
+    common = ["--preset", "objectnet_bd_multires", "--data-root", str(data), "--dbinfo",
+              str(data / "dbinfo.mat"), "--dictionary", str(npz), "--compute-dtype",
+              "bfloat16", "--items-per-batch", "2", "--workdir", str(work)]
+    steps_ = [["prepare-data", "--dataset", "objectnet3d", "--db-path", str(root / "release"),
+               "--out", str(data), "--workers", "4"],
+              ["dictionary", "--data-root", str(data / "train"), "--dbinfo",
+               str(data / "dbinfo.mat"), "--db-type", "real", "--out", str(npz),
+               "--size", "16"],
+              ["train", *common, "--train-flip", "--num-warmup-epochs", "1", "--num-epochs",
+               "1", "--max-iterations", "2"],
+              ["predict", *common, "--checkpoint", "final"]]
+    script = (f"import time\n"
+              f"from {PORT} import cli\n"
+              f"from {PORT}.ops import assign\n"
+              f"from {PORT}.tools.synthetic import generate_objectnet3d_release\n"
+              f"generate_objectnet3d_release({str(root / 'release')!r}, num_train=6, "
+              f"num_test=3, image_size=256)\n"
+              f"for args in {steps_!r}:\n"
+              f"    t0 = time.perf_counter()\n"
+              f"    assign.launches = 0\n"
+              f"    assert cli.main(list(args)) == 0\n"
+              f"    print(f'STAGE {{args[0]}} {{time.perf_counter() - t0:.2f}} s, assign "
+              f"launches {{assign.launches}}', flush=True)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[15] objectnet CLI chain exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    out = proc.stdout
+    stages = {ln.split()[1]: ln for ln in out.splitlines() if ln.startswith("STAGE ")}
+    assign_launches = int(stages["dictionary"].split("assign launches ")[1])
+    meds = [float(x.split()[0]) for x in out.split("final MedErr ")[1:]]
+    with np.load(work / "results_run.npz") as z:
+        ypred, ytrue, labels = z["yhat_test"], z["ytest"], z["test_labels"]
+    pred_med = mean_class_median_error(ytrue, ypred, labels, 3)
+    if assign_launches != 4 * 101 or len(meds) != 1 or not np.isfinite(meds[0]) \
+            or not np.isfinite(pred_med):
+        raise AssertionError(f"[15] objectnet CLI chain output:\n{out[-3000:]}")
+    print(f"[15] objectnet CLI chain (one subprocess, {wall:.1f} s wall): "
+          + "; ".join(s.removeprefix("STAGE ") for s in stages.values())
+          + f"; assign launches {assign_launches} = 4 x 101; train final MedErr {meds[0]:.3f} "
+          f"deg, predict's results_run.npz MedErr {pred_med:.3f} deg over {len(labels)} "
+          f"test crops")
+    return {"assign": assign_launches, "wall_s": wall}
+
+
+def phase_objectnet(dev, smi: str, dicts: dict, tmp: Path) -> dict:
+    """[15]: the five ObjectNet presets at full width on the ResNet50 trunk,
+    objectnet_bd on two VGG trunks, the label-concat kinds and a VGG model
+    served, geodesic_bd with device_resize_from, train_flip and remat, then
+    the ObjectNet command-line chain."""
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(15)
+    batches = make_flat_loader(rng, 1, OBJECTNET_IMAGES, 224, 100)
+    totals = {k: 0 for k in read_counts()}
+    served, peaks = {}, {}
+    for preset in OBJECTNET_PRESETS:
+        cfg = objectnet_config(preset)
+        dictionary = None if cfg.problem in DICTIONARY_FREE else dicts[cfg.dict_size]
+        kern, before, _, peaks[preset] = objectnet_fit(preset, cfg, dictionary, batches, dev,
+                                                       totals)
+        if preset in OBJECTNET_COMPARE:
+            zoo_plain(preset, cfg, dictionary, before, batches, None, kern.history, dev,
+                      phase="15")
+        if preset in OBJECTNET_SERVE:
+            served[preset] = objectnet_serve(preset, OBJECTNET_SERVE[preset], kern, dev)
+        del kern, before
+        torch.cuda.empty_cache()
+    for arch, layer in OBJECTNET_VGG:
+        tag = f"objectnet_bd on {arch}/{layer}"
+        cfg = objectnet_config("objectnet_bd", feature_network=arch, feature_layer=layer)
+        kern, _, _, peaks[tag] = objectnet_fit(tag, cfg, dicts[200], batches, dev, totals)
+        if arch == "vgg16":
+            served[tag] = objectnet_serve(tag, "labelconcat_bd", kern, dev)
+        del kern
+        torch.cuda.empty_cache()
+    print(f"[15] 5 ObjectNet presets and 2 VGG trunks trained, "
+          f"{len(OBJECTNET_COMPARE)} of them against the plain path, {len(served)} served, in "
+          f"{time.perf_counter() - t_all:.1f} s; launches over their 14 steps "
+          f"{ {k: v for k, v in totals.items() if v} }; peak device memory "
+          + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()) + f"; {smi}")
+    fields = objectnet_fields(dev, smi, dicts[200])
+    for k, v in fields["counts"].items():
+        totals[k] += v
+    chain = objectnet_cli(tmp)
+    wall = time.perf_counter() - t_all
+    print(f"[15] done in {wall:.1f} s; launches in this process "
+          f"{ {k: v for k, v in totals.items() if v} }, assign {chain['assign']} in the chain; "
+          f"{smi}")
+    return {**totals, "assign": chain["assign"], "wall_s": wall, "peaks": peaks,
+            "remat": fields["remat"], "fused_remat": fields["fused_remat"], "served": served}
+
+
+
 def main() -> None:
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -3332,6 +3758,7 @@ def main() -> None:
             gate = phase_gate(dev, smi, Path(tmp_gate))
         zoo = phase_zoo(dev, smi, kmeans_dict, gmm_dict, user, Path(tmp))
         joint = phase_joint(dev, smi, zoo["dicts"], user, Path(tmp))
+        objectnet = phase_objectnet(dev, smi, zoo["dicts"], Path(tmp))
     # launches: each kernel's count over the 4 steps of its training path
     # ([5] unfused, [6] fused) or over the dictionary path's fit, predict and
     # residuals ([7]); serving's counts are in [4], the gate's in [12]; the
@@ -3350,35 +3777,38 @@ def main() -> None:
          "cli_evaluate_launches": eval_launches,
          "verify_parity_launches": gate["normalize"],
          "predict_det_path_launches": gate["predict_normalize"],
-         "zoo_launches": zoo["normalize"], "joint_launches": joint["normalize"], **norm},
+         "zoo_launches": zoo["normalize"], "joint_launches": joint["normalize"],
+         "objectnet_launches": objectnet["normalize"], **norm},
         {"name": "stem_pool", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:162",
          "launches": train["launches"]["stem_pool"],
          "serving_launches": serve["launches"]["stem_pool"],
-         "zoo_launches": zoo["stem_pool"], "joint_launches": joint["stem_pool"], **stem},
+         "zoo_launches": zoo["stem_pool"], "joint_launches": joint["stem_pool"],
+         "objectnet_launches": objectnet["stem_pool"], **stem},
         {"name": "stem_pool_bwd", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:186",
          "launches": train["launches"]["stem_pool_bwd"],
          "zoo_launches": zoo["stem_pool_bwd"], "joint_launches": joint["stem_pool_bwd"],
-         **stem_bwd},
+         "objectnet_launches": objectnet["stem_pool_bwd"], **stem_bwd},
         {"name": "mm_stats", "route": "cuda", "source": fused_src % "mm",
          "replaces": fused_at % 215, "launches": fused["launches"]["mm"],
-         "zoo_launches": zoo["mm"], **mm},
+         "zoo_launches": zoo["mm"], "objectnet_launches": objectnet["mm"], **mm},
         {"name": "mm_stats_bwd", "route": "cuda", "source": fused_src % "mm",
          "replaces": fused_at % 447, "launches": fused["launches"]["mm_bwd"],
-         "zoo_launches": zoo["mm_bwd"], **mm_bwd},
+         "zoo_launches": zoo["mm_bwd"], "objectnet_launches": objectnet["mm_bwd"], **mm_bwd},
         {"name": "c3_fwd", "route": "cuda", "source": fused_src % "c3",
          "replaces": fused_at % 805, "launches": fused["launches"]["c3"],
-         "zoo_launches": zoo["c3"], **c3},
+         "zoo_launches": zoo["c3"], "objectnet_launches": objectnet["c3"], **c3},
         {"name": "c3_bwd", "route": "cuda", "source": fused_src % "c3",
          "replaces": fused_at % 878, "launches": fused["launches"]["c3_bwd"],
-         "zoo_launches": zoo["c3_bwd"], **c3_bwd},
+         "zoo_launches": zoo["c3_bwd"], "objectnet_launches": objectnet["c3_bwd"], **c3_bwd},
         {"name": "assign", "route": "cuda", "source": f"{PORT}/csrc/assign.cu",
          "replaces": f"{JAX_PACKAGE}/ops/assign.py:45", "launches": assign_launches,
          "verify_parity_launches": gate["assign"], "zoo_launches": zoo["assign"],
-         "joint_launches": joint["assign"], **assign_rec},
+         "joint_launches": joint["assign"], "objectnet_launches": objectnet["assign"],
+         **assign_rec},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

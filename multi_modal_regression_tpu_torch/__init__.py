@@ -6,9 +6,11 @@ library, and on the host side PIL and scipy (image files, `.mat` files):
 never JAX, flax, optax, orbax or the JAX package, so it runs on a machine
 that has none of them.
 
-What is ported so far: the serving and training paths of the single-model
-pose zoo (23 of the JAX package's 42 presets), the pose-dictionary path
-that comes before every bin-delta training run, and the chain from a raw
+What is ported so far: the serving and training paths of all 42 of the
+JAX package's presets (the single-model pose zoo, the two-stage and joint
+category + pose pipelines, the ObjectNet3D label-concat models), every
+ExperimentConfig field but `tensorboard`, the pose-dictionary path that
+comes before every bin-delta training run, and the chain from a raw
 release through the detection metrics to the quality-parity gate:
 
 data        ImageNet constants, plain `normalize_images`, `euler_to_pose`,
@@ -17,19 +19,22 @@ data        ImageNet constants, plain `normalize_images`, `euler_to_pose`,
             (`index`)
 ops         hand-written CUDA kernels (normalize; stem BN+ReLU+max-pool,
             forward and backward; fused conv+BN; pose-bin assignment), each
-            beside its plain PyTorch version; `_build` compiles them
+            beside its plain PyTorch version; `_build` compiles them;
+            `augment`, the on-device resize and flips
 geometry    SO(3) exp/log maps and Euler angles; quaternions
 dictionary  `fit_kmeans` (greedy kmeans++, Lloyd), `fit_gmm` (EM),
             `KMeansDictionary`, `GMMDictionary` over the JAX package's
             `.npz` files, `get_gamma`, `pairwise_sqeuclidean`
-models      ResNet trunk, per-class head banks and `SharedMLP` in eval and
-            train mode, the bin-delta and multires models, the regression,
-            classification and class-agnostic models (`pose`),
-            `from_jax_variables` weight conversion
+models      ResNet and VGG trunks, per-class head banks and `SharedMLP` in
+            eval and train mode, the bin-delta and multires models, the
+            regression, classification, class-agnostic and label-concat
+            models (`pose`), the joint models, `from_jax_variables`,
+            torchvision and reference-checkpoint loading (`pretrained`),
+            the trunks' checkpointed segments (`checkpoint`)
 losses      the primitive and composed bin-delta losses, self-balance
-train       23 presets (`PRESETS`), their 15 problems, Adam, the epoch
-            learning-rate factors, the train and eval steps, `TrainState`,
-            `Trainer.fit`
+train       42 presets (`PRESETS`), their problems, Adam, the epoch
+            learning-rate factors, the train and eval steps, `remat`,
+            `TrainState`, `Trainer.fit`, the snapshot-ensemble evaluator
 metrics     pose errors, MedErr, Acc@30; AP / AVP / ARP (`detection`)
 detection   detector crop sets, `run_detection_inference`, results .mat
             files, `evaluate_detection_results`

@@ -69,9 +69,8 @@ a PASCAL3D+ / ObjectNet3D release into the training trees (host code);
 `verify-parity` chains prepare-data, dictionary, train, the snapshot
 ensemble and the detection metrics into one table (tools/parity.py). All
 take the JAX package's arguments. Those whose machinery is not ported yet
-(`--distributed`, `--compile-cache`, and the config settings that
-presets.py refuses) raise NotImplementedError when given; the other
-subcommands arrive with their slices (ROADMAP.md).
+(`--distributed` and the other multi-host flags, `--compile-cache`) raise
+NotImplementedError when given (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -149,7 +148,7 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
     p.add_argument("--remat", type=str, default=None,
                    choices=("none", "block", "stage", "conv", "dots",
                             "nothing"),
-                   help="backward-pass rematerialization: not ported yet")
+                   help="backward-pass rematerialization (train/remat.py)")
     p.add_argument("--optimizer-dtype", type=str, default=None,
                    choices=("float32", "bfloat16"),
                    help="Adam first-moment storage (bfloat16 default; "
@@ -163,14 +162,17 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
                         "statistics, none updated); every trained weight "
                         "still trains")
     p.add_argument("--device-resize-from", type=int, default=None,
-                   help="resize on the device: not ported yet")
+                   help="the loaders ship images at this size and the steps "
+                        "resize them to --image-size on the device "
+                        "(ops/augment.py)")
     p.add_argument("--checkpoint-async",
                    action=argparse.BooleanOptionalAction, default=None,
                    help="write checkpoints on a background thread "
                         "(default on; the copy to the host stays on the "
                         "caller's thread)")
     p.add_argument("--train-flip", action="store_true", default=None,
-                   help="random horizontal flips in the step: not ported yet")
+                   help="random horizontal flips in the train step, with the "
+                        "(-az, el, -ct) pose")
     p.add_argument("--workdir", type=str, default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--compile-cache", type=str, default=None,
@@ -221,9 +223,14 @@ def _overrides_from_args(args) -> dict:
 
 
 def _config_from_args(args):
+    from multi_modal_regression_tpu_torch.models.backbones import VGG_CONFIGS
     from multi_modal_regression_tpu_torch.train.presets import get_config
 
     overrides = _overrides_from_args(args)
+    if overrides.get("feature_network") in VGG_CONFIGS and "N0" not in overrides:
+        # the port's heads are sized by N0, the trunk's feature width: a
+        # VGG trunk's fc6 / fc7 give 4096 (the JAX heads infer it)
+        overrides["N0"] = 4096
     if "num_classes" not in overrides and getattr(args, "dbinfo", None):
         overrides["num_classes"] = len(_classes_from_args(args))
     if "dict_size" not in overrides and getattr(args, "dictionary", None):
@@ -396,7 +403,8 @@ def _make_loaders(args, cfg):
     protocol = args.protocol or (
         "flat" if cfg.preset.startswith("objectnet") else "balanced"
     )
-    load_size = cfg.image_size
+    # with the on-device resize the loaders ship raw-size images
+    load_size = cfg.device_resize_from or cfg.image_size
     root = Path(args.data_root)
     packed = getattr(args, "packed_cache", None)
 
@@ -617,7 +625,7 @@ def cmd_predict(args) -> int:
     # every test protocol (filenames PNG tree, packed or not, or the
     # Pascal3dAll .mat crops), built as train and evaluate build it
     names = _classes_from_args(args)
-    test = _make_test_loader(args, cfg, names, cfg.image_size)
+    test = _make_test_loader(args, cfg, names, cfg.device_resize_from or cfg.image_size)
     ytrue, ypred, labels = trainer.predict(state, test)
     out = Path(workdir) / f"results_{args.save_str}.npz"
     np.savez(out, ytest=ytrue, yhat_test=ypred, test_labels=labels)
@@ -663,7 +671,8 @@ def _predict_analysis(args, cfg, trainer, dictionary, workdir) -> int:
     centers = getattr(dictionary, "cluster_centers", None)
     if centers is None:
         centers = dictionary.means
-    test = _make_test_loader(args, cfg, _classes_from_args(args), cfg.image_size)
+    test = _make_test_loader(args, cfg, _classes_from_args(args),
+                             cfg.device_resize_from or cfg.image_size)
     results = {}
     for name, ckpt in runs:
         state = trainer.restore_checkpoint(ckpt)

@@ -1,8 +1,7 @@
 """Data layer: dataset indices, host loaders, packed crop caches, on-device
 target transforms.
 
-The JAX package's exports, except the tangent-residual targets of the
-presets that are not ported yet (ROADMAP.md)."""
+The JAX package's exports."""
 
 from multi_modal_regression_tpu_torch.data.naming import (
     PASCAL3D_CLASSES,
@@ -41,7 +40,9 @@ from multi_modal_regression_tpu_torch.data.targets import (
     gmm_soft_targets,
     hard_bin_targets,
     pairwise_sqeuclidean,
+    per_bin_tangent_residuals,
     rbf_soft_targets,
+    tangent_residual_targets,
 )
 
 __all__ = [
@@ -73,5 +74,7 @@ __all__ = [
     "gmm_soft_targets",
     "hard_bin_targets",
     "pairwise_sqeuclidean",
+    "per_bin_tangent_residuals",
     "rbf_soft_targets",
+    "tangent_residual_targets",
 ]

@@ -1,11 +1,13 @@
-"""ResNet feature trunks (port of the JAX package's models/backbones.py).
+"""Feature trunks (port of the JAX package's models/backbones.py).
 
 ResNet18/34/50/101/152 truncated after stage 2, 3 or 4, then a global
-average pool (or, with pool=False, the spatial features), and
+average pool (or, with pool=False, the spatial features);
 `ResNetStage`, one residual stage on its own over such features (the
-joint variant-2 model's second layer4). Module and parameter names follow
-the flax trees (`conv1`, `bn1`, `layer<s>_<b>/conv<i>`, `downsample_conv`,
-...) so models/pretrained.py maps one onto the other.
+joint variant-2 model's second layer4); and the VGG13/16-bn trunks cut at
+fc6 or fc7 (`VGGBackbone`). Module and parameter names follow the flax
+trees (`conv1`, `bn1`, `layer<s>_<b>/conv<i>`, `downsample_conv`, VGG's
+`conv<i>`, `bn<i>`, `fc6`, `fc7`, ...) so models/pretrained.py maps one
+onto the other.
 
 Layout and dtypes:
   - `forward` takes NHWC images (B, H, W, 3), as the JAX package does, and
@@ -30,7 +32,16 @@ With `fused` set ('plain' | 'kernel', the JAX package's 'xla' | 'pallas'),
 bottleneck blocks train through ops.fused_conv_bn: each conv returns its
 output's per-channel sums, the BN is folded from them (`_bn_affine`) and
 applied in the NEXT conv's input pass. The module tree and the state_dict
-keys are the same with and without `fused`. The VGG trunks wait (ROADMAP.md).
+keys are the same with and without `fused`.
+
+A trunk's `remat` (None, or the `models/checkpoint.Segments` that
+train/remat makes from cfg.remat when the model is built) applies when
+gradients are on: the ResNet trunk then runs its stem and each block, or
+each stage, as a checkpointed segment, so the stem output, the segments'
+outputs and the pooled features stay for the backward, as the JAX
+package's `checkpoint_name` tags select them, and a segment keeps inside
+only what its policy names. A VGG trunk, which the JAX package does not
+tag, runs each stage between its max pools and its classifier as segments.
 """
 
 from __future__ import annotations
@@ -41,6 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multi_modal_regression_tpu_torch.models.checkpoint import Segments, chain, segment
+from multi_modal_regression_tpu_torch.models.heads import torch_linear_init
 from multi_modal_regression_tpu_torch.models.norm import bessel_factor
 from multi_modal_regression_tpu_torch.ops.fused_conv_bn import (
     IMPLS as FUSED_IMPLS,
@@ -60,6 +73,13 @@ RESNET_CONFIGS: dict[str, tuple[tuple[int, ...], bool]] = {
     "resnet152": ((3, 8, 36, 3), True),
 }
 
+# VGG feature stacks (torchvision convention; "M" = 2x2 max pool)
+VGG_CONFIGS: dict[str, tuple] = {
+    "vgg13": (64, 64, "M", 128, 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"),
+    "vgg16": (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
+              512, 512, 512, "M"),
+}
+
 STEM_POOL_IMPLS = (None, "plain", "kernel")
 
 # running-stat decay of every BN: torch momentum 0.1, flax momentum 0.9
@@ -67,19 +87,21 @@ _BN_MOMENTUM = 0.1
 
 
 class _Conv(nn.Conv2d):
-    """Bias-free conv with symmetric padding (torch semantics); the weight
-    is held in `param_dtype` and applied in the compute `dtype`."""
+    """Conv with symmetric padding (torch semantics), bias-free unless asked
+    (VGG's); weight and bias are held in `param_dtype` and applied in the
+    compute `dtype`."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int, pad: int,
-                 dtype, param_dtype):
+                 dtype, param_dtype, bias: bool = False):
         super().__init__(
-            cin, cout, kernel, stride=stride, padding=pad, bias=False,
+            cin, cout, kernel, stride=stride, padding=pad, bias=bias,
             dtype=param_dtype,
         )
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(self.compute_dtype), None)
+        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+        return self._conv_forward(x, self.weight.to(self.compute_dtype), bias)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -130,10 +152,12 @@ def _bn_affine(
         return fold_bn(bn.running_mean, bn.running_var, bn.weight, bn.bias)
     mean, var = stats_to_moments(sums, count)
     with torch.no_grad():
+        # bn.momentum: 0.1, or 0 with no counter while models/checkpoint replays a forward
         stat_dtype = bn.running_mean.dtype
-        bn.running_mean.lerp_(mean.to(stat_dtype), _BN_MOMENTUM)
-        bn.running_var.lerp_((var * bessel_factor(count)).to(stat_dtype), _BN_MOMENTUM)
-        bn.num_batches_tracked.add_(1)
+        bn.running_mean.lerp_(mean.to(stat_dtype), bn.momentum)
+        bn.running_var.lerp_((var * bessel_factor(count)).to(stat_dtype), bn.momentum)
+        if bn.num_batches_tracked is not None:
+            bn.num_batches_tracked.add_(1)
     return fold_bn(mean, var, bn.weight, bn.bias)
 
 
@@ -319,6 +343,7 @@ class ResNetBackbone(nn.Module):
                 self.block_names.append(name)
                 cin = width * expansion
         self.feature_dim = cin
+        self.remat: Segments | None = None  # set by train/remat from cfg.remat
 
     def _stem_affine(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The folded stem BN (a, b) for conv1's output x (B, C, H, W)."""
@@ -327,19 +352,33 @@ class ResNetBackbone(nn.Module):
         count = x.shape[0] * x.shape[2] * x.shape[3]
         return _bn_affine(self.bn1, _channel_sums(x, (0, 2, 3)), count)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # NHWC -> NCHW view; a contiguous NHWC input is channels_last already
-        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)
         if self.stem_pool is None and self.fused is None:
             x = torch.relu(self.bn1(x))
-            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            return F.max_pool2d(x, 3, stride=2, padding=1)
+        # with `fused` alone the folded stem runs as eager ops ('plain')
+        a, b = self._stem_affine(x)
+        return stem_bn_relu_pool(x, a, b, self.stem_pool or "plain")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # NHWC -> NCHW view; a contiguous NHWC input is channels_last already
+        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+        seg = self.remat if torch.is_grad_enabled() else None
+        if seg is None:
+            x = self._stem(x)
+            for name in self.block_names:
+                x = getattr(self, name)(x)
         else:
-            # with `fused` alone the folded stem runs as eager ops ('plain')
-            a, b = self._stem_affine(x)
-            x = stem_bn_relu_pool(x, a, b, self.stem_pool or "plain")
-        for name in self.block_names:
-            x = getattr(self, name)(x)
+            # the stem, then each block or stage, as segments; the stem reads
+            # the trunk's own mode (`_stem_affine`)
+            x = segment(self._stem, x, (self,), seg.context_fn)
+            blocks = [getattr(self, n) for n in self.block_names]
+            groups = ([[b] for b in blocks] if seg.group == "block" else
+                      [[b for n, b in zip(self.block_names, blocks)
+                        if n.startswith(f"layer{s}_")] for s in range(1, 5)])
+            for group in filter(None, groups):
+                x = segment(chain(group), x, group, seg.context_fn)
         if not self.pool:
             return x.permute(0, 2, 3, 1)
         # global average pool, accumulated in at least float32
@@ -389,16 +428,123 @@ class ResNetStage(nn.Module):
         return x.to(torch.promote_types(torch.float32, x.dtype)).mean(dim=(2, 3))
 
 
+class VGGBackbone(nn.Module):
+    """VGG13/16-bn feature stack + the classifier cut at fc6 or fc7
+    (featureModels.py:44-67). Input (B, H, W, 3) NHWC; output (B, 4096) in
+    at least float32.
+
+    `conv<i>` (3x3, bias) -> `bn<i>` -> ReLU per layer of VGG_CONFIGS, 2x2
+    max pools at "M"; then the NCHW activations flattened channel-major, as
+    torch's classifier sees them (the JAX package transposes its NHWC
+    activations to the same order), `fc6` Linear(512 h w, 4096) + ReLU; at
+    fc7 Dropout(0.5) + `fc7` Linear(4096, 4096) + ReLU. In training mode
+    the dropout mask is drawn from `dropout_rng`, the generator the train
+    step binds for its forward and backward (TrainState.rng, the step's one
+    source of randomness, as flax's Dropout draws from the key it is given);
+    a training-mode fc7 forward with none bound raises, and eval mode draws
+    nothing. Biases are drawn as torch.nn.Linear and Conv2d draw them; conv
+    weights by the caller (`init_conv_weights`), as for the ResNets. There
+    is no stem, so no stem kernel runs here.
+    """
+
+    feature_dim = 4096
+
+    def __init__(
+        self, arch: str = "vgg13", layer: str = "fc6",
+        dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None,
+        image_size: int = 224, generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if layer not in ("fc6", "fc7"):
+            raise ValueError(f"layer must be fc6|fc7, got {layer!r}")
+        param_dtype = param_dtype or dtype
+        g = generator or torch.Generator().manual_seed(0)
+        self.dtype = dtype
+        self.layer = layer
+        self.dropout_rng: torch.Generator | None = None  # bound by the train step
+        self.remat: Segments | None = None  # set by train/remat from cfg.remat
+        # the conv indices of each stage, a 2x2 max pool after each
+        self.stages: list[list[int]] = [[]]
+        cin, size, i = 3, image_size, 0
+        for v in VGG_CONFIGS[arch]:
+            if v == "M":
+                self.stages.append([])
+                size //= 2
+                continue
+            conv = _Conv(cin, int(v), 3, 1, 1, dtype, param_dtype, bias=True)
+            torch_linear_init(conv.bias, cin * 9, g)
+            self.add_module(f"conv{i}", conv)
+            self.add_module(f"bn{i}", _bn(int(v), dtype))
+            self.stages[-1].append(i)
+            cin, i = int(v), i + 1
+        del self.stages[-1]  # the configs end with a pool
+        self.fc6 = nn.Linear(cin * size * size, 4096, dtype=param_dtype)
+        self.fc7 = nn.Linear(4096, 4096, dtype=param_dtype) if layer == "fc7" else None
+        for fc in filter(None, (self.fc6, self.fc7)):
+            torch_linear_init(fc.weight, fc.in_features, g)
+            torch_linear_init(fc.bias, fc.in_features, g)
+
+    def _linear(self, fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(F.linear(x, fc.weight.to(self.dtype), fc.bias.to(self.dtype)))
+
+    def _stage(self, convs: list[int]):
+        def run(x: torch.Tensor) -> torch.Tensor:
+            for i in convs:
+                x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+            return F.max_pool2d(x, 2, stride=2)
+        return run
+
+    def _classifier(self, x: torch.Tensor) -> torch.Tensor:
+        # the logical NCHW order, whatever the memory format: C-major
+        x = self._linear(self.fc6, x.flatten(1))
+        if self.fc7 is not None:
+            if self.training:
+                if self.dropout_rng is None:
+                    raise ValueError(
+                        "fc7's dropout draws from the generator a train step binds "
+                        "(TrainState.rng); this training-mode forward has none")
+                keep = torch.rand(x.shape, generator=self.dropout_rng,
+                                  device=x.device) >= 0.5
+                x = torch.where(keep, x / 0.5, torch.zeros((), dtype=x.dtype, device=x.device))
+            x = self._linear(self.fc7, x)
+        return x.to(torch.promote_types(torch.float32, x.dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
+        seg = self.remat if torch.is_grad_enabled() else None
+        if seg is None:
+            for convs in self.stages:
+                x = self._stage(convs)(x)
+            return self._classifier(x)
+        # no checkpoint tags in the JAX VGG: each stage and the classifier are
+        # segments, whatever the group
+        for convs in self.stages:
+            x = segment(self._stage(convs), x, (self,), seg.context_fn)
+        return segment(self._classifier, x, (self,), seg.context_fn)
+
+
 def make_backbone(
     name: str, layer: str, dtype: torch.dtype = torch.float32,
     stem_pool: str | None = None, param_dtype: torch.dtype | None = None,
-    fused: str | None = None,
-) -> ResNetBackbone:
-    """Factory for the ResNet names with layer 'layer2'|'layer3'|'layer4'."""
+    fused: str | None = None, image_size: int = 224,
+    generator: torch.Generator | None = None,
+) -> nn.Module:
+    """Factory for the ResNet names with layer 'layer2'|'layer3'|'layer4'
+    and the VGG names with layer 'fc6'|'fc7'. A VGG trunk has no stem and no
+    bottleneck blocks, so it takes neither stem_pool nor fused; its fc6
+    width follows `image_size`, its biases and fc weights are drawn from
+    `generator`."""
+    if name in VGG_CONFIGS:
+        if stem_pool is not None or fused is not None:
+            raise ValueError(
+                f"{name} has no stem or bottleneck blocks: stem_pool and fused must "
+                f"be None, got {stem_pool!r}, {fused!r}"
+            )
+        return VGGBackbone(name, layer, dtype, param_dtype, image_size, generator)
     if name not in RESNET_CONFIGS:
         raise ValueError(
-            f"backbone {name!r} is not ported; the port has "
-            f"{sorted(RESNET_CONFIGS)} (VGG waits, see ROADMAP.md)"
+            f"unknown backbone {name!r}; the port has "
+            f"{sorted(RESNET_CONFIGS) + sorted(VGG_CONFIGS)}"
         )
     if layer not in ("layer2", "layer3", "layer4"):
         raise ValueError(f"layer must be layer2|layer3|layer4, got {layer!r}")

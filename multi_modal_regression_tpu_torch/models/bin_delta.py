@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from multi_modal_regression_tpu_torch.models.backbones import (
+    VGG_CONFIGS,
     init_conv_weights,
     make_backbone,
 )
@@ -28,12 +29,17 @@ def make_trunk(
     feature_network: str, feature_layer: str, N0: int, dtype: torch.dtype,
     generator: torch.Generator, param_dtype: torch.dtype | None = None,
     stem_pool: str | None = None, fused_bn: str | None = None,
+    image_size: int = 224,
 ) -> nn.Module:
-    """The backbone of a pose model, its conv weights drawn from `generator`;
-    raises if its feature width is not N0."""
+    """The backbone of a pose model, its weights drawn from `generator`
+    (a VGG trunk's fc6 sized for `image_size`); raises if its feature width
+    is not N0."""
+    vgg = {}
+    if feature_network in VGG_CONFIGS:
+        vgg = dict(image_size=image_size, generator=generator)
     trunk = make_backbone(
         feature_network, feature_layer, dtype=dtype, stem_pool=stem_pool,
-        param_dtype=param_dtype, fused=fused_bn,
+        param_dtype=param_dtype, fused=fused_bn, **vgg,
     )
     if trunk.feature_dim != N0:
         raise ValueError(
@@ -71,13 +77,15 @@ class OneBinDeltaModel(nn.Module):
         dtype: torch.dtype = torch.float32, stem_pool: str | None = None,
         seed: int = 0, param_dtype: torch.dtype | None = None,
         fused_bn: str | None = None, bn_train_scope: tuple[str, ...] | None = None,
+        image_size: int = 224,
     ):
         super().__init__()
         g = torch.Generator().manual_seed(seed)  # init draws on the CPU
         self.num_classes = num_classes
         self.bn_train_scope = None if bn_train_scope is None else tuple(bn_train_scope)
         self.feature_model = make_trunk(
-            feature_network, feature_layer, N0, dtype, g, param_dtype, stem_pool, fused_bn
+            feature_network, feature_layer, N0, dtype, g, param_dtype, stem_pool, fused_bn,
+            image_size,
         )
         self.bin_models = MultiHeadMLP(
             N0, num_classes, (N1, N2, num_clusters), generator=g, dtype=dtype,
@@ -123,7 +131,7 @@ class _DeltaPerBinBase(nn.Module):
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, stem_pool: str | None = None,
         seed: int = 0, param_dtype: torch.dtype | None = None,
-        fused_bn: str | None = None,
+        fused_bn: str | None = None, image_size: int = 224,
     ):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
@@ -131,7 +139,8 @@ class _DeltaPerBinBase(nn.Module):
         self.num_clusters = num_clusters
         self.ndim = ndim
         self.feature_model = make_trunk(
-            feature_network, feature_layer, N0, dtype, g, param_dtype, stem_pool, fused_bn
+            feature_network, feature_layer, N0, dtype, g, param_dtype, stem_pool, fused_bn,
+            image_size,
         )
         self.bin_models = MultiHeadMLP(
             N0, num_classes, (N1, N2, num_clusters), generator=g, dtype=dtype,

@@ -159,13 +159,13 @@ class JointCatPoseBDModel(_BDHeads):
         multires: bool = False, mixing: str = "top1",
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, seed: int = 0,
-        param_dtype: torch.dtype | None = None,
+        param_dtype: torch.dtype | None = None, image_size: int = 224,
     ):
         super().__init__()
         _check_mixing(mixing)
         g = torch.Generator().manual_seed(seed)
         self.feature_model = make_trunk(feature_network, feature_layer, N0, dtype, g,
-                                        param_dtype)
+                                        param_dtype, image_size=image_size)
         self._build_heads(num_classes, num_clusters, N0, N1, N2, N3, ndim, multires, mixing,
                           dict(generator=g, dtype=dtype, param_dtype=param_dtype))
         self.eval()
@@ -236,7 +236,7 @@ class JointCatPoseRegModel(nn.Module):
         ndim: int = 3, mixing: str = "top1", nonlinearity: str = "pi_tanh",
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, seed: int = 0,
-        param_dtype: torch.dtype | None = None,
+        param_dtype: torch.dtype | None = None, image_size: int = 224,
     ):
         super().__init__()
         _check_mixing(mixing, ("top1", "top1_st", "weighted"))
@@ -246,7 +246,7 @@ class JointCatPoseRegModel(nn.Module):
         self.mixing = mixing
         self.nonlinearity = nonlinearity
         self.feature_model = make_trunk(feature_network, feature_layer, N0, dtype, g,
-                                        param_dtype)
+                                        param_dtype, image_size=image_size)
         self.pose_models = MultiHeadMLP(N0, num_classes, (N1, N2, ndim), **kw)
         self.fc = SharedMLP(N0, (num_classes,), **kw)
         self.eval()
@@ -268,14 +268,14 @@ class ElhoseinyBDModel(nn.Module):
         N1: int = 1000, N2: int = 500, N3: int = 100, ndim: int = 3,
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, seed: int = 0,
-        param_dtype: torch.dtype | None = None,
+        param_dtype: torch.dtype | None = None, image_size: int = 224,
     ):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         kw = dict(generator=g, dtype=dtype, param_dtype=param_dtype)
         self.num_classes = num_classes
         self.feature_model = make_trunk(feature_network, feature_layer, N0, dtype, g,
-                                        param_dtype)
+                                        param_dtype, image_size=image_size)
         self.bin_model = SharedMLP(N0, (N1, N2, num_clusters), **kw)
         self.res_models = MultiHeadMLP(N0, num_clusters, (N3, ndim), **kw)
         self.category_model = SharedMLP(N0, (num_classes,), **kw)
@@ -299,14 +299,14 @@ class ElhoseinyRegressionModel(nn.Module):
         ndim: int = 3, nonlinearity: str = "pi_tanh",
         feature_network: str = "resnet50", feature_layer: str = "layer4",
         dtype: torch.dtype = torch.float32, seed: int = 0,
-        param_dtype: torch.dtype | None = None,
+        param_dtype: torch.dtype | None = None, image_size: int = 224,
     ):
         super().__init__()
         g = torch.Generator().manual_seed(seed)
         kw = dict(generator=g, dtype=dtype, param_dtype=param_dtype)
         self.num_classes = num_classes
         self.feature_model = make_trunk(feature_network, feature_layer, N0, dtype, g,
-                                        param_dtype)
+                                        param_dtype, image_size=image_size)
         self.pose_model = SharedMLP(N0, (N1, N2, ndim), output_nonlinearity=nonlinearity,
                                     **kw)
         self.category_model = SharedMLP(N0, (num_classes,), **kw)

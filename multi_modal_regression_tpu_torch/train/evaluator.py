@@ -143,6 +143,8 @@ class SnapshotEnsembleEvaluator:
             dual_stream_bn=use_dual, dual_loss_sum=use_dual and cfg.loss_stream_sum,
             dual_stream_fused=cfg.bn_stream_fused, compute_dtype=trainer.compute_dtype,
             frozen_bn=cfg.frozen_bn,
+            # the training steps' input contract: device resize and flips
+            resize_to=trainer.resize_to, random_flip=cfg.train_flip,
         )
         # the reference fine-tune starts at step 0 with s = 0
         state = state.replace(optimizer=sgd, step=0, s=init_log_balance(trainer.device))

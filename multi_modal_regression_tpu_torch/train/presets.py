@@ -1,15 +1,15 @@
 """Experiment presets (port of the JAX package's train/presets.py).
 
-The ported presets (`PRESETS`) are 37 of the JAX package's 42 reference
-scripts: the single-model pose zoo over the bin-delta, multires,
-regression, classification and class-agnostic models, and the two-stage
-and joint category + pose pipelines (the `_rene` fine-tunes, the joint
-variants 1-3, the Elhoseiny multi-task models, categorization and
-cat-given-pose), each with the JAX package's overrides and comments, over
-a config that has the fields the serving and training paths read, under
-the JAX names and defaults. Settings that are not ported yet raise
-NotImplementedError when the config is made, so none is ignored; the five
-ObjectNet presets raise until they are ported (ROADMAP.md).
+`PRESETS` holds all 42 of the JAX package's reference scripts: the
+single-model pose zoo over the bin-delta, multires, regression,
+classification and class-agnostic models, the two-stage and joint
+category + pose pipelines (the `_rene` fine-tunes, the joint variants 1-3,
+the Elhoseiny multi-task models, categorization and cat-given-pose) and
+the five ObjectNet3D presets over the label-concat models, each with the
+JAX package's overrides and comments, over a config of the JAX names and
+defaults. Every field of the JAX ExperimentConfig runs, on-device resize,
+train-time flips and remat among them, except `tensorboard`, which raises
+(TensorBoard output is not ported).
 
 `build_model` and `build_problem` place what they build on the card
 ("cuda") unless the caller names another device, as `Trainer` does.
@@ -43,6 +43,10 @@ from multi_modal_regression_tpu_torch.models.pose import (
     CategorizationModel,
     IndependentBDModel,
     IndependentRegressionModel,
+    LabelConcatBDModel,
+    LabelConcatClassificationModel,
+    LabelConcatDeltaPerBinModel,
+    LabelConcatRegressionModel,
     PerClassClassificationModel,
     PerClassRegressionModel,
 )
@@ -56,6 +60,7 @@ from multi_modal_regression_tpu_torch.train.problems import (
     Problem,
     make_problem,
 )
+from multi_modal_regression_tpu_torch.train.remat import check_mode, use_remat
 from multi_modal_regression_tpu_torch.train.schedules import EPOCH_LR_FACTORS
 
 # 'float64' exists for the parity tests against the JAX package's x64
@@ -65,13 +70,6 @@ _COMPUTE_DTYPES = {
 }
 # optimizer_dtype -> Adam's mu_dtype (None: the parameters' own dtype)
 _MU_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
-
-# field -> the only value the port runs so far (the JAX package's "off" value)
-_NOT_PORTED = {
-    "remat": None,
-    "train_flip": False,
-    "device_resize_from": None,
-}
 
 
 @dataclasses.dataclass
@@ -161,18 +159,22 @@ class ExperimentConfig:
     # updated, one forward over the whole batch (no per-stream split);
     # every trained leaf still trains (learnCategorizationModel.py:66,75)
     frozen_bn: bool = False
-    # not ported yet: setting any of them raises (ROADMAP.md)
+    # the backward's rematerialization (train/remat.py): None | 'none' |
+    # 'block' | 'stage' | 'conv' | 'dots' | 'nothing'
     remat: str | None = None
+    # random horizontal flips in the train step, with the (-az, el, -ct)
+    # pose: the train-time form of the reference's offline flipped copies
     train_flip: bool = False
+    # the loaders ship images at this size and the steps resize them to
+    # image_size on the device (ops/augment); None: the loaders resize
     device_resize_from: int | None = None
 
     def __post_init__(self):
-        for name, off in _NOT_PORTED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet; the "
-                    f"port runs {name}={off!r} (see ROADMAP.md)"
-                )
+        check_mode(self.remat)
+        if self.device_resize_from is not None and self.device_resize_from <= 0:
+            raise ValueError(
+                f"device_resize_from must be a positive size, got {self.device_resize_from!r}"
+            )
         if self.epoch_lr_decay is not None and self.epoch_lr_decay not in EPOCH_LR_FACTORS:
             raise ValueError(
                 f"unknown epoch_lr_decay {self.epoch_lr_decay!r}; "
@@ -417,6 +419,47 @@ PRESETS: dict[str, dict] = {
         frozen_bn=True,  # feature_model.eval() + never model.train(), learnCatGivenPoseModel3.py:113-118,135
         epoch_lr_decay="inv",  # learnCatGivenPoseModel3.py:121,127,204
     ),
+    # learnObjectnetModel.py — fixed analytic quaternion dictionary, 100
+    # classes, label-concat heads, single (real-only) train loader
+    "objectnet_quat": dict(
+        model_kind="labelconcat_bd", problem="objectnet_quat",
+        num_classes=100, dict_size=16, ndim=4, alpha=10.0,
+        num_epochs=10,  # learnObjectnetModel.py:32
+        self_balance=False, epoch_lr_decay="objectnet",
+    ),
+    # learnObjectnetBDModel.py (axis-angle, learned kmeans dictionary)
+    "objectnet_bd": dict(
+        model_kind="labelconcat_bd", problem="geodesic",
+        num_classes=100, alpha=10.0, self_balance=False,
+        num_epochs=10,  # learnObjectnetBDModel.py:30
+        epoch_lr_decay="objectnet",  # scheduler.step() at :190
+    ),
+    "objectnet_bd_multires": dict(
+        model_kind="labelconcat_delta_per_bin", problem="geodesic",
+        # dict_size 16: the script builds OneDeltaPerBinModel(num_classes)
+        # with the ctor default 16 heads (:83, objectnetHelperFunctions.py:176)
+        # — runnable only with a 16-atom dictionary (--dict_size 16); the
+        # argparse default 200 would CE-index past the 16 bin scores
+        num_classes=100, dict_size=16, alpha=10.0, self_balance=False,
+        num_epochs=10,
+        epoch_lr_decay="objectnet",
+    ),
+    # learnObjectnetRegressionModel.py / learnObjectnetClassificationModel.py
+    # — NO epoch LR decay: both scripts comment their scheduler.step() out
+    # (learnObjectnetRegressionModel.py:162, learnObjectnetClassificationModel.py:145)
+    "objectnet_regression": dict(
+        model_kind="labelconcat_regression", problem="regression",
+        num_classes=100, self_balance=False,
+        num_epochs=10,  # learnObjectnetRegressionModel.py:26
+    ),
+    "objectnet_classification": dict(
+        model_kind="labelconcat_classification", problem="classification",
+        # dict_size 200: the script passes args.dict_size (default 200,
+        # :29) into ClassificationModel(:80), overriding the ctor's 16
+        num_classes=100, dict_size=200, self_balance=False,
+        num_epochs=10,  # learnObjectnetClassificationModel.py:28
+        num_warmup_epochs=0,  # single-phase (learnObjectnetClassificationModel.py:89)
+    ),
     # ablationGeodesicBDModel.py — geodesic BD evaluated on the val split
     # (model selection); identical objective, ablation data split
     "ablation_geodesic_bd": dict(
@@ -452,10 +495,7 @@ PRESETS: dict[str, dict] = {
 
 def get_config(preset: str, **overrides) -> ExperimentConfig:
     if preset not in PRESETS:
-        raise ValueError(
-            f"preset {preset!r} is not ported yet; the port has "
-            f"{sorted(PRESETS)} (see ROADMAP.md for the order of the rest)"
-        )
+        raise ValueError(f"unknown preset {preset!r}; available: {sorted(PRESETS)}")
     base = dict(PRESETS[preset])
     base.update(overrides)
     return ExperimentConfig(preset=preset, **base)
@@ -469,14 +509,21 @@ def resolve_compute_dtype(name: str) -> torch.dtype:
     return _COMPUTE_DTYPES[name]
 
 
-# model_kind -> the model class; the bin-delta kinds take the trunk's stem
-# and fused conv+BN settings, the models/pose and models/joint kinds have
-# neither (the JAX _BackboneModel and joint models build their trunk
-# without them, joint.py:96-99)
+# model_kind -> the model class; the bin-delta and label-concat kinds take
+# the trunk's stem and fused conv+BN settings (None: the JAX package's
+# trunk), the other models/pose and models/joint kinds have neither (the
+# JAX _BackboneModel and joint models build their trunk without them,
+# joint.py:96-99)
 _BD_KINDS = {
     "one_bin_delta": OneBinDeltaModel,
     "one_delta_per_bin": OneDeltaPerBinModel,
     "probabilistic": ProbabilisticOneDeltaPerBinModel,
+}
+_CONCAT_KINDS = {
+    "labelconcat_bd": LabelConcatBDModel,
+    "labelconcat_delta_per_bin": LabelConcatDeltaPerBinModel,
+    "labelconcat_regression": LabelConcatRegressionModel,
+    "labelconcat_classification": LabelConcatClassificationModel,
 }
 _POSE_KINDS = {
     "per_class_regression": PerClassRegressionModel,
@@ -508,6 +555,10 @@ def _kind_args(cfg: ExperimentConfig) -> dict:
         "joint_reg_v3": dict(reg, mixing=cfg.mixing),
         "elhoseiny_bd": bd,
         "elhoseiny_reg": reg,
+        "labelconcat_bd": dict(num_clusters=cfg.dict_size, ndim=cfg.ndim),
+        "labelconcat_delta_per_bin": bd,
+        "labelconcat_regression": reg,
+        "labelconcat_classification": dict(num_clusters=cfg.dict_size),
     }[k]
 
 
@@ -521,14 +572,15 @@ def build_model(
 
     param_dtype None holds the weights in the compute dtype (serving: no
     per-call cast); training passes at least float32 for master weights,
-    as the JAX package keeps its params.
+    as the JAX package keeps its params. The trunks take cfg.remat's
+    segments (train/remat.use_remat), which apply when gradients are on.
     """
     k = cfg.model_kind
     common = dict(
         num_classes=cfg.num_classes, N0=cfg.N0, N1=cfg.N1, N2=cfg.N2,
         feature_network=cfg.feature_network, feature_layer=cfg.feature_layer,
         dtype=resolve_compute_dtype(cfg.compute_dtype), seed=cfg.seed,
-        param_dtype=param_dtype,
+        param_dtype=param_dtype, image_size=cfg.image_size,
     )
     if cfg.bn_train_only is not None and k != "one_bin_delta":
         raise ValueError(
@@ -542,6 +594,11 @@ def build_model(
             **common, **extra, num_clusters=cfg.dict_size, ndim=cfg.ndim,
             stem_pool=cfg.stem_pool, fused_bn=cfg.fused_conv_bn,
         )
+    elif k in _CONCAT_KINDS:
+        model = _CONCAT_KINDS[k](
+            **common, **_kind_args(cfg), stem_pool=cfg.stem_pool,
+            fused_bn=cfg.fused_conv_bn,
+        )
     elif k in _POSE_KINDS:
         if cfg.stem_pool is not None or cfg.fused_conv_bn is not None:
             raise ValueError(
@@ -551,15 +608,17 @@ def build_model(
             )
         if k == "joint_bd_v2":
             # a stage-1..3 trunk and two layer4 stages of feature_network
+            # (ResNet only, whose shapes do not follow the image size)
             common.pop("feature_layer")
+            common.pop("image_size")
             common["arch"] = common.pop("feature_network")
         model = _POSE_KINDS[k](**common, **_kind_args(cfg))
     else:
         raise ValueError(
-            f"model_kind {k!r} is not ported yet; the port has "
-            f"{sorted({**_BD_KINDS, **_POSE_KINDS})} (see ROADMAP.md)"
+            f"unknown model_kind {k!r}; the port has "
+            f"{sorted({**_BD_KINDS, **_CONCAT_KINDS, **_POSE_KINDS})}"
         )
-    return model.to(device)
+    return use_remat(model, cfg.remat).to(device)
 
 
 def build_problem(

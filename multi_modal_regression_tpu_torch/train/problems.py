@@ -39,8 +39,13 @@ target transforms, losses and decoders.
                   pose output (learnGeodesicRegressionModel.py:122-199);
                   regression_quat in quaternions
 
-The joint problems are in train/joint_problems.py; `objectnet_quat` waits
-with its preset (ROADMAP.md).
+  objectnet_quat  the fixed 16-atom quaternion dictionary (no fitted
+                  one): bins by the largest |<atom, q>|, the residual
+                  q - atom in R^4; warm-up CE + MSE, main CE + quaternion
+                  geodesic; renormalized test predictions
+                  (learnObjectnetModel.py:60-66,108-112,213)
+
+The joint problems are in train/joint_problems.py.
 """
 
 from __future__ import annotations
@@ -81,9 +86,10 @@ PORTED_PROBLEMS = (
     "relaxed_kmeans", "probabilistic", "probabilistic_multires",
     "probabilistic_quat", "probabilistic_quat_multires", "riemannian",
     "log_euclidean", "classification", "regression", "regression_quat",
+    "objectnet_quat",
 )
-# the problems that train without a pose dictionary
-DICTIONARY_FREE = ("regression", "regression_quat")
+# the problems that train without a fitted pose dictionary
+DICTIONARY_FREE = ("regression", "regression_quat", "objectnet_quat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +134,23 @@ def _unit(q: torch.Tensor) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-10)
 
 
+def objectnet_quaternion_dictionary() -> np.ndarray:
+    """The fixed 16-atom quaternion dictionary of learnObjectnetModel.py:60-66,
+    (16, 4) float32: the 4 unit quaternions e_i, then (e_i + e_j)/sqrt(2)
+    for i < j, then (e_i - e_j)/sqrt(2) for i < j (the reference's order).
+    The atoms come in +/- pairs across the double cover only up to sign, so
+    |<atom, q>| often ties between two atoms near their bisector."""
+    atoms = list(np.eye(4))
+    s = 1.0 / np.sqrt(2.0)
+    pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+    for sign in (1.0, -1.0):
+        for i, j in pairs:
+            v = np.zeros(4)
+            v[i], v[j] = s, sign * s
+            atoms.append(v)
+    return np.stack(atoms).astype(np.float32)
+
+
 def make_problem(
     name: str,
     centers: np.ndarray | None = None,
@@ -155,8 +178,7 @@ def make_problem(
         )
     if name not in PORTED_PROBLEMS:
         raise ValueError(
-            f"problem {name!r} is not ported yet; the port has "
-            f"{list(PORTED_PROBLEMS)} (see ROADMAP.md)"
+            f"unknown problem {name!r}; the port has {list(PORTED_PROBLEMS)}"
         )
     is_multires = multires or name.endswith("multires")
 
@@ -352,6 +374,25 @@ def make_problem(
         # (learnLogEuclideanModel.py:135,140)
         return Problem(name, "axis_angle", targets, losses, losses, decode,
                        warmup_balance="warmup", main_balance="warmup")
+
+    if name == "objectnet_quat":
+        # `centers` is not read: the dictionary is the fixed one
+        Cq = on_device(objectnet_quaternion_dictionary())
+
+        def targets(y):
+            bins = torch.argmax(torch.abs(y @ Cq.to(y.dtype).T), dim=-1)
+            return {"y": y, "bins": bins, "res": y - Cq.to(y.dtype)[bins]}
+
+        def main(out, tg):
+            scores, residual = out
+            ypred = decode_bin_delta(scores, residual, Cq)
+            return cross_entropy(scores, tg["bins"]), geodesic_quat(ypred, tg["y"])
+
+        return Problem(
+            name, "quaternion", targets, hard_warmup, main,
+            lambda out: _unit(decode_bin_delta(out[0], out[1], Cq)),
+            warmup_balance=None, main_balance=None,
+        )
 
     if name == "classification":
         C = on_device(centers)

@@ -1,17 +1,24 @@
 """Train and eval steps (port of the JAX package's train/steps.py).
 
 One train step, on the batch's device with no host synchronisation: the
-uint8 batch -> normalize kernel -> Euler -> axis-angle or quaternion
-poses -> the problem's targets -> forward in training mode -> losses -> self-balance ->
-backward -> optimizer update, with the BN running statistics updated in the
-forward. Only the optimizer's parameters take gradients (the others, frozen
-by a preset's train_only, get none and stay as they are); BN runs in
-training mode where `train_modes` says so. `s`, the loss and the metrics
+uint8 batch -> normalize kernel (or, with `resize_to`, the on-device
+resize and the plain normalize, ops/augment, as in the JAX package) ->
+random flips of images and poses (`random_flip`) -> Euler -> axis-angle or
+quaternion poses -> the problem's targets -> forward in training mode ->
+losses -> self-balance -> backward (through the trunk's checkpointed
+segments where the model was built with a `remat` mode, train/remat) ->
+optimizer update, with the BN running statistics updated in the forward.
+The state's generator (`rng`) is the step's one source of randomness: the
+flip masks and a VGG fc7's dropout masks draw from it. Only the
+optimizer's parameters take gradients (the others, frozen by a preset's
+train_only, get none and stay as they are); BN runs in training mode
+where `train_modes` says so. `s`, the loss and the metrics
 stay on the device; nothing in the step calls `.item()`, `float()` or
 `.cpu()`.
 
-One eval step: the normalize kernel -> the model in eval mode, whatever mode
-the module was left in -> decode.
+One eval step: the normalize kernel (or the resize and the plain
+normalize) -> the model in eval mode, whatever mode the module was left
+in -> decode.
 """
 
 from __future__ import annotations
@@ -25,25 +32,37 @@ from torch import nn
 from multi_modal_regression_tpu_torch.data.targets import euler_to_pose
 from multi_modal_regression_tpu_torch.geometry.quaternion import quat_from_axis_angle
 from multi_modal_regression_tpu_torch.losses.self_balance import self_balanced
+from multi_modal_regression_tpu_torch.ops.augment import (
+    device_preprocess,
+    flip_images,
+    flip_pose_euler,
+)
 from multi_modal_regression_tpu_torch.ops.preprocess import normalize_images_cuda
 from multi_modal_regression_tpu_torch.train.problems import Problem
 from multi_modal_regression_tpu_torch.train.state import TrainState
 
 
-def _check_resize(resize_to: int | None) -> None:
-    if resize_to is not None:
-        raise NotImplementedError(
-            "on-device resize waits for ops/augment (ROADMAP.md); "
-            "send images at the model's image size"
-        )
-
-
 def _preprocess(
     batch: dict, resize_to: int | None, dtype: torch.dtype | None = None
 ) -> torch.Tensor:
-    """uint8 batch -> normalized images, written directly in `dtype`."""
-    _check_resize(resize_to)
-    return normalize_images_cuda(batch["xdata"], dtype=dtype or torch.float32)
+    """uint8 batch -> normalized images, written directly in `dtype`: the
+    normalize kernel, or with resize_to set the JAX package's
+    augment.device_preprocess (the resize, then the plain normalize on its
+    float values; no kernel launch), whether or not the batch is at
+    resize_to already. Flips come after, on the normalized images (they
+    commute with the per-channel affine), so a flip-only step keeps the
+    kernel."""
+    dtype = dtype or torch.float32
+    if resize_to is not None:
+        return device_preprocess(batch["xdata"], out_size=resize_to, dtype=dtype)
+    return normalize_images_cuda(batch["xdata"], dtype=dtype)
+
+
+def flip_mask(rng: torch.Generator, n: int, device: torch.device) -> torch.Tensor:
+    """(n,) bool: each sample flipped with probability 1/2, drawn from `rng`
+    as `rand < 0.5` (torch.rand repeats its draws from a seeded CUDA
+    generator; torch.multinomial does not)."""
+    return torch.rand(n, generator=rng, device=device) < 0.5
 
 
 @contextlib.contextmanager
@@ -59,6 +78,19 @@ def _mode(modules: list[nn.Module], training):
     finally:
         for m, t in zip(modules, saved):
             m.training = t
+
+
+@contextlib.contextmanager
+def _drawing_from(modules: list[nn.Module], rng: torch.Generator | None):
+    """Run with `rng` bound as the dropout generator of every module that
+    draws one (a `dropout_rng` attribute), then unbind it."""
+    for m in modules:
+        m.dropout_rng = rng
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.dropout_rng = None
 
 
 @contextlib.contextmanager
@@ -114,6 +146,8 @@ def make_train_step(
     dual_stream_fused: bool = True,
     compute_dtype: torch.dtype | None = None,
     frozen_bn: bool = False,
+    resize_to: int | None = None,
+    random_flip: bool = False,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build the train step (state, batch) -> (state, metrics) for
     (model, problem, optimizer, phase); the semantics of the JAX step.
@@ -147,6 +181,15 @@ def make_train_step(
     while every trained parameter still trains (the JAX step's frozen_bn,
     torch's model.eval()-during-training, learnCategorizationModel.py:66).
 
+    resize_to: the batch's images are resized to this size on the device
+    before the plain normalize (`_preprocess`). random_flip: a mask drawn
+    from the state's `rng` (`flip_mask`) flips those rows' Euler angles to
+    (-az, el, -ct) before the targets and their images after normalize. A
+    VGG fc7's dropout draws from the same `rng`, bound for the forward and
+    the backward (whose recompute replays the masks). A model built with a
+    remat mode gives the same values; the BN running statistics take one
+    update per forward.
+
     Gradients are taken for the optimizer's parameters only: a parameter the
     optimizer does not hold gets none and no backward runs into a module
     with no trained parameter below it. The model runs in the modes
@@ -169,6 +212,7 @@ def make_train_step(
     del dual_stream_fused  # same two forwards either way (see above)
     loss_scale = 2.0 if (dual_stream_bn and dual_loss_sum) else 1.0
     modules = list(model.modules())
+    drawing = [m for m in modules if hasattr(m, "dropout_rng")]
     modes = train_modes(model, frozen_bn)
     params = list(model.parameters())
     trained = [p for group in optimizer.param_groups for p in group["params"]]
@@ -195,14 +239,21 @@ def make_train_step(
     def train_step(state: TrainState, batch: dict):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this step")
-        images = _preprocess(batch, None, compute_dtype)
-        tg = dict(problem.targets(euler_to_pose(batch["euler"], problem.ydata_type)))
+        images = _preprocess(batch, resize_to, compute_dtype)
+        euler = batch["euler"]
+        if random_flip:
+            if state.rng is None:
+                raise ValueError("random_flip needs a state with a flip generator (rng)")
+            flip = flip_mask(state.rng, euler.shape[0], euler.device)
+            euler = flip_pose_euler(euler, flip)
+            images = flip_images(images, flip)
+        tg = dict(problem.targets(euler_to_pose(euler, problem.ydata_type)))
         labels = batch["label"]
         tg["class_label"] = labels
         is_real = batch.get("is_real")
         tg["is_real"] = (torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
                          if is_real is None else is_real)
-        with _grads_for(params, trained):
+        with _grads_for(params, trained), _drawing_from(drawing, state.rng):
             with _mode(modules, modes):
                 lc, lr = loss_pair(forward(images, labels), tg)
             if balance is None:
@@ -241,8 +292,9 @@ def make_eval_step(
     ypred is the problem's decode: poses, or int32 class ids for the
     category problem. The model runs in eval mode (running statistics, none
     updated), as the JAX eval step does, and is left in the mode it was in.
+    With resize_to set the images are resized on the device first, before
+    the plain normalize (`_preprocess`).
     """
-    _check_resize(resize_to)
     modules = list(model.modules())
 
     def eval_step(batch: dict):

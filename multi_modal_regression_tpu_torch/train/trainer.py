@@ -19,10 +19,13 @@ Checkpoints (`workdir`) hold the full state, which the reference does not
 save (it saves parameters only, learnGeodesicBDModel.py:231-232): the
 model's state_dict with its BN running statistics, Adam's per-parameter
 count and moments in their own dtypes (a bfloat16 first moment stays
-bfloat16), the learning rate, `s`, the step and the config. They are
-written with `torch.save` to `<workdir>/checkpoints/<name>` (`last` after
-every main epoch, `best` at the best headline metric, `final` by the CLI),
-atomically: a temporary file in the same directory, then `os.replace`.
+bfloat16), the learning rate, `s`, the state's generator (flips and
+dropout), the step and the config. A checkpoint written before the state
+carried the generator restores with a fresh one seeded from cfg.seed (the
+JAX trainer's migration). They are written with `torch.save` to
+`<workdir>/checkpoints/<name>` (`last` after every main epoch, `best` at
+the best headline metric, `final` by the CLI), atomically: a temporary
+file in the same directory, then `os.replace`.
 Metrics go to `<workdir>/metrics.jsonl` under the JAX package's record keys
 and the validation curve to `<workdir>/plots.npz`. The multi-host predict
 waits for `parallel/` (ROADMAP.md).
@@ -146,8 +149,12 @@ class Trainer:
         # over the trained parameters only (cfg.train_only)
         self.optimizer = build_optimizer(config, self.model)
         self._train_steps: dict = {}
+        # with device_resize_from the loaders ship images at that size and
+        # the steps resize them to image_size on the device
+        self.resize_to = config.image_size if config.device_resize_from else None
         self._eval_step = make_eval_step(
-            self.model, self.problem, compute_dtype=self.compute_dtype
+            self.model, self.problem, resize_to=self.resize_to,
+            compute_dtype=self.compute_dtype,
         )
         self.history: list[dict] = []  # the logged step records, in order
         self.val_history: list[float] = []  # MedErr curve (plots.npz)
@@ -170,21 +177,29 @@ class Trainer:
                 dual_stream_fused=cfg.bn_stream_fused,
                 compute_dtype=self.compute_dtype,
                 frozen_bn=cfg.frozen_bn,
+                resize_to=self.resize_to,
+                random_flip=cfg.train_flip,
             )
         return self._train_steps[key]
 
     # -- state ------------------------------------------------------------
 
+    def _fresh_rng(self) -> torch.Generator:
+        """The step's generator (flips, dropout) on the trainer's device,
+        seeded from cfg.seed (the JAX state's PRNGKey(seed))."""
+        return torch.Generator(device=self.device).manual_seed(self.config.seed)
+
     def init_state(self) -> TrainState:
         """Step 0, s = 0, the trainer's model (weights as built from
         cfg.seed or as loaded since) and its optimizer with no moments,
-        at the base rate scaled_lr(cfg). Unlike the JAX init_state, the
-        weights are not drawn again."""
+        at the base rate scaled_lr(cfg), and a generator seeded from
+        cfg.seed. Unlike the JAX init_state, the weights are not drawn
+        again."""
         self.optimizer.state.clear()
         self._set_lr(scaled_lr(self.config))
         return TrainState(
             step=0, model=self.model, optimizer=self.optimizer,
-            s=init_log_balance(self.device),
+            s=init_log_balance(self.device), rng=self._fresh_rng(),
         )
 
     def _set_lr(self, lr: float) -> None:
@@ -251,6 +266,7 @@ class Trainer:
                           for p in self._params()],
             "learning_rate": self.optimizer.param_groups[0]["lr"],
             "s": _host_copy(state.s),
+            "rng": None if state.rng is None else state.rng.get_state(),
             "step": int(state.step),
             "config": dataclasses.asdict(self.config),
         }
@@ -306,9 +322,12 @@ class Trainer:
                     for k, v in st.items()
                 }
         self._set_lr(payload["learning_rate"])
+        rng = self._fresh_rng()
+        if payload.get("rng") is not None:
+            rng.set_state(payload["rng"])
         return TrainState(
             step=payload["step"], model=self.model, optimizer=self.optimizer,
-            s=payload["s"].to(self.device),
+            s=payload["s"].to(self.device), rng=rng,
         )
 
     # -- logging ----------------------------------------------------------

@@ -1175,3 +1175,130 @@ def test_joint_and_rene_steps_kernel_matches_plain(dev, preset, monkeypatch):
         errs = sorted(((float((gk[k] - w).norm()) / max(float(w.norm()), 1e-30), k)
                        for k, w in gp.items()), reverse=True)
         assert errs[0][0] <= 5e-2, errs[:3]
+
+
+# --- the ObjectNet slice: VGG, remat, flips -------------------------------------------
+
+_SMALL_CARD = dict(N1=16, N2=8, N3=4, image_size=32, items_per_batch=2, max_iterations=1,
+                   num_warmup_epochs=0, num_epochs=1)
+
+
+def _card_batches(seed: int, n: int, classes: int = 12):
+    rng = np.random.default_rng(seed)
+    return [{"xdata": rng.integers(0, 256, (n, 32, 32, 3), np.uint8),
+             "euler": rng.uniform(-60, 60, (n, 3)).astype(np.float32),
+             "label": (np.arange(n) % classes).astype(np.int32)}]
+
+
+def _tf32_off():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_vgg_step_on_the_card(dev):
+    """objectnet_bd on a VGG13/fc6 trunk (32 px, 5 classes, f32, TF32 off),
+    one main step of a flat batch: exactly 1 normalize and no stem launch, a
+    finite loss within 1e-5 of the plain normalize's step from the same
+    weights, and a request served from the VGG model."""
+    _tf32_off()
+    cfg = get_config("objectnet_bd", **_SMALL_CARD, feature_network="vgg13",
+                     feature_layer="fc6", N0=4096, num_classes=5, dict_size=8)
+    centers = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    batches = _card_batches(1, 12, 5)
+    losses = {}
+    for path in ("kernel", "plain"):
+        t = Trainer(cfg, dictionary=centers, device=dev)
+        counts = (preprocess.launches, stem_pool.launches)
+        if path == "plain":
+            import multi_modal_regression_tpu_torch.train.steps as steps_mod
+
+            saved, steps_mod.normalize_images_cuda = steps_mod.normalize_images_cuda, \
+                normalize_images
+        try:
+            t.fit(t.init_state(), batches, None, log_every=1)
+        finally:
+            if path == "plain":
+                steps_mod.normalize_images_cuda = saved
+        torch.cuda.synchronize()
+        d = (preprocess.launches - counts[0], stem_pool.launches - counts[1])
+        assert d == ((1, 0) if path == "kernel" else (0, 0)), (path, d)
+        losses[path] = t.history[0]["loss"]
+        assert np.isfinite(losses[path])
+    assert abs(losses["kernel"] - losses["plain"]) <= 1e-5 * abs(losses["plain"])
+    infer = make_inference_fn(t.model, t.problem)
+    poses = infer(batches[0]["xdata"], batches[0]["label"])
+    assert poses.shape == (12, 3) and bool(torch.isfinite(poses).all())
+
+
+@pytest.mark.parametrize("mode", ["block", "stage", "conv", "dots", "nothing"])
+def test_remat_step_on_the_card(dev, mode):
+    """geodesic_bd (ResNet50 to layer2, stem kernels, f32, TF32 off, dual
+    loaders) one main step under each remat mode against remat None from the
+    same weights: the loss within 1e-6 relative, every running statistic
+    within 1e-6 (the forward is the same), every parameter's gradient (what
+    the backward through the recomputed segments and the stem kernel's
+    recomputed output produced) within 1e-4 of remat None's norm, every
+    BN's num_batches_tracked advanced by exactly one a stream; the stem
+    kernel launched again for the recomputed stem (4 launches against 2),
+    its backward twice. Adam's first step moves each weight by about +/-lr
+    whatever its gradient, so the gradients are compared, not the weights."""
+    _tf32_off()
+    cfg = get_config("geodesic_bd", **_SMALL_CARD, feature_layer="layer2", N0=512,
+                     num_classes=3, dict_size=8, stem_pool="kernel")
+    centers = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    real, render = _card_batches(2, 6, 3), _card_batches(3, 6, 3)
+    runs = {}
+    for remat in (None, mode):
+        t = Trainer(cfg.replace(remat=remat), dictionary=centers, device=dev)
+        before = {k: v.clone() for k, v in t.model.state_dict().items()}
+        c0 = (stem_pool.launches, stem_pool.bwd_launches)
+        t.fit(t.init_state(), real, render, log_every=1)
+        torch.cuda.synchronize()
+        grads = {n: p.grad for n, p in t.model.named_parameters() if p.grad is not None}
+        runs[remat] = (t.history[0]["loss"], t.model.state_dict(), before,
+                       (stem_pool.launches - c0[0], stem_pool.bwd_launches - c0[1]), grads)
+    (l0, sd0, _, c_none, g0), (l1, sd1, init, c_mode, g1) = runs[None], runs[mode]
+    assert c_none == (2, 2) and c_mode == (4, 2), (c_none, c_mode)
+    assert abs(l1 - l0) <= 1e-6 * abs(l0)
+    assert g0.keys() == g1.keys() and len(g0) > 0
+    for k, g in g1.items():
+        assert float((g - g0[k]).norm()) <= 1e-4 * float(g0[k].norm()), k
+    for k, v in sd1.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(v) - int(init[k]) == 2, k
+        elif "running" in k:
+            torch.testing.assert_close(v, sd0[k], rtol=1e-6, atol=1e-7, msg=k)
+
+
+def test_flip_step_repeats_on_the_card(dev, monkeypatch):
+    """train_flip draws its masks from the state's generator on the card:
+    two runs from one seed draw the same masks (torch.rand on a seeded CUDA
+    generator repeats) and end with bit-equal weights; the masks are not all
+    one value; the step still launches the normalize kernel once."""
+    import multi_modal_regression_tpu_torch.train.steps as steps_mod
+
+    cfg = get_config("geodesic_bd", **{**_SMALL_CARD, "num_epochs": 2},
+                     feature_network="resnet18", feature_layer="layer2", N0=128,
+                     num_classes=3, dict_size=8, train_flip=True, compute_dtype="bfloat16")
+    centers = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    real, render = _card_batches(4, 6, 3), _card_batches(5, 6, 3)
+    orig = steps_mod.flip_mask
+    runs = []
+    for _ in range(2):
+        masks = []
+        monkeypatch.setattr(steps_mod, "flip_mask",
+                            lambda rng, n, device: masks.append(orig(rng, n, device))
+                            or masks[-1])
+        t = Trainer(cfg, dictionary=centers, device=dev)
+        state = t.init_state()
+        assert state.rng.device.type == "cuda"
+        c0 = preprocess.launches
+        t.fit(state, real, render, log_every=1)
+        torch.cuda.synchronize()
+        assert preprocess.launches - c0 == 2
+        runs.append((masks, {k: v.clone() for k, v in t.model.state_dict().items()}))
+    (m0, sd0), (m1, sd1) = runs
+    assert len(m0) == 2 and all(torch.equal(a, b) for a, b in zip(m0, m1))
+    assert 0 < int(torch.cat(m0).sum()) < 24
+    for k, v in sd0.items():
+        assert torch.equal(v, sd1[k]), k

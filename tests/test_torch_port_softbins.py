@@ -220,8 +220,8 @@ def test_soft_problems_main_gradients_match_jax_f64(x64, name):
 def test_problems_refuse_what_is_not_ported():
     means, covs, w = _gmm_arrays()
     kw = dict(gmm_means=means, gmm_covariances=covs, gmm_weights=w)
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_problem("objectnet_quat", _centers(), "cpu", **kw)
+    with pytest.raises(ValueError, match="unknown problem"):
+        make_problem("objectnet_quaternion", _centers(), "cpu", **kw)
     with pytest.raises(ValueError, match="make_joint_problem"):
         make_problem("joint_bd", _centers(), "cpu", **kw)
     cfg = get_config("probabilistic_bd", dict_size=8)
@@ -244,8 +244,8 @@ def test_preset_fields_match_jax(preset):
         if f in ("stem_pool", "fused_conv_bn"):
             continue
         assert getattr(cfg, f) == getattr(ref, f), f
-    with pytest.raises(ValueError, match="not ported yet"):
-        get_config("objectnet_quat")
+    with pytest.raises(ValueError, match="unknown preset"):
+        get_config("objectnet_quaternion")
 
 
 def test_build_problem_resolves_gamma_and_dictionaries():

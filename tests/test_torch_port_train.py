@@ -523,14 +523,20 @@ def test_build_optimizer_matches_optax(optimizer_dtype):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(remat="block"), dict(train_flip=True),
-    dict(device_resize_from=256), dict(epoch_lr_decay="cosine"),
+    dict(remat="everything"), dict(remat="checkpoint"),
+    dict(device_resize_from=0), dict(epoch_lr_decay="cosine"),
     dict(fused_conv_bn="kernel"),
 ])
 def test_unported_settings_raise(setting):
-    """Settings that are not ported raise NotImplementedError; fused_conv_bn
-    is ported but refuses the default float32 compute dtype; epoch_lr_decay
-    is ported ('objectnet' | 'step' | 'inv') and refuses any other kind."""
+    """Settings outside what the config takes raise ValueError: a remat mode
+    that train/remat does not have, a device_resize_from that is no size;
+    fused_conv_bn refuses the default float32 compute dtype; epoch_lr_decay
+    takes 'objectnet' | 'step' | 'inv' and refuses any other kind."""
+    if "remat" in setting or "device_resize_from" in setting:
+        with pytest.raises(ValueError, match=next(iter(setting))):
+            get_config("geodesic_bd", **setting)
+        assert get_config("geodesic_bd", remat="stage", device_resize_from=256).remat == "stage"
+        return
     if "fused_conv_bn" in setting:
         with pytest.raises(ValueError, match="bfloat16"):
             get_config("geodesic_bd", **setting)
@@ -539,9 +545,6 @@ def test_unported_settings_raise(setting):
         with pytest.raises(ValueError, match="unknown epoch_lr_decay"):
             get_config("geodesic_bd", **setting)
         assert get_config("geodesic_bd", epoch_lr_decay="step").epoch_lr_decay == "step"
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("geodesic_bd", **setting)
 
 
 def test_trainer_refuses_what_it_does_not_do(jax_side, tmp_path):

@@ -315,7 +315,7 @@ def test_torchvision_backbone_matches_jax(tmp_path, arch):
     del sd["layer2.0.bn1.running_var"]
     with pytest.raises(KeyError, match="layer2.0.bn1.running_var"):
         load_torchvision_backbone(sd, arch, "layer2")
-    with pytest.raises(NotImplementedError, match="VGG"):
+    with pytest.raises(KeyError, match="features.0.weight"):
         load_torchvision_backbone(sd, "vgg13", "fc6")
 
 
@@ -381,7 +381,6 @@ def test_cli_train_refuses_mismatched_classes(cli_tree, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--coordinator-address", "localhost:1"], ["--distributed"], ["--compile-cache", "off"],
-    ["--remat", "block"], ["--train-flip"], ["--device-resize-from", "64"],
 ], ids=lambda f: f[0])
 def test_cli_train_refuses_what_is_not_ported(cli_tree, tmp_path, flag):
     """Each flag whose machinery is not ported raises NotImplementedError

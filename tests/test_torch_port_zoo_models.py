@@ -385,31 +385,26 @@ def test_build_model_refuses_stem_and_fused_for_pose_kinds(kind):
 
 
 def test_presets_cover_the_single_model_zoo():
-    """The port has 37 presets: the 23 of the single-model zoo and earlier
-    slices, and the 14 two-stage and joint ones; the zoo's 19 are buildable
-    and trainable at the small width (one Trainer each on the CPU); the JAX
-    package's 5 others (the ObjectNet models) still raise "not ported yet";
-    the CLI offers exactly the 37; an unported model kind raises."""
-    assert len(PRESETS) == 37 and set(NEW_PRESETS) <= set(PRESETS)
-    assert sorted(set(JAX_PRESETS) - set(PRESETS)) == [
-        "objectnet_bd", "objectnet_bd_multires", "objectnet_classification",
-        "objectnet_quat", "objectnet_regression"]
-    assert set(PRESETS) <= set(JAX_PRESETS)
-    for preset in sorted(set(JAX_PRESETS) - set(PRESETS)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_config(preset)
+    """The port has all 42 of the JAX package's presets, the zoo's 19 among
+    them, buildable and trainable at the small width (one Trainer each on
+    the CPU); the CLI offers exactly those; an unknown preset or model kind
+    raises."""
+    assert len(PRESETS) == 42 and set(NEW_PRESETS) <= set(PRESETS)
+    assert set(PRESETS) == set(JAX_PRESETS)
+    with pytest.raises(ValueError, match="unknown preset"):
+        get_config("objectnet_quaternion")
     parse = cli.build_parser().parse_args
     for p in PRESETS:
         assert parse(["train", "--preset", p, "--data-root", "x"]).preset == p
     with pytest.raises(SystemExit):
-        parse(["train", "--preset", "objectnet_quat", "--data-root", "x"])
+        parse(["train", "--preset", "objectnet_quaternion", "--data-root", "x"])
     small = dict(STEP, compute_dtype="float32", N1=4, N2=4)
     for preset in NEW_PRESETS:
         cfg = get_config(preset, **small)
         trainer = Trainer(cfg, dictionary=_dictionary(preset), device="cpu")
         assert trainer.problem.ydata_type == ("quaternion" if cfg.ndim == 4 else "axis_angle")
-    with pytest.raises(ValueError, match="not ported yet"):
-        build_model(get_config("geodesic_bd", model_kind="labelconcat_bd"), "cpu")
+    with pytest.raises(ValueError, match="unknown model_kind"):
+        build_model(get_config("geodesic_bd", model_kind="labelconcat"), "cpu")
     with pytest.raises(ValueError, match="needs a pose dictionary"):
         build_problem(get_config("geodesic_bd", dict_size=8), None, "cpu")
     with pytest.raises(ValueError, match="axis-angle dictionary"):
