@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: its kernels, serving, training,
 evaluation, the quality-parity gate, the single-model pose zoo, the
-two-stage and joint category + pose pipelines, and the ObjectNet, VGG,
-resize, flip and remat slice.
+two-stage and joint category + pose pipelines, the ObjectNet, VGG,
+resize, flip and remat slice, and data and tensor parallelism with the
+serving export.
 
     python3 chip_smoke.py
 
@@ -232,11 +233,45 @@ line each (or more), in order:
      release, `cli dictionary` (K 16, exactly 4 x 101 assign launches),
      `cli train --preset objectnet_bd_multires --train-flip` and `cli
      predict` on its `final`: exit 0, finite MedErrs
+  16 data and tensor parallelism, the export, profiling (after [15], over
+     [10]'s trees): [5]'s fit (2 + 2 steps, 96 images a step) on 2 ranks
+     sharing the one card over gloo (this script started twice as
+     `--worker dp`, each rank 48 images: its block of each stream):
+     exactly 1 normalize, 2 stem and 2 stem backward launches a rank and
+     step and 72/72/26/26 of #4-#7 on a fused-trunk step, the global
+     metrics equal on both ranks and within TRAIN_TOL of the same fit in
+     one process (the main phase's Lr, s and alpha, which decode through
+     an argmax bin, within SOFT_DECODE_TOL), and in f32 with TF32 off
+     the first step within 1e-4 and its gradients at every leaf within
+     GRAD_TOL, or GRAD_FLOOR_X times the leaf's floor (one process with
+     the rows reordered), of one process's, bit-equal on both ranks; the
+     weights
+     bit-equal on both ranks; the fit's `last` restored in the rank
+     bit-equal and the step after it repeated; step time (img/s of the
+     96 images) and peak memory a rank beside [5]'s, rank 0's TensorBoard
+     file read back equal to its metrics.jsonl; the serving export
+     (torch.export, batch dynamic, and with the 256 -> 224 resize)
+     reloaded in a process that builds no model: requests of 64 and 17
+     within SERVE_RTOL of make_inference_fn on clear rows (of the poses'
+     largest magnitude), 1 normalize and 1 stem launch a request (0
+     normalize with the resize), latency at 64 beside make_inference_fn's;
+     then at once, over torchrun's 2 ranks each: `cli train --distributed
+     --resume` from the library run's `last` and `cli predict
+     --distributed` of it, against a one-process predict (ground truth
+     and labels equal, poses within 1 deg on 90% of rows); beside them
+     (`--worker tp`) geodesic_bd_multires at dp1 x tp2, its banks cut to
+     1200 and 6 heads a rank, peak memory a rank against [13]'s one
+     process, then [5]'s geodesic_bd at dp1 x tp2 in f32, its step-1
+     gradients held as the data ranks' (each bank shard against its
+     heads); a world-1 NCCL group (an all-reduce, a barrier, one
+     step); profile_trace over 3 main steps naming the ops and, where the
+     trace holds device kernels, the kernels
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
      rate of their type; `zoo_launches` their launches in [13],
-     `joint_launches` in [14], `objectnet_launches` in [15]), then the
-     result line
+     `joint_launches` in [14], `objectnet_launches` in [15]; in [16]
+     `dp_rank_launches`, `dp_fused_rank_launches`, `tp_rank_launches` a
+     rank and `export_request_launches` a request), then the result line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 With --profile, [6] also prints the device-time table (torch.profiler) of 3
@@ -257,6 +292,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -287,6 +323,7 @@ from multi_modal_regression_tpu_torch.dictionary.kmeans import (  # noqa: E402
     fit_kmeans,
 )
 from multi_modal_regression_tpu_torch.metrics import mean_class_median_error  # noqa: E402
+from multi_modal_regression_tpu_torch.metrics.pose_error import geodesic_error_deg  # noqa: E402
 from multi_modal_regression_tpu_torch.models import surgery  # noqa: E402
 from multi_modal_regression_tpu_torch.models.heads import HeadBatchNorm  # noqa: E402
 from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
@@ -3729,6 +3766,667 @@ def phase_objectnet(dev, smi: str, dicts: dict, tmp: Path) -> dict:
             "remat": fields["remat"], "fused_remat": fields["fused_remat"], "served": served}
 
 
+# --- [16] data and tensor parallelism, the serving export, profiling -------------
+
+PARALLEL_SEED = 16
+PARALLEL_TIMED = 4  # timed main steps a rank, after 1 untimed
+# a leaf's step-1 gradient (f32, TF32 off) on a data- or tensor-parallel rank
+# against one process's: |g - g_one| / |g_one| over the leaf, within GRAD_TOL
+# or GRAD_FLOOR_X times the leaf's floor, whichever is larger. The floor is
+# the same error between two one-process steps that differ only in the
+# order of each stream's rows: a leaf whose sum cancels (the stem BN's
+# bias: measured 2.7e-2 on an H100 between 2 ranks and one process) is
+# off by that much from summation order alone. A missing or misscaled
+# reduction is off by 0.5 or more at every leaf it reaches
+GRAD_TOL = 1e-4
+GRAD_FLOOR_X = 10.0
+# the exported program in a process that imports only serving.load_inference
+# (and so the ops): it serves the requests of `requests.npz` through both
+# programs, counting each request's launches, times 20 requests of 64, and
+# checks that it built no model
+SERVE_SCRIPT = r"""
+import json, statistics, sys, time
+from pathlib import Path
+import numpy as np, torch
+from multi_modal_regression_tpu_torch.serving import load_inference
+from multi_modal_regression_tpu_torch.ops import preprocess, stem_pool
+out = Path(sys.argv[1])
+z = np.load(out / "requests.npz")
+res, arrays = {}, {}
+for name in ("program", "resize"):
+    fn = load_inference(out / f"{name}.pt2")
+    for key in [k for k in z.files if k.startswith(name + "_x")]:
+        x, lab = z[key], z[key.replace("_x", "_l")]
+        preprocess.launches = stem_pool.launches = 0
+        y = fn(x, lab)
+        torch.cuda.synchronize()
+        arrays[key] = y.float().cpu().numpy()
+        res[key] = [preprocess.launches, stem_pool.launches]
+    if name == "program":
+        x, lab = z["program_x64"], z["program_l64"]
+        times = []
+        for i in range(23):
+            t0 = time.perf_counter()
+            fn(x, lab)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["latency_64_ms"] = statistics.median(times[3:]) * 1e3
+bad = [m for m in sys.modules if m.startswith("multi_modal_regression_tpu_torch.")
+       and m.split(".")[1] in ("models", "train", "parallel")]
+assert not bad, bad
+np.savez(out / "served.npz", **arrays)
+(out / "served.json").write_text(json.dumps(res))
+"""
+
+
+def parallel_config(**over):
+    """[5]'s geodesic_bd run: full width, bf16, stem kernels, 2 x 4 items x
+    12 classes = 96 images a step globally, 2 warm-up + 2 main steps."""
+    return get_config("geodesic_bd", **{
+        "compute_dtype": "bfloat16", "stem_pool": "kernel", "items_per_batch": 4,
+        "max_iterations": 2, "num_warmup_epochs": 1, "num_epochs": 1, **over})
+
+
+def parallel_batches() -> tuple[list, list]:
+    """The global real and render streams: 2 batches of 48 images each."""
+    rng = np.random.default_rng(PARALLEL_SEED)
+    return make_loader(rng, 2, 4, 224, 12), make_loader(rng, 2, 4, 224, 12)
+
+
+def rank_rows(batches: list[dict], rank: int, world: int) -> list[dict]:
+    """A rank's block of each stream batch (24 of 48 rows: 2 items of each
+    class, as make_loader tiles the classes)."""
+    n = len(batches[0]["label"]) // world
+    return [{k: v[rank * n:(rank + 1) * n] for k, v in b.items()} for b in batches]
+
+
+def digest(tensors: dict) -> str:
+    """sha256 of named tensors' names and bytes, in their order."""
+    h = hashlib.sha256()
+    for k, v in tensors.items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def first_step_grads(t: Trainer, real, render) -> dict:
+    """The gradients of one main step of `t` from its weights on the first
+    batch of the streams (float32, on the host, by parameter name: what
+    the optimizer was given, after every reduction); the weights and
+    statistics are put back after it."""
+    built = {k: v.clone() for k, v in t.model.state_dict().items()}
+    step = t.train_step_fn("main", dual_stream=True)
+    step(t.init_state(), t._to_device(next(_interleave(real, render))))
+    grads = {n: p.grad.detach().float().cpu() for n, p in t.model.named_parameters()
+             if p.grad is not None}
+    t.model.load_state_dict(built)
+    t.optimizer.zero_grad(set_to_none=True)
+    return grads
+
+
+def leaf_err(g: torch.Tensor, r: torch.Tensor) -> float:
+    """|g - r| / |r| over a leaf (|g - r| where r is 0)."""
+    d, n = float((g.double() - r.double()).norm()), float(r.double().norm())
+    return d / n if n > 0 else d
+
+
+def reversed_rows(batches: list[dict]) -> list[dict]:
+    return [{k: np.ascontiguousarray(v[::-1]) for k, v in b.items()} for b in batches]
+
+
+def worst_leaf(grads: dict, ref: dict, lo: dict | None = None) -> tuple[float, str, float]:
+    """(err, leaf, bound) at the leaf of `grads` farthest over its bound,
+    against the one process's `ref` ({"grads", "floor"}): err = leaf_err
+    (a bank shard whose heads start at lo[name] against those heads),
+    bound = max(GRAD_TOL, GRAD_FLOOR_X x the leaf's floor). The leaves must
+    be the same."""
+    want, floor = ref["grads"], ref["floor"]
+    if set(grads) != set(want):
+        raise AssertionError(f"[16] gradient leaves differ: {sorted(set(grads) ^ set(want))[:4]}")
+    out = []
+    for k, g in grads.items():
+        r = want[k] if not lo or k not in lo else want[k][lo[k]:lo[k] + g.shape[0]]
+        out.append((leaf_err(g, r), k, max(GRAD_TOL, GRAD_FLOOR_X * floor[k])))
+    return max(out, key=lambda e: (not e[0] <= e[2], e[0] / e[2]))
+
+
+def parallel_f32(dev, mesh, real, render) -> tuple[list[dict], dict, dict | None]:
+    """The same 2 + 2 steps in float32 with TF32 off (the rounding-level
+    check of the global batch's semantics: the bf16 main-phase Lr decodes
+    through an argmax bin, which rounding flips), and before them, from
+    the same built weights, the gradients of one main step on the first
+    batch (`first_step_grads`); in one process also each leaf's floor, its
+    leaf_err when each stream's rows come in reverse order."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t = Trainer(parallel_config(compute_dtype="float32"), dictionary=make_dictionary(200),
+                    device=dev, mesh=mesh)
+        grads, floor = first_step_grads(t, real, render), None
+        if mesh is None:
+            again = first_step_grads(t, reversed_rows(real), reversed_rows(render))
+            floor = {k: leaf_err(again[k], g) for k, g in grads.items()}
+        t.fit(t.init_state(), real, render, log_every=1)
+        torch.cuda.synchronize()
+        return ([{k: r[k] for k in ("step", "loss", "lc", "lr", "s", "alpha")}
+                 for r in t.history], grads, floor)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+def worker_dp(out: Path) -> None:
+    """A rank of the 2-rank data-parallel run on the one card (gloo): [5]'s
+    fit on its rows, counted, which leaves `last` (rank 0 writes it); timed
+    main steps; peak memory; `last` restored into the trainer and the first
+    timed step taken again from it (the library's --resume); the f32 fit,
+    and the f32 step-1 gradients against the one process's
+    (grads_one.pt); digests of the gradients and the weights, which the
+    ranks must share; its TensorBoard file (rank 0); one fused-trunk step,
+    counted."""
+    from multi_modal_regression_tpu_torch.parallel import multihost
+    from multi_modal_regression_tpu_torch.parallel.mesh import barrier, make_mesh
+    from multi_modal_regression_tpu_torch.utils.metrics_writer import read_scalars
+
+    world, rank = multihost.initialize(device="cuda")
+    dev = multihost.local_device()
+    _build.load()
+    mesh = make_mesh()
+    real, render = (rank_rows(b, rank, world) for b in parallel_batches())
+    t = Trainer(parallel_config(tensorboard=True), dictionary=make_dictionary(200), device=dev,
+                mesh=mesh, workdir=out / "dp_run")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = t.fit(t.init_state(), real, render, log_every=1)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "backend": mesh.backend, "counts": read_counts(),
+           "history": [{k: r[k] for k in ("step", "phase", "loss", "lc", "lr", "s", "alpha")}
+                       for r in t.history],
+           "fit_step": int(state.step), "fit_digest": digest(t.model.state_dict())}
+    batch = t._to_device(next(_interleave(real, render)))
+    step = t.train_step_fn("main", dual_stream=True)
+    times, first = [], None
+    for _ in range(1 + PARALLEL_TIMED):
+        barrier(mesh)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        first = first or {k: float(v) for k, v in m.items()}
+    res["step_s"] = times[1:]
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    state = t.restore_checkpoint("last")
+    res["restored"] = {"step": int(state.step), "digest": digest(t.model.state_dict())}
+    _, m = step(state, batch)
+    res["again"] = [{k: float(v) for k, v in m.items()}, first]
+    res["final_digest"] = digest(t.model.state_dict())
+    res["f32_history"], grads, _ = parallel_f32(dev, mesh, real, render)
+    res["grad_digest"] = digest(grads)
+    res["grad_worst"] = worst_leaf(grads, torch.load(out / "grads_one.pt", weights_only=True))
+    if rank == 0:
+        (events,) = (out / "dp_run" / "tb").glob("events.out.tfevents.*")
+        res["tb"] = read_scalars(events)
+        res["records"] = read_records(out / "dp_run" / "metrics.jsonl")
+    del t, state, step
+    torch.cuda.empty_cache()
+    fused = Trainer(parallel_config(fused_conv_bn="kernel"), dictionary=make_dictionary(200),
+                    device=dev, mesh=mesh)
+    reset_counts()
+    _, m = fused.train_step_fn("main", dual_stream=True)(fused.init_state(), batch)
+    torch.cuda.synchronize()
+    res["fused_counts"] = read_counts()
+    res["fused_metrics"] = {k: float(v) for k, v in m.items()}
+    (out / f"dp_{rank}.json").write_text(json.dumps(res))
+    multihost.shutdown()
+
+
+def worker_tp(out: Path) -> None:
+    """A model rank of geodesic_bd_multires at dp1 x tp2 on the one card:
+    [13]'s 1 + 1 steps on the whole 96-image batch, the delta bank's 2400
+    heads cut to 1200; peak memory after the build, launches. Then [5]'s
+    geodesic_bd at dp1 x tp2 in f32 with TF32 off: the gradients of one
+    main step on the first global batch against the one process's
+    (grads_one.pt), each bank shard against its heads; a digest of the
+    replicated leaves' gradients, which the ranks must share."""
+    from multi_modal_regression_tpu_torch.parallel import multihost, tp
+
+    world, rank = multihost.initialize(device="cuda")
+    dev = multihost.local_device()
+    _build.load()
+    mesh = tp.make_2d_mesh(1, world)
+    t = Trainer(zoo_config("geodesic_bd_multires"), dictionary=make_dictionary(200), device=dev,
+                mesh=mesh)
+    rng = np.random.default_rng(13)
+    real, render = make_loader(rng, 1, 4, 224, 12), make_loader(rng, 1, 4, 224, 12)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t.fit(t.init_state(), real, render, log_every=1)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "counts": read_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "params_m": sum(p.numel() for p in t.model.parameters()) / 1e6,
+           "sharded": [n for n, m in t.model.named_children() if getattr(m, "tp", None)],
+           "history": [{k: r[k] for k in ("step", "loss", "lc", "lr", "s")} for r in t.history]}
+    del t
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = Trainer(parallel_config(compute_dtype="float32"), dictionary=make_dictionary(200),
+                    device=dev, mesh=mesh)
+    grads = first_step_grads(small, *parallel_batches())
+    shards = tp.param_shards(small.model)
+    lo = {n: shards[id(p)].lo for n, p in small.model.named_parameters() if id(p) in shards}
+    res["grad_banks"] = [n for n, m in small.model.named_children() if getattr(m, "tp", None)]
+    res["grad_sharded"] = len(lo)
+    res["grad_worst"] = worst_leaf(grads, torch.load(out / "grads_one.pt", weights_only=True), lo)
+    res["grad_replicated_digest"] = digest({n: g for n, g in grads.items() if n not in lo})
+    (out / f"tp_{rank}.json").write_text(json.dumps(res))
+    multihost.shutdown()
+
+
+def worker(argv: list[str]) -> None:
+    """`python chip_smoke.py --worker dp|tp <dir>`: one rank of [16]."""
+    {"dp": worker_dp, "tp": worker_tp}[argv[0]](Path(argv[1]))
+
+
+def launch_ranks(kind: str, out: Path, world: int = 2) -> subprocess.CompletedProcess:
+    """Start `world` ranks of chip_smoke.py --worker <kind> on a free port,
+    each as torch.distributed.run would (MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE, RANK, LOCAL_RANK, LOCAL_WORLD_SIZE), and wait for them all;
+    raise with their output if one fails."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "WORLD_SIZE": str(world), "RANK": str(r), "LOCAL_RANK": str(r),
+               "LOCAL_WORLD_SIZE": str(world)}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker", kind, str(out)],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"[16] {kind} ranks exited {[p.returncode for p in procs]}:\n"
+                             + "\n".join(o[-4000:] for o in outs))
+    return outs
+
+
+def parallel_cli(user: dict, tmp: Path, library: Path) -> dict:
+    """At once, each over 2 ranks on the card (torchrun, gloo) on [10]'s
+    trees: `cli train --distributed --resume` from the library run's
+    `last` (written by rank 0 of the 2-rank fit), and `cli predict
+    --distributed` of that checkpoint (linked as `first`); wall time of
+    each."""
+    wd = tmp / "run16"
+    (wd / "checkpoints").mkdir(parents=True)
+    for name in ("last", "first"):  # a save replaces the file, never writes into it
+        os.link(library / "checkpoints" / "last", wd / "checkpoints" / name)
+    args = list(user["args"])
+    args[args.index("--workdir") + 1] = str(wd)
+    args[args.index("--num-epochs") + 1] = "1"
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "2", "-m", f"{PORT}.cli"]
+    pred = ["predict", *args[1:], "--checkpoint", "first", "--save-str", "dist"]
+
+    def start(cmd):
+        return (cmd, time.perf_counter(), subprocess.Popen(
+            [*run, *cmd, "--distributed"], cwd=Path(__file__).resolve().parent,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+    walls, outs = [], []
+    for cmd, t0, proc in [start(cmd) for cmd in ([*args, "--resume"], pred)]:
+        out, err = proc.communicate(timeout=900)
+        walls.append(time.perf_counter() - t0)
+        if proc.returncode != 0:
+            raise AssertionError(f"[16] {' '.join(cmd[:3])} --distributed exited "
+                                 f"{proc.returncode}:\n{out[-4000:]}{err[-4000:]}")
+        outs.append(out)
+    return {"wd": wd, "pred_args": pred, "walls": walls, "outs": outs}
+
+
+def parallel_nccl(dev, dictionary, real, render) -> str:
+    """A world-1 NCCL group: an all-reduce and a barrier on the card, one
+    main step of [5]'s config in it; the line to print."""
+    import socket
+
+    import torch.distributed as dist
+
+    from multi_modal_regression_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        dist.barrier(device_ids=[dev.index or 0])
+        nccl = Trainer(parallel_config(), dictionary=dictionary, device=dev)
+        reset_counts()
+        _, m = nccl.train_step_fn("main", dual_stream=True)(
+            nccl.init_state(), nccl._to_device(next(_interleave(real, render))))
+        torch.cuda.synchronize()
+        backend, counts = dist.get_backend(), read_counts()
+    finally:
+        multihost.shutdown()
+    per_step = {"normalize": 1, "stem_pool": 2, "stem_pool_bwd": 2}
+    if backend != "nccl" or float(probe) != 1.0 or counts != {k: per_step.get(k, 0)
+                                                             for k in counts}:
+        raise AssertionError(f"[16] world-1 group: {backend}, {float(probe)}, {counts}")
+    del nccl
+    torch.cuda.empty_cache()
+    return (f"[16] world-1 NCCL group: all-reduce and barrier on the card, one main step "
+            f"(loss {float(m['loss']):.4f}, launches {counts})")
+
+
+def parallel_profile(one, real, render, out: Path) -> str:
+    """profile_trace over 3 main steps of `one`; the line to print."""
+    from multi_modal_regression_tpu_torch.utils.profiling import profile_trace
+
+    batch = one._to_device(next(_interleave(real, render)))
+    step = one.train_step_fn("main", dual_stream=True)
+    state = one.init_state()
+    with profile_trace(out / "prof"):
+        for _ in range(3):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    (trace,) = (out / "prof").glob("trace_*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    ops = {"mmr::normalize_u8", "mmr::stem_pool_fwd"}
+    named = {k: any(k in n for n in kernels) for k in
+             ("normalize_u8_kernel", "stem_fwd_kernel", "stem_bwd_kernel")}
+    if not ops <= names or (kernels and not all(named.values())):
+        raise AssertionError(f"[16] profile trace: ops {ops - names}, kernels {named}")
+    return (f"[16] profile_trace of 3 main steps: {trace.name}, {len(events)} events, "
+            f"{len(kernels)} kernel names on the device, the mmr ops and kernels named "
+            f"({named if kernels else 'no device events recorded'})")
+
+
+def phase_parallel(dev, smi: str, user: dict, step_img_s: float, tmp: Path) -> dict:
+    """[16]: 2 ranks on the one card over gloo at library level ([5]'s fit,
+    its step-1 gradients, its checkpoint restored, the fused trunk) and
+    through the CLI (`train --distributed --resume` and `predict
+    --distributed` of the library run's checkpoint), tp2 on
+    geodesic_bd_multires and tp2 gradients on geodesic_bd, a world-1 NCCL
+    group, the serving export reloaded in a process that builds no model,
+    a profiler trace of 3 steps, a TensorBoard file read back. Every model
+    here decodes with make_dictionary(200), as the ranks do. The timed
+    parts (the 2-rank steps, the export's requests) run with nothing else
+    on the card."""
+    dictionary = make_dictionary(200)
+    from multi_modal_regression_tpu_torch.serving import export_inference, save_inference
+
+    t_all = time.perf_counter()
+    out = tmp / "p16"
+    out.mkdir()
+    keys = ("loss", "lc", "lr", "s", "alpha")
+
+    # the f32 fit in one process first: its step-1 gradients are what every
+    # rank's, data- or tensor-parallel, are held to (grads_one.pt)
+    real, render = parallel_batches()
+    one32, grads_one, floor = parallel_f32(dev, None, real, render)
+    torch.save({"grads": grads_one, "floor": floor}, out / "grads_one.pt")
+    del grads_one
+    top_floor = max((v, k) for k, v in floor.items())
+    torch.cuda.empty_cache()
+
+    # data parallelism at library level: 2 ranks, then the bf16 fit in one process
+    t0 = time.perf_counter()
+    launch_ranks("dp", out)
+    dp_s = time.perf_counter() - t0
+    ranks = [json.loads((out / f"dp_{r}.json").read_text()) for r in range(2)]
+    per_step = {"normalize": 1, "stem_pool": 2, "stem_pool_bwd": 2}
+    want = {k: 4 * per_step.get(k, 0) for k in ranks[0]["counts"]}
+    want_fused = {**{k: per_step.get(k, 0) for k in want},
+                  "mm": 72, "mm_bwd": 72, "c3": 26, "c3_bwd": 26}
+    for r in ranks:
+        if r["counts"] != want or r["fused_counts"] != want_fused or r["backend"] != "gloo":
+            raise AssertionError(f"[16] rank {r['rank']} launches {r['counts']} / fused "
+                                 f"{r['fused_counts']} on {r['backend']}")
+        if r["history"] != ranks[0]["history"]:
+            raise AssertionError("[16] the ranks logged different global metrics")
+        if not all(np.isfinite(v) for v in r["fused_metrics"].values()):
+            raise AssertionError(f"[16] fused step metrics {r['fused_metrics']}")
+        # the ranks' weights and reduced gradients are one copy, bit for bit
+        if (r["grad_digest"], r["fit_digest"], r["final_digest"]) != (
+                ranks[0]["grad_digest"], ranks[0]["fit_digest"], ranks[0]["final_digest"]):
+            raise AssertionError(f"[16] rank {r['rank']}'s gradients or weights differ from "
+                                 f"rank 0's")
+        err, leaf, bound = r["grad_worst"]
+        if not err <= bound:
+            raise AssertionError(f"[16] rank {r['rank']} step-1 gradient at {leaf}: {err:.3g} "
+                                 f"of one process's (> {bound:.3g}; its floor "
+                                 f"{floor[leaf]:.3g})")
+        # `last` restored bit-equal, and the step after it repeats the first
+        # timed step (the same state, batch and generator)
+        again, first = r["again"]
+        if (r["restored"] != {"step": r["fit_step"], "digest": r["fit_digest"]}
+                or any(not abs(again[k] - first[k]) <= 1e-6 * max(1.0, abs(first[k]))
+                       for k in keys)):
+            raise AssertionError(f"[16] rank {r['rank']} restored `last`: {r['restored']} "
+                                 f"(fit step {r['fit_step']}), its step {again} against {first}")
+    one = Trainer(parallel_config(), dictionary=dictionary, device=dev)
+    one.fit(one.init_state(), real, render, log_every=1)
+    torch.cuda.synchronize()
+    # f32 with TF32 off: the first step (the forward, before any update) is
+    # the global batch's to rounding; after it Adam's +/-lr steps and the
+    # argmax decode amplify rounding as in TRAIN_TOL's note (measured on an
+    # H100: 5.3e-6, then 1.4%, 3.5%, 1.2%). bf16: each rank's convolutions
+    # run at 24 rows where one process runs 48, and the main phase's Lr (and
+    # s = log Lr, alpha) decodes through an argmax bin (measured: 1.3% on
+    # step 1, 20% on step 3's Lr), so those three are held as relaxed_bd's
+    # at SOFT_DECODE_TOL in the main phase, the rest within TRAIN_TOL
+    worst = {}
+    for tag, dp_hist, one_hist in (("bf16", ranks[0]["history"], one.history),
+                                   ("f32", ranks[0]["f32_history"], one32)):
+        for i, (rd, ro) in enumerate(zip(dp_hist, one_hist, strict=True)):
+            errs = {k: abs(rd[k] - ro[k]) / (1.0 if k == "s" else abs(ro[k])) for k in keys}
+            worst[tag] = max(worst.get(tag, 0.0), *errs.values())
+            print(f"[16] {tag} step {rd['step']}: 2 ranks "
+                  + " ".join(f"{k} {rd[k]:.6f}" for k in keys) + " | one process "
+                  + " ".join(f"{k} {ro[k]:.6f}" for k in keys)
+                  + f" | worst {max(errs.values()):.3g}")
+            for k, err in errs.items():
+                tol = (1e-4 if tag == "f32" and i == 0 else
+                       SOFT_DECODE_TOL if tag == "bf16" and i >= 2 and k in ("lr", "s", "alpha")
+                       else TRAIN_TOL)
+                if not err <= tol:
+                    raise AssertionError(f"[16] {tag} step {rd['step']} {k}: 2 ranks {rd[k]} "
+                                         f"one {ro[k]} ({err:.3g} > {tol})")
+    step_s = statistics.median([max(a, b) for a, b in zip(ranks[0]["step_s"], ranks[1]["step_s"])])
+    tb = [tuple(x) for x in ranks[0]["tb"]]
+    want_tb = [(k, rec["step"], float(np.float32(v))) for rec in ranks[0]["records"]
+               for k, v in rec.items() if k != "step"]
+    if tb != want_tb:
+        raise AssertionError(f"[16] TensorBoard scalars {tb[:4]} != metrics.jsonl {want_tb[:4]}")
+    dp_img_s = 96 / step_s
+    print(f"[16] 2 ranks on one card (gloo), [5]'s fit of 2 + 2 steps, 48 of the 96 images a "
+          f"rank: launches a rank {ranks[0]['counts']} (1/2/2 a step), fused trunk step "
+          f"{ranks[0]['fused_counts']}; metrics equal on both ranks and within "
+          f"{worst['bf16']:.3g} of one process (f32, TF32 off: {worst['f32']:.3g}); step-1 "
+          f"gradients (f32, TF32 off) bit-equal on both ranks and, at the leaf nearest its "
+          f"bound, {ranks[0]['grad_worst'][1]}, {ranks[0]['grad_worst'][0]:.3g} of one "
+          f"process's (bound {ranks[0]['grad_worst'][2]:.3g}; the largest floor "
+          f"{top_floor[0]:.3g} at {top_floor[1]}); weights bit-equal on both ranks; "
+          f"`last` restored bit-equal at step {ranks[0]['fit_step']} and the step after it "
+          f"repeated; main step "
+          f"{step_s * 1e3:.3f} ms = {dp_img_s:.1f} img/s (median of {PARALLEL_TIMED}, the "
+          f"slower rank) against [5]'s one-process "
+          f"{step_img_s:.1f} img/s; peak device memory a rank "
+          f"{ranks[0]['peak_gib']:.2f} / {ranks[1]['peak_gib']:.2f} GiB; {len(tb)} TensorBoard "
+          f"scalars read back equal to metrics.jsonl; {dp_s:.1f} s; {smi}")
+
+    # the serving export, reloaded in a process that builds no model
+    model, problem = one.model, one.problem
+    rng = np.random.default_rng(PARALLEL_SEED + 1)
+    reqs = make_requests(rng, (64, 17), 224, 12)
+    big = make_requests(rng, (64,), 256, 12)
+    t0 = time.perf_counter()
+    save_inference(out / "program.pt2", export_inference(one, "dynamic"))
+    save_inference(out / "resize.pt2", export_inference(one, "dynamic", image_size=256))
+    export_s = time.perf_counter() - t0
+    np.savez(out / "requests.npz",
+             **{f"program_x{len(x)}": x for x, _ in reqs},
+             **{f"program_l{len(x)}": lab for x, lab in reqs},
+             resize_x64=big[0][0], resize_l64=big[0][1])
+    res = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, str(out)],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"[16] serving the exported program:\n{res.stderr[-4000:]}")
+    served = json.loads((out / "served.json").read_text())
+    if [served[f"program_x{n}"] for n in (64, 17)] != [[1, 1], [1, 1]] or served[
+            "resize_x64"] != [0, 1]:
+        raise AssertionError(f"[16] launches a request of the exported programs: {served}")
+    infer = make_inference_fn(model, problem)
+    infer_resize = make_inference_fn(model, problem, resize_to=224)
+    worst_pose, n_clear, n_rows = 0.0, 0, 0
+    rtol = SERVE_RTOL[torch.bfloat16]
+    with np.load(out / "served.npz") as z:
+        for name, fn, rq, resize in (("program", infer, reqs, None),
+                                     ("resize", infer_resize, big, 224)):
+            for x, lab in rq:
+                want_p = fn(x, lab).float().cpu()
+                got = torch.from_numpy(z[f"{name}_x{len(x)}"])
+                # poses on the rows whose argmax bin no rounding can flip
+                with torch.inference_mode():
+                    xb = steps._preprocess({"xdata": torch.from_numpy(x).to(dev)}, resize,
+                                           torch.bfloat16)
+                    scores, residual = model(xb, torch.from_numpy(lab).to(dev))
+                top2 = torch.topk(scores.float(), 2, dim=-1).values
+                clear = ((top2[:, 0] - top2[:, 1]) > rtol * float(scores.abs().max())).cpu()
+                err = float((got - want_p)[clear].abs().max()) if clear.any() else 0.0
+                # the exported graph may run the resize's products in another
+                # order: held to the poses' own scale (measured: 4 bf16 ulps
+                # of a residual, 0.0078 of poses up to pi)
+                tol = rtol * float(want_p.abs().max())
+                if not (err <= tol and clear.sum() >= len(x) // 2):
+                    raise AssertionError(f"[16] exported {name} at {len(x)}: {err:.3g} > "
+                                         f"{tol:.3g} on {int(clear.sum())} clear rows")
+                worst_pose = max(worst_pose, err)
+                n_clear, n_rows = n_clear + int(clear.sum()), n_rows + len(x)
+    lat = timed_requests(infer, [reqs[0]], 23)[3:]
+    print(f"[16] export (torch.export, batch dynamic) in {export_s:.1f} s for both programs; "
+          f"reloaded in a process that built no model: requests of 64 and 17 within "
+          f"{worst_pose:.3g} of make_inference_fn on {n_clear}/{n_rows} clear rows (SERVE_RTOL "
+          f"{rtol} of the poses' largest magnitude), 1 normalize and 1 stem launch a request, 0 normalize with the resize "
+          f"(256 -> 224 px); request latency at 64: exported {served['latency_64_ms']:.3f} ms, "
+          f"make_inference_fn {statistics.median(lat) * 1e3:.3f} ms (medians of 20); {smi}")
+
+    # the CLI over 2 ranks beside tp2 (both on the card), and meanwhile here
+    # a world-1 NCCL group and a profiler trace
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        chain = pool.submit(parallel_cli, user, tmp, out / "dp_run")
+        tp_run = pool.submit(launch_ranks, "tp", out)
+        nccl_line = parallel_nccl(dev, dictionary, real, render)
+        prof_line = parallel_profile(one, real, render, out)
+        tp_run.result()
+        chain = chain.result()
+    both_s = time.perf_counter() - t0
+    print(nccl_line)
+    print(prof_line)
+    tps = [json.loads((out / f"tp_{r}.json").read_text()) for r in range(2)]
+    for r in tps:
+        if (r["counts"] != {k: 2 * per_step.get(k, 0) for k in want}
+                or r["sharded"] != ["bin_models", "res_models"]
+                or r["history"] != tps[0]["history"]
+                or not all(np.isfinite(h[k]) for h in r["history"] for k in ("loss", "lr"))):
+            raise AssertionError(f"[16] tp rank {r['rank']}: {r}")
+        if (not r["grad_banks"] or not r["grad_worst"][0] <= r["grad_worst"][2]
+                or r["grad_replicated_digest"] != tps[0]["grad_replicated_digest"]):
+            raise AssertionError(f"[16] tp rank {r['rank']} step-1 gradients: banks "
+                                 f"{r['grad_banks']}, (err, leaf, bound) {r['grad_worst']}, "
+                                 f"replicated leaves equal to rank 0's: "
+                                 f"{r['grad_replicated_digest'] == tps[0]['grad_replicated_digest']}")
+    tp_worst = max((r["grad_worst"] for r in tps), key=lambda e: e[0] / e[2])
+    print(f"[16] geodesic_bd_multires at dp1 x tp2 on one card: res_models cut to 1200 of 2400 "
+          f"heads a rank, bin_models to 6 of 12 ({tps[0]['params_m']:.1f} M parameters a "
+          f"rank), 1 + 1 steps of 96 images, launches a rank {tps[0]['counts']}, loss "
+          f"{tps[0]['history'][-1]['loss']:.4f} on both ranks; peak device memory a rank "
+          f"{tps[0]['peak_gib']:.2f} / {tps[1]['peak_gib']:.2f} GiB (one process in [13]); "
+          f"[5]'s geodesic_bd at dp1 x tp2 (f32, TF32 off; {', '.join(tps[0]['grad_banks'])} "
+          f"sharded, {tps[0]['grad_sharded']} leaves a rank): step-1 gradients, at the "
+          f"leaf nearest its bound, {tp_worst[1]}, {tp_worst[0]:.3g} of one process's "
+          f"(bound {tp_worst[2]:.3g}), the replicated leaves' bit-equal on both ranks; {smi}")
+    wd = chain["wd"]
+    final = torch.load(wd / "checkpoints" / "final", map_location="cpu", weights_only=True)
+    # each rank's batch is 48 images a stream, so a distributed epoch of
+    # [10]'s 96-image trees is one step: the resume runs 1 warm-up + 1 main
+    resumed = f"resumed from step {ranks[0]['fit_step']}"
+    if final["step"] != ranks[0]["fit_step"] + 2 or resumed not in chain["outs"][0]:
+        raise AssertionError(f"[16] cli train --resume --distributed: final step "
+                             f"{final['step']}:\n{chain['outs'][0][-2000:]}")
+    with np.load(wd / "results_dist.npz") as z:
+        dist_rows = {k: z[k] for k in z.files}
+    dist_med = float(chain["outs"][1].split("MedErr ")[-1].split()[0])
+    pred = list(chain["pred_args"])
+    pred[pred.index("--save-str") + 1] = "one"
+    with tee_stdout() as tee:
+        cli.main(pred)
+    one_med = float(tee.getvalue().split("MedErr ")[-1].split()[0])
+    # rows: the ground truth and labels equal (the gathered order is the
+    # one-process order); the bf16 poses of a rank's smaller batches may take
+    # other cuDNN algorithms, so they are held per row as a geodesic angle
+    with np.load(wd / "results_one.npz") as z:
+        one_rows = {k: z[k] for k in z.files}
+    for k in ("ytest", "test_labels"):
+        if not np.array_equal(dist_rows[k], one_rows[k]):
+            raise AssertionError(f"[16] predict --distributed {k} differs from one process")
+    angle = geodesic_error_deg(dist_rows["yhat_test"], one_rows["yhat_test"])
+    close = float(np.mean(angle <= 1.0))
+    if close < 0.9 or abs(dist_med - one_med) > 1.0:  # measured: every row within 3e-6 deg
+        raise AssertionError(f"[16] predict --distributed: {close:.0%} of rows within 1 deg, "
+                             f"MedErr {dist_med} against {one_med}")
+    print(f"[16] at once over 2 ranks each (gloo, [10]'s trees), from the library run's `last` "
+          f"(step {ranks[0]['fit_step']}, written by rank 0): cli train --distributed "
+          f"--resume to step {final['step']}, and predict --distributed: "
+          f"{len(dist_rows['test_labels'])} rows gathered in the "
+          f"one-process order (ground truth and labels equal), {close:.0%} of the predicted "
+          f"poses within 1 deg of one process's (largest {angle.max():.3g} deg), MedErr "
+          f"{dist_med:.4f} against {one_med:.4f}; walls "
+          + ", ".join(f"{w:.1f}" for w in chain["walls"]) + f" s, beside tp2 in {both_s:.1f} s")
+
+    del one
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_all
+    print(f"[16] done in {wall:.1f} s; {smi}")
+    return {"dp_rank_launches": [r["counts"] for r in ranks],
+            "dp_fused_rank_launches": [r["fused_counts"] for r in ranks],
+            "tp_rank_launches": [r["counts"] for r in tps],
+            "export_launches": served, "dp_img_s": dp_img_s,
+            "dp_peak_gib": [r["peak_gib"] for r in ranks],
+            "tp_peak_gib": [r["peak_gib"] for r in tps], "wall_s": wall}
+
+
+def parallel_launches(par: dict, name: str) -> dict:
+    """[16]'s launches of one kernel: a list over the ranks of the
+    data-parallel fit (4 steps), its fused-trunk step and the tp2 fit (2
+    steps), and a request of the exported programs (64, 17, resize)."""
+    out = {"dp_rank_launches": [r[name] for r in par["dp_rank_launches"]],
+           "dp_fused_rank_launches": [r[name] for r in par["dp_fused_rank_launches"]],
+           "tp_rank_launches": [r[name] for r in par["tp_rank_launches"]]}
+    which = {"normalize": 0, "stem_pool": 1}.get(name)
+    if which is not None:
+        out["export_request_launches"] = {
+            k: v[which] for k, v in par["export_launches"].items() if k != "latency_64_ms"}
+    return out
+
 
 def main() -> None:
     name, smi = phase_device()
@@ -3759,6 +4457,7 @@ def main() -> None:
         zoo = phase_zoo(dev, smi, kmeans_dict, gmm_dict, user, Path(tmp))
         joint = phase_joint(dev, smi, zoo["dicts"], user, Path(tmp))
         objectnet = phase_objectnet(dev, smi, zoo["dicts"], Path(tmp))
+        par = phase_parallel(dev, smi, user, train["img_s"], Path(tmp))
     # launches: each kernel's count over the 4 steps of its training path
     # ([5] unfused, [6] fused) or over the dictionary path's fit, predict and
     # residuals ([7]); serving's counts are in [4], the gate's in [12]; the
@@ -3778,32 +4477,39 @@ def main() -> None:
          "verify_parity_launches": gate["normalize"],
          "predict_det_path_launches": gate["predict_normalize"],
          "zoo_launches": zoo["normalize"], "joint_launches": joint["normalize"],
-         "objectnet_launches": objectnet["normalize"], **norm},
+         "objectnet_launches": objectnet["normalize"],
+         **parallel_launches(par, "normalize"), **norm},
         {"name": "stem_pool", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:162",
          "launches": train["launches"]["stem_pool"],
          "serving_launches": serve["launches"]["stem_pool"],
          "zoo_launches": zoo["stem_pool"], "joint_launches": joint["stem_pool"],
-         "objectnet_launches": objectnet["stem_pool"], **stem},
+         "objectnet_launches": objectnet["stem_pool"],
+         **parallel_launches(par, "stem_pool"), **stem},
         {"name": "stem_pool_bwd", "route": "cuda",
          "source": f"{PORT}/csrc/stem_pool.cu",
          "replaces": f"{JAX_PACKAGE}/ops/stem_pool.py:186",
          "launches": train["launches"]["stem_pool_bwd"],
          "zoo_launches": zoo["stem_pool_bwd"], "joint_launches": joint["stem_pool_bwd"],
-         "objectnet_launches": objectnet["stem_pool_bwd"], **stem_bwd},
+         "objectnet_launches": objectnet["stem_pool_bwd"],
+         **parallel_launches(par, "stem_pool_bwd"), **stem_bwd},
         {"name": "mm_stats", "route": "cuda", "source": fused_src % "mm",
          "replaces": fused_at % 215, "launches": fused["launches"]["mm"],
-         "zoo_launches": zoo["mm"], "objectnet_launches": objectnet["mm"], **mm},
+         "zoo_launches": zoo["mm"], "objectnet_launches": objectnet["mm"],
+         **parallel_launches(par, "mm"), **mm},
         {"name": "mm_stats_bwd", "route": "cuda", "source": fused_src % "mm",
          "replaces": fused_at % 447, "launches": fused["launches"]["mm_bwd"],
-         "zoo_launches": zoo["mm_bwd"], "objectnet_launches": objectnet["mm_bwd"], **mm_bwd},
+         "zoo_launches": zoo["mm_bwd"], "objectnet_launches": objectnet["mm_bwd"],
+         **parallel_launches(par, "mm_bwd"), **mm_bwd},
         {"name": "c3_fwd", "route": "cuda", "source": fused_src % "c3",
          "replaces": fused_at % 805, "launches": fused["launches"]["c3"],
-         "zoo_launches": zoo["c3"], "objectnet_launches": objectnet["c3"], **c3},
+         "zoo_launches": zoo["c3"], "objectnet_launches": objectnet["c3"],
+         **parallel_launches(par, "c3"), **c3},
         {"name": "c3_bwd", "route": "cuda", "source": fused_src % "c3",
          "replaces": fused_at % 878, "launches": fused["launches"]["c3_bwd"],
-         "zoo_launches": zoo["c3_bwd"], "objectnet_launches": objectnet["c3_bwd"], **c3_bwd},
+         "zoo_launches": zoo["c3_bwd"], "objectnet_launches": objectnet["c3_bwd"],
+         **parallel_launches(par, "c3_bwd"), **c3_bwd},
         {"name": "assign", "route": "cuda", "source": f"{PORT}/csrc/assign.cu",
          "replaces": f"{JAX_PACKAGE}/ops/assign.py:45", "launches": assign_launches,
          "verify_parity_launches": gate["assign"], "zoo_launches": zoo["assign"],
@@ -3818,4 +4524,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        worker(sys.argv[2:])
+    else:
+        main()

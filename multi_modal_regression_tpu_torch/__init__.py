@@ -6,12 +6,14 @@ library, and on the host side PIL and scipy (image files, `.mat` files):
 never JAX, flax, optax, orbax or the JAX package, so it runs on a machine
 that has none of them.
 
-What is ported so far: the serving and training paths of all 42 of the
-JAX package's presets (the single-model pose zoo, the two-stage and joint
-category + pose pipelines, the ObjectNet3D label-concat models), every
-ExperimentConfig field but `tensorboard`, the pose-dictionary path that
-comes before every bin-delta training run, and the chain from a raw
-release through the detection metrics to the quality-parity gate:
+What is ported: everything the JAX package does. The serving and
+training paths of all 42 of its presets (the single-model pose zoo, the
+two-stage and joint category + pose pipelines, the ObjectNet3D
+label-concat models), every ExperimentConfig field, the pose-dictionary
+path that comes before every bin-delta training run, the chain from a raw
+release through the detection metrics to the quality-parity gate, data-
+and tensor-parallel runs over torch.distributed, the serving export,
+profiling and TensorBoard scalars:
 
 data        ImageNet constants, plain `normalize_images`, `euler_to_pose`,
             hard, GMM-posterior, RBF soft and SO(3) tangent targets;
@@ -41,12 +43,20 @@ detection   detector crop sets, `run_detection_inference`, results .mat
 tools       `synthetic` datasets and releases, `pascal3d_prep` (crops,
             homography augmentation), `ingest` (release walkers, detector
             parsers), `parity` (`fit_pose_dictionary`, `run_parity_gate`)
+parallel    `multihost.initialize` (torch.distributed process groups), the
+            data-parallel `Mesh` (global BN statistics, gradient means),
+            `tp` (head banks split over a model axis, Megatron's f and g)
+utils       `MetricsWriter` (metrics.jsonl, TensorBoard event files),
+            `profiling` (`profile_trace`, `StepTimer`)
 cli         `python -m multi_modal_regression_tpu_torch.cli` train, pack,
             evaluate, predict, dictionary, prepare-data,
-            prepare-detections, evaluate-detections, verify-parity
-serving     `make_inference_fn`: uint8 images + labels -> poses
+            prepare-detections, evaluate-detections, verify-parity;
+            `--distributed` and `--compile-cache`
+serving     `make_inference_fn`: uint8 images + labels -> poses;
+            `export_inference` / `save_inference` / `load_inference`
+            (torch.export programs holding the kernels as custom ops)
 
-The roadmap of what is still to port is in ROADMAP.md.
+The roadmap is in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -21,6 +21,10 @@
         [--checkpoint final] [--packed-cache auto] [--det-path <set>] \\
         [--analysis [--analysis-names pose,cat]] [--device cuda|cpu]
 
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m multi_modal_regression_tpu_torch.cli train|evaluate|predict \
+        --distributed ... (one process a rank)
+
     python -m multi_modal_regression_tpu_torch.cli dictionary \\
         --data-root <render tree> --out kmeans_dictionary_axis_angle_200.npz \\
         [--type kmeans|gmm] [--size 200] [--seed 0] [--db-type render|real] \\
@@ -68,15 +72,26 @@ a PASCAL3D+ / ObjectNet3D release into the training trees (host code);
 `evaluate-detections` scores a results .mat (AP / AVP / ARP);
 `verify-parity` chains prepare-data, dictionary, train, the snapshot
 ensemble and the detection metrics into one table (tools/parity.py). All
-take the JAX package's arguments. Those whose machinery is not ported yet
-(`--distributed` and the other multi-host flags, `--compile-cache`) raise
-NotImplementedError when given (ROADMAP.md).
+take the JAX package's arguments.
+
+`--distributed` (train, evaluate, predict) joins a process group
+(parallel/multihost.initialize: torchrun's variables, or
+`--coordinator-address H:P --num-processes N --process-id I`), puts the
+rank on its card (`--device cuda`, NCCL where each rank has a card of its
+own, gloo where they share one) or the CPU (`--device cpu`, gloo), strides
+every loader by rank, and trains data-parallel over the global batch;
+rank 0 alone writes checkpoints, metrics, the snapshot and results files
+and the tables, runs `--det-path` and `--analysis`, while `predict`
+gathers every rank's test rows. `--compile-cache DIR|off` (every
+subcommand that has it in the JAX package) sets where the CUDA kernel
+library is built and kept (ops/_build.BUILD_DIR): DIR, or with `off` a
+fresh temporary directory of this process; an unwritable DIR keeps the
+default and says so.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -175,8 +190,15 @@ def _add_config_overrides(p: argparse.ArgumentParser) -> None:
                         "(-az, el, -ct) pose")
     p.add_argument("--workdir", type=str, default=None)
     p.add_argument("--resume", action="store_true")
+    _add_compile_cache_arg(p)
+
+
+def _add_compile_cache_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--compile-cache", type=str, default=None,
-                   help="persistent compilation cache: not ported yet")
+                   help="where the CUDA kernel library is built and kept "
+                        "(default build/torch_kernels/ in the checkout); "
+                        "'off' builds into a temporary directory of this "
+                        "process")
 
 
 # the ExperimentConfig fields _add_config_overrides exposes; shared by every
@@ -190,36 +212,55 @@ _OVERRIDE_FIELDS = (
     "checkpoint_async",
 )
 
-# flags whose machinery is not ported: giving one raises
-_NOT_PORTED_FLAGS = (
-    "distributed", "coordinator_address", "num_processes",
-    "process_id", "compile_cache",
-)
+def _setup_compile_cache(args) -> None:
+    """--compile-cache: DIR replaces ops/_build.BUILD_DIR, `off` builds
+    into a temporary directory of this process (no library is kept for
+    the next run), none keeps the default. A DIR that cannot be created
+    or written keeps the default and prints why, as the JAX package's
+    does; no kernel is skipped either way."""
+    import tempfile
+
+    from multi_modal_regression_tpu_torch.ops import _build
+
+    choice = getattr(args, "compile_cache", None)
+    if choice is None:
+        return
+    if choice == "off":
+        _build.set_build_dir(tempfile.mkdtemp(prefix="mmr_kernels_"))
+        return
+    d = Path(choice)
+    try:
+        d.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryFile(dir=d):
+            pass
+    except OSError as e:  # an unwritable cache dir is never fatal
+        print(f"compile cache disabled ({e}); building into {_build.BUILD_DIR}", flush=True)
+        return
+    _build.set_build_dir(d)
 
 
-def _refuse_not_ported(args) -> None:
-    for name in _NOT_PORTED_FLAGS:
-        if getattr(args, name, None) not in (None, False):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet (ROADMAP.md)"
-            )
+def _maybe_init_distributed(args) -> tuple[int, int]:
+    """--distributed: join the process group (parallel/multihost) before
+    anything is built, and put this rank on its device (args.device becomes
+    'cuda:<i>' for a rank on the card). Returns (host_count, host_index)
+    for the loaders' striding; (1, 0) without the flag."""
+    if not getattr(args, "distributed", False):
+        return 1, 0
+    from multi_modal_regression_tpu_torch.parallel import multihost
+
+    device = "cpu" if args.device == "cpu" else "cuda"
+    count, index = multihost.initialize(
+        coordinator_address=args.coordinator_address, num_processes=args.num_processes,
+        process_id=args.process_id, device=device,
+    )
+    args.device = str(multihost.local_device())
+    print(f"distributed: process {index}/{count} on {args.device}", flush=True)
+    return count, index
 
 
 def _overrides_from_args(args) -> dict:
-    from multi_modal_regression_tpu_torch.train.presets import ExperimentConfig
-
-    fields = {f.name for f in dataclasses.fields(ExperimentConfig)}
-    overrides = {}
-    for field in _OVERRIDE_FIELDS:
-        v = getattr(args, field, None)
-        if v is None:
-            continue
-        if field not in fields:
-            raise NotImplementedError(
-                f"--{field.replace('_', '-')} is not ported yet (ROADMAP.md)"
-            )
-        overrides[field] = v
-    return overrides
+    return {field: v for field in _OVERRIDE_FIELDS
+            if (v := getattr(args, field, None)) is not None}
 
 
 def _config_from_args(args):
@@ -335,7 +376,8 @@ def _packed_cache_dir(args, load_size: int, subdir: str,
     return new
 
 
-def _make_test_loader(args, cfg, classes, load_size: int):
+def _make_test_loader(args, cfg, classes, load_size: int, host_count: int = 1,
+                      host_index: int = 0):
     from multi_modal_regression_tpu_torch.data import (
         FlatTestIndex,
         MatCropIndex,
@@ -345,6 +387,7 @@ def _make_test_loader(args, cfg, classes, load_size: int):
 
     root = Path(args.data_root)
     packed = getattr(args, "packed_cache", None)
+    hosts = dict(host_count=host_count, host_index=host_index)
     if getattr(args, "test_protocol", "filenames") == "mat":
         mat_root = args.mat_root or str(root / "original")
         # evaluate at the resolution the experiment trains at: the .mat
@@ -361,11 +404,12 @@ def _make_test_loader(args, cfg, classes, load_size: int):
                 _packed_cache_dir(args, cfg.image_size, "original", kind="mat",
                                   split=args.mat_split),
                 image_size=cfg.image_size, num_workers=args.num_workers,
+                wait_for_builder=host_index > 0,
             )
-            return PackedMatCropLoader(index, pack, batch_size=cfg.eval_batch)
+            return PackedMatCropLoader(index, pack, batch_size=cfg.eval_batch, **hosts)
         return MatCropLoader(
             index, batch_size=cfg.eval_batch, image_size=cfg.image_size,
-            num_workers=args.num_workers,
+            num_workers=args.num_workers, **hosts,
         )
     index = FlatTestIndex(str(root / args.test_subdir), classes=classes)
     if packed:
@@ -374,14 +418,18 @@ def _make_test_loader(args, cfg, classes, load_size: int):
         pack = pack_index(
             index, _packed_cache_dir(args, load_size, args.test_subdir),
             image_size=load_size, num_workers=args.num_workers,
+            wait_for_builder=host_index > 0,
         )
-        return PackedTestLoader(index, pack, batch_size=cfg.eval_batch)
-    return TestLoader(index, cfg.eval_batch, load_size, num_workers=args.num_workers)
+        return PackedTestLoader(index, pack, batch_size=cfg.eval_batch, **hosts)
+    return TestLoader(index, cfg.eval_batch, load_size, num_workers=args.num_workers,
+                      **hosts)
 
 
-def _make_loaders(args, cfg):
+def _make_loaders(args, cfg, host_count: int = 1, host_index: int = 0):
     """(real, render, test) loaders; render is None for the flat protocol
-    and for --train-data real|render (the one loader drives the loop)."""
+    and for --train-data real|render (the one loader drives the loop).
+    host_count/host_index: every loader reads this rank's stride (the
+    packed caches are built by rank 0; the others wait for them)."""
     from multi_modal_regression_tpu_torch.data import (
         BalancedLoader,
         ClassBalancedIndex,
@@ -407,11 +455,13 @@ def _make_loaders(args, cfg):
     load_size = cfg.device_resize_from or cfg.image_size
     root = Path(args.data_root)
     packed = getattr(args, "packed_cache", None)
+    hosts = dict(host_count=host_count, host_index=host_index)
 
     def pack(index, subdir: str):
         return pack_index(
             index, _packed_cache_dir(args, load_size, subdir),
             image_size=load_size, num_workers=args.num_workers,
+            wait_for_builder=host_index > 0,
         )
 
     if protocol == "flat":
@@ -421,14 +471,14 @@ def _make_loaders(args, cfg):
         if packed:
             train = PackedFlatLoader(
                 train_index, pack(train_index, "train"),
-                batch_size=cfg.items_per_batch * 12, seed=cfg.seed,
+                batch_size=cfg.items_per_batch * 12, seed=cfg.seed, **hosts,
             )
         else:
             train = FlatLoader(
                 train_index, batch_size=cfg.items_per_batch * 12, image_size=load_size,
-                num_workers=args.num_workers, seed=cfg.seed,
+                num_workers=args.num_workers, seed=cfg.seed, **hosts,
             )
-        return train, None, _make_test_loader(args, cfg, classes, load_size)
+        return train, None, _make_test_loader(args, cfg, classes, load_size, **hosts)
     # --train-data selects real/render/both (the ablationGBDAugmentation.py
     # --type protocol; 'both' is the standard two-loader training)
     which = getattr(args, "train_data", "both")
@@ -438,11 +488,11 @@ def _make_loaders(args, cfg):
         if packed:
             return PackedBalancedLoader(
                 index, pack(index, subdir), items_per_batch=cfg.items_per_batch,
-                seed=cfg.seed,
+                seed=cfg.seed, **hosts,
             )
         return BalancedLoader(
             index, cfg.items_per_batch, load_size,
-            num_workers=args.num_workers, seed=cfg.seed,
+            num_workers=args.num_workers, seed=cfg.seed, **hosts,
         )
 
     real = render = None
@@ -452,7 +502,7 @@ def _make_loaders(args, cfg):
         render = balanced(args.render_subdir, "render")
     if real is None:  # render-only: it drives the loop
         real, render = render, None
-    return real, render, _make_test_loader(args, cfg, classes, load_size)
+    return real, render, _make_test_loader(args, cfg, classes, load_size, **hosts)
 
 
 def _load_pretrained(trainer, path: str) -> None:
@@ -509,7 +559,8 @@ def _warm_start(trainer, args) -> None:
 
 
 def cmd_train(args) -> int:
-    _refuse_not_ported(args)
+    host_count, host_index = _maybe_init_distributed(args)
+    _setup_compile_cache(args)
     from multi_modal_regression_tpu_torch.train.trainer import Trainer
 
     cfg = _config_from_args(args)
@@ -518,7 +569,7 @@ def cmd_train(args) -> int:
         cfg, dictionary=_load_dictionary_cached(args.dictionary), workdir=workdir,
         device=args.device,
     )
-    real, render, test = _make_loaders(args, cfg)
+    real, render, test = _make_loaders(args, cfg, host_count, host_index)
     if args.resume:
         state = trainer.restore_checkpoint()
         print(f"resumed from step {state.step}", flush=True)
@@ -539,7 +590,7 @@ def cmd_train(args) -> int:
 def cmd_pack(args) -> int:
     """Build the packed uint8 crop caches (data/packed.py) that a
     train/evaluate/predict run with these flags would use, then stop."""
-    _refuse_not_ported(args)
+    _setup_compile_cache(args)
     if not getattr(args, "packed_cache", None):
         args.packed_cache = "auto"
     cfg = _config_from_args(args)
@@ -554,8 +605,11 @@ def cmd_pack(args) -> int:
 
 
 def cmd_evaluate(args) -> int:
-    """The snapshot-ensemble protocol from a checkpoint (evaluate*.py)."""
-    _refuse_not_ported(args)
+    """The snapshot-ensemble protocol from a checkpoint (evaluate*.py); with
+    --distributed the fine-tune is data-parallel and every test pass
+    gathered, and rank 0 writes the snapshots."""
+    host_count, host_index = _maybe_init_distributed(args)
+    _setup_compile_cache(args)
     from multi_modal_regression_tpu_torch.train.evaluator import SnapshotEnsembleEvaluator
     from multi_modal_regression_tpu_torch.train.trainer import Trainer
 
@@ -565,9 +619,13 @@ def cmd_evaluate(args) -> int:
         cfg, dictionary=_load_dictionary_cached(args.dictionary), workdir=workdir,
         device=args.device,
     )
-    real, render, test = _make_loaders(args, cfg)
+    real, render, test = _make_loaders(args, cfg, host_count, host_index)
     state = trainer.restore_checkpoint(args.checkpoint)
-    ev = SnapshotEnsembleEvaluator(trainer, workdir=Path(workdir) / f"results_{args.save_str}")
+    ev = SnapshotEnsembleEvaluator(
+        trainer,
+        # one writer a job
+        workdir=Path(workdir) / f"results_{args.save_str}" if host_index == 0 else None,
+    )
     ev.run(state, real, render, test, num_epochs=args.eval_num_epochs)
     med, _ = ev.ensemble()
     per_snap = [round(s.med_err, 4) for s in ev.snapshots]
@@ -582,8 +640,12 @@ def cmd_predict(args) -> int:
     the per-class table; with --det-path over a detector's crop set (the
     evaluateModelDetectedBBoxes.py protocol): the results .mat; with
     --analysis the joint models' per-class analysis (evaluateJointModel.py)
-    over one or more checkpoints: one analysis .mat."""
-    _refuse_not_ported(args)
+    over one or more checkpoints: one analysis .mat. With --distributed the
+    test pass runs each rank's stride and gathers them; the detection and
+    analysis protocols run on rank 0 over the whole set, and rank 0 alone
+    writes and prints."""
+    host_count, host_index = _maybe_init_distributed(args)
+    _setup_compile_cache(args)
     from multi_modal_regression_tpu_torch.metrics import (
         mean_class_accuracy,
         mean_class_median_error,
@@ -601,6 +663,10 @@ def cmd_predict(args) -> int:
     workdir = args.workdir or f"runs/{args.save_str}"
     dictionary = _load_dictionary_cached(args.dictionary)
     trainer = Trainer(cfg, dictionary=dictionary, workdir=workdir, device=args.device)
+    if (args.analysis or args.det_path) and host_index != 0:
+        # one results file over the whole set: rank 0 alone (its restore and
+        # forwards are local, with the data-parallel mesh's replicated weights)
+        return 0
     if args.analysis:
         return _predict_analysis(args, cfg, trainer, dictionary, workdir)
     state = trainer.restore_checkpoint(args.checkpoint)
@@ -625,8 +691,12 @@ def cmd_predict(args) -> int:
     # every test protocol (filenames PNG tree, packed or not, or the
     # Pascal3dAll .mat crops), built as train and evaluate build it
     names = _classes_from_args(args)
-    test = _make_test_loader(args, cfg, names, cfg.device_resize_from or cfg.image_size)
+    test = _make_test_loader(args, cfg, names, cfg.device_resize_from or cfg.image_size,
+                             host_count, host_index)
+    # every rank gets the whole set back (Trainer.predict gathers); one writes
     ytrue, ypred, labels = trainer.predict(state, test)
+    if host_index != 0:
+        return 0
     out = Path(workdir) / f"results_{args.save_str}.npz"
     np.savez(out, ytest=ytrue, yhat_test=ypred, test_labels=labels)
     if trainer.problem.metric == "category_accuracy":
@@ -692,6 +762,7 @@ def _predict_analysis(args, cfg, trainer, dictionary, workdir) -> int:
 
 
 def cmd_dictionary(args) -> int:
+    _setup_compile_cache(args)
     from multi_modal_regression_tpu_torch.tools.parity import gather_tree_poses
 
     # gather all render poses from filenames (learnKmeansDictionary.py:25-37)
@@ -867,7 +938,7 @@ def cmd_verify_parity(args) -> int:
     evaluate -> optional AVP/ARP, printing the MedErr / Acc@pi/6 table
     (tools/parity.py; reference chain setupDataFlipped_pascal3d.m ->
     learnGeodesicBDModel.py -> evaluateGeodesicBDModel.py -> computeAVP.m)."""
-    _refuse_not_ported(args)
+    _setup_compile_cache(args)
     from multi_modal_regression_tpu_torch.tools.parity import run_parity_gate
 
     overrides = _overrides_from_args(args)
@@ -918,7 +989,9 @@ def _add_device_arg(p: argparse.ArgumentParser, what: str) -> None:
 
 def _add_distributed_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host runs: not ported yet")
+                   help="one process a rank (python -m torch.distributed.run, "
+                        "or the flags below on every rank): data-parallel "
+                        "over the process group, every loader strided by rank")
     p.add_argument("--coordinator-address", type=str, default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -1014,6 +1087,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "(dataGenerators.py:57-62; the reference "
                              "learns from RenderForCNN trees)")
     _add_device_arg(p_dict, "the fit")
+    _add_compile_cache_arg(p_dict)
     p_dict.set_defaults(fn=cmd_dictionary)
 
     p_prep = sub.add_parser(
@@ -1135,7 +1209,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if getattr(args, "distributed", False):
+            from multi_modal_regression_tpu_torch.parallel import multihost
+
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

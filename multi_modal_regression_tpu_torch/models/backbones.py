@@ -54,7 +54,7 @@ from torch import nn
 
 from multi_modal_regression_tpu_torch.models.checkpoint import Segments, chain, segment
 from multi_modal_regression_tpu_torch.models.heads import torch_linear_init
-from multi_modal_regression_tpu_torch.models.norm import bessel_factor
+from multi_modal_regression_tpu_torch.models.norm import batch_norm, bessel_factor
 from multi_modal_regression_tpu_torch.ops.fused_conv_bn import (
     IMPLS as FUSED_IMPLS,
     conv1x1_bn_stats,
@@ -63,6 +63,7 @@ from multi_modal_regression_tpu_torch.ops.fused_conv_bn import (
     stats_to_moments,
 )
 from multi_modal_regression_tpu_torch.ops.stem_pool import stem_bn_relu_pool
+from multi_modal_regression_tpu_torch.parallel.mesh import global_rows, global_sums, sync_mesh
 
 # (stage_sizes, bottleneck) per architecture, torchvision naming.
 RESNET_CONFIGS: dict[str, tuple[tuple[int, ...], bool]] = {
@@ -150,6 +151,8 @@ def _bn_affine(
     """
     if sums is None:
         return fold_bn(bn.running_mean, bn.running_var, bn.weight, bn.bias)
+    # the data group's, in a data-parallel step
+    sums, count = global_sums(sums, count, sync_mesh(bn))
     mean, var = stats_to_moments(sums, count)
     with torch.no_grad():
         # bn.momentum: 0.1, or 0 with no counter while models/checkpoint replays a forward
@@ -176,10 +179,10 @@ class BasicBlock(nn.Module):
             self.downsample_bn = _bn(features, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+        y = torch.relu(batch_norm(self.bn1, self.conv1(x)))
+        y = batch_norm(self.bn2, self.conv2(y))
         if self.downsample_conv is not None:
-            x = self.downsample_bn(self.downsample_conv(x))
+            x = batch_norm(self.downsample_bn, self.downsample_conv(x))
         return torch.relu(y + x)
 
 
@@ -215,11 +218,11 @@ class BottleneckBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused is not None:
             return self._forward_fused(x)
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = torch.relu(batch_norm(self.bn1, self.conv1(x)))
+        y = torch.relu(batch_norm(self.bn2, self.conv2(y)))
+        y = batch_norm(self.bn3, self.conv3(y))
         if self.downsample_conv is not None:
-            x = self.downsample_bn(self.downsample_conv(x))
+            x = batch_norm(self.downsample_bn, self.downsample_conv(x))
         return torch.relu(y + x)
 
     def _forward_fused(self, x: torch.Tensor) -> torch.Tensor:
@@ -355,7 +358,7 @@ class ResNetBackbone(nn.Module):
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv1(x)
         if self.stem_pool is None and self.fused is None:
-            x = torch.relu(self.bn1(x))
+            x = torch.relu(batch_norm(self.bn1, x))
             return F.max_pool2d(x, 3, stride=2, padding=1)
         # with `fused` alone the folded stem runs as eager ops ('plain')
         a, b = self._stem_affine(x)
@@ -490,7 +493,7 @@ class VGGBackbone(nn.Module):
     def _stage(self, convs: list[int]):
         def run(x: torch.Tensor) -> torch.Tensor:
             for i in convs:
-                x = torch.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+                x = torch.relu(batch_norm(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(x)))
             return F.max_pool2d(x, 2, stride=2)
         return run
 
@@ -503,8 +506,11 @@ class VGGBackbone(nn.Module):
                     raise ValueError(
                         "fc7's dropout draws from the generator a train step binds "
                         "(TrainState.rng); this training-mode forward has none")
-                keep = torch.rand(x.shape, generator=self.dropout_rng,
-                                  device=x.device) >= 0.5
+                # a data-parallel rank draws the global stream's mask and
+                # keeps its rows (parallel.mesh.global_rows)
+                rows, first = global_rows(x.shape[0], sync_mesh(self))
+                keep = torch.rand((rows, *x.shape[1:]), generator=self.dropout_rng,
+                                  device=x.device)[first:first + x.shape[0]] >= 0.5
                 x = torch.where(keep, x / 0.5, torch.zeros((), dtype=x.dtype, device=x.device))
             x = self._linear(self.fc7, x)
         return x.to(torch.promote_types(torch.float32, x.dtype))

@@ -109,8 +109,8 @@ class OneBinDeltaModel(nn.Module):
         self, x: torch.Tensor, label: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         feat = self.feature_model(x)
-        scores = select_class(self.bin_models(feat), label)
-        residual = select_class(self.res_models(feat), label)
+        scores = self.bin_models(feat, select=label)
+        residual = self.res_models(feat, select=label)
         return scores, residual
 
 
@@ -156,12 +156,11 @@ class _DeltaPerBinBase(nn.Module):
         self, x: torch.Tensor, label: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
         feat = self.feature_model(x)
-        scores = select_class(self.bin_models(feat), label)  # (B, K)
-        deltas = self.res_models(feat)  # (B, C*K, ndim)
-        b = deltas.shape[0]
-        deltas = deltas.reshape(b, self.num_classes, self.num_clusters * self.ndim)
-        deltas = select_class(deltas, label)  # (B, K*ndim)
-        return scores, deltas.reshape(b, self.num_clusters, self.ndim)
+        scores = self.bin_models(feat, select=label)  # (B, K)
+        # the class's K delta heads of the C*K: (B, K, ndim)
+        heads = label.to(torch.int64)[:, None] * self.num_clusters + torch.arange(
+            self.num_clusters, device=label.device)
+        return scores, self.res_models(feat, select=heads)
 
 
 class OneDeltaPerBinModel(_DeltaPerBinBase):

@@ -25,7 +25,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from multi_modal_regression_tpu_torch import EPS
-from multi_modal_regression_tpu_torch.models.norm import bessel_factor
+from multi_modal_regression_tpu_torch.models.norm import batch_norm, bessel_factor
+from multi_modal_regression_tpu_torch.parallel.mesh import global_sums, sync_mesh
+from multi_modal_regression_tpu_torch.parallel.tp import (
+    copy_to_model,
+    gather_heads,
+    reduce_from_model,
+)
 
 
 def torch_linear_init(
@@ -78,7 +84,10 @@ class HeadBatchNorm(nn.Module):
     biased variance is taken in two passes, mean((x - mean)^2), where flax
     uses E[x^2] - E[x]^2: the same quantity, but when a feature varies by
     well under 1% across the batch (random weights, similar images) the
-    one-pass form cancels in float32 and loses the variance.
+    one-pass form cancels in float32 and loses the variance. In a
+    data-parallel step (parallel.mesh `syncing_bn`) each pass's sum is
+    all-reduced over the data group, so mean, variance and n are the global
+    batch's: two all-reduces.
     """
 
     def __init__(self, num_heads: int, features: int, eps: float = 1e-5,
@@ -96,14 +105,22 @@ class HeadBatchNorm(nn.Module):
         compute = torch.promote_types(x.dtype, torch.float32)
         xc = x.to(compute)
         if self.training:
-            mean = xc.mean(dim=1)
-            var = torch.square(xc - mean[:, None, :]).mean(dim=1)
+            n = x.shape[1]
+            mesh = sync_mesh(self)
+            if mesh is None:
+                mean = xc.mean(dim=1)
+                var = torch.square(xc - mean[:, None, :]).mean(dim=1)
+            else:
+                total, n = global_sums(xc.sum(dim=1), n, mesh)
+                mean = total / n
+                var = global_sums(torch.square(xc - mean[:, None, :]).sum(dim=1),
+                                  x.shape[1], mesh)[0] / n
             with torch.no_grad():
                 m = 1.0 - self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(
                     m * self.running_var
-                    + (1 - m) * (var * bessel_factor(x.shape[1]))
+                    + (1 - m) * (var * bessel_factor(n))
                 )
         else:
             mean, var = self.running_mean, self.running_var
@@ -115,11 +132,18 @@ class HeadBatchNorm(nn.Module):
 class MultiHeadMLP(nn.Module):
     """A bank of `num_heads` MLPs over shared input features.
 
-    Input (B, F) shared by all heads; output (B, H, features[-1]).
-    `features` lists hidden dims then the output dim: bin_3layer(N0, N1,
-    N2, K) is MultiHeadMLP(N0, H, (N1, N2, K)). Parameters are named as in
-    the flax tree: fc<i>_kernel (H, in, out), bn<i>, and fc<last>_bias
-    (H, out).
+    Input (B, F) shared by all heads; output (B, H, features[-1]), or with
+    `select` (head indices (B,) or (B, G)) each row's selected heads, (B,
+    O) or (B, G, O), by a gather. `features` lists hidden dims then the
+    output dim: bin_3layer(N0, N1, N2, K) is MultiHeadMLP(N0, H, (N1, N2,
+    K)). Parameters are named as in the flax tree: fc<i>_kernel (H, in,
+    out), bn<i>, and fc<last>_bias (H, out).
+
+    A bank that parallel.tp.shard_state cut to this rank's heads (`tp` set)
+    takes its features through f (`copy_to_model`) and returns the
+    selected heads through g (`reduce_from_model`: each selected head lives
+    on one model rank, the others give zeros), or with no selection every
+    head (`gather_heads`).
     """
 
     def __init__(
@@ -132,6 +156,7 @@ class MultiHeadMLP(nn.Module):
         self.dtype = dtype
         self.output_nonlinearity = output_nonlinearity
         self.num_layers = len(features)
+        self.tp = None  # parallel.tp.HeadShard once sharded
         fan_in = in_features
         for li, out_dim in enumerate(features, start=1):
             kernel = nn.Parameter(
@@ -150,7 +175,7 @@ class MultiHeadMLP(nn.Module):
                 ))
             fan_in = out_dim
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         for li in range(1, self.num_layers + 1):
             # (B, I) @ (H, I, O) broadcasts to (H, B, O); then (H, B, I) @ (H, I, O)
@@ -164,6 +189,21 @@ class MultiHeadMLP(nn.Module):
             x.to(torch.promote_types(torch.float32, x.dtype)),
             self.output_nonlinearity,
         )
+
+    def forward(self, x: torch.Tensor, select: torch.Tensor | None = None) -> torch.Tensor:
+        shard = self.tp
+        if shard is None:
+            out = self._heads(x)
+            return out if select is None else select_heads(out, select)
+        out = self._heads(copy_to_model(x, shard))
+        if select is None:
+            return gather_heads(out, shard)
+        idx = select.to(torch.int64) - shard.lo
+        mine = (idx >= 0) & (idx < shard.local)
+        picked = select_heads(out, idx.clamp(0, shard.local - 1))
+        picked = torch.where(mine[..., None], picked, torch.zeros((), dtype=picked.dtype,
+                                                                   device=picked.device))
+        return reduce_from_model(picked, shard)
 
 
 class SharedMLP(nn.Module):
@@ -211,7 +251,7 @@ class SharedMLP(nn.Module):
             x = F.linear(x, fc.weight.to(self.dtype), bias)
             if li < self.num_layers:
                 bn = getattr(self, f"bn{li}")
-                x = torch.relu(bn(x.to(bn.weight.dtype)).to(self.dtype))
+                x = torch.relu(batch_norm(bn, x.to(bn.weight.dtype)).to(self.dtype))
         return apply_output_nonlinearity(
             x.to(torch.promote_types(torch.float32, x.dtype)),
             self.output_nonlinearity,
@@ -224,3 +264,12 @@ def select_class(per_head: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
     targets)."""
     idx = label.to(torch.int64)[:, None, None].expand(-1, 1, per_head.shape[-1])
     return torch.gather(per_head, 1, idx)[:, 0]
+
+
+def select_heads(per_head: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """(B, H, D) at head indices (B,) -> (B, D) (`select_class`), or at
+    (B, G) -> (B, G, D)."""
+    if index.ndim == 1:
+        return select_class(per_head, index)
+    idx = index.to(torch.int64)[:, :, None].expand(-1, -1, per_head.shape[-1])
+    return torch.gather(per_head, 1, idx)

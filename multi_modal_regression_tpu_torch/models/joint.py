@@ -285,8 +285,7 @@ class ElhoseinyBDModel(nn.Module):
         feat = self.feature_model(x)
         cat_logits = self.category_model(feat)
         scores = self.bin_model(feat)
-        deltas = self.res_models(feat)  # (B, K, ndim)
-        return cat_logits, scores, select_class(deltas, torch.argmax(scores, dim=-1))
+        return cat_logits, scores, self.res_models(feat, select=torch.argmax(scores, dim=-1))
 
 
 class ElhoseinyRegressionModel(nn.Module):

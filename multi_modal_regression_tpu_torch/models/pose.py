@@ -39,7 +39,6 @@ from multi_modal_regression_tpu_torch.models.heads import (
     MultiHeadMLP,
     SharedMLP,
     apply_output_nonlinearity,
-    select_class,
 )
 
 
@@ -81,7 +80,7 @@ class PerClassRegressionModel(_BackboneModel):
         self.eval()
 
     def forward(self, x: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
-        y = select_class(self.pose_models(self.feature_model(x)), label)
+        y = self.pose_models(self.feature_model(x), select=label)
         # the reference applies the nonlinearity after class selection
         # (learnGeodesicRegressionModel.py:100-105): row-wise, so equal
         return apply_output_nonlinearity(y, self.nonlinearity)
@@ -106,7 +105,7 @@ class PerClassClassificationModel(_BackboneModel):
         self.eval()
 
     def forward(self, x: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
-        return select_class(self.pose_models(self.feature_model(x)), label)
+        return self.pose_models(self.feature_model(x), select=label)
 
 
 class IndependentRegressionModel(_BackboneModel):
@@ -157,8 +156,7 @@ class IndependentBDModel(_BackboneModel):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         feat = self.feature_model(x)
         scores = self.bin_model(feat)  # (B, K)
-        deltas = self.res_models(feat)  # (B, K, ndim)
-        return scores, select_class(deltas, torch.argmax(scores, dim=-1))
+        return scores, self.res_models(feat, select=torch.argmax(scores, dim=-1))
 
 
 class CategorizationModel(_BackboneModel):
@@ -243,7 +241,7 @@ class LabelConcatDeltaPerBinModel(_LabelConcatBase):
     def forward(self, x: torch.Tensor, label: torch.Tensor):
         z = self._features(x, label)
         scores = self.bin_model(z)
-        return scores, select_class(self.res_models(z), torch.argmax(scores, dim=-1))
+        return scores, self.res_models(z, select=torch.argmax(scores, dim=-1))
 
 
 class LabelConcatRegressionModel(_LabelConcatBase):

@@ -12,7 +12,8 @@ Each compile's output (ptxas' registers, shared memory and spills per
 kernel) is kept beside the library as `<name>_<hash>.log`.
 
 The library goes to `build/torch_kernels/` at the root of the checkout
-(listed in .gitignore), named by a hash of the sources and the flags: a
+(listed in .gitignore), or where `set_build_dir` (the CLI's
+`--compile-cache`) puts it, named by a hash of the sources and the flags: a
 changed source is rebuilt, an unchanged one is loaded as it is. nvcc is
 looked up in $CUDA_HOME/bin, then /usr/local/cuda/bin, then on PATH.
 
@@ -72,6 +73,13 @@ _SIGNATURES = {
     "mmr_assign": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_longlong,
                    _I, _I, _P],
 }
+
+
+def set_build_dir(path: str | Path) -> None:
+    """Build (and look for) the kernel library in `path` from now on; a
+    library this process has loaded already stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def find_nvcc() -> str:

@@ -13,6 +13,13 @@ mean)/std: the two differ by float32 rounding only (<= 1 bf16 ulp after the
 cast). `normalize_affine_plain` repeats the kernel's own arithmetic in
 eager ops and gives its bits; the tests and chip_smoke.py hold the kernel
 to it, and the main path never calls it.
+
+The kernel is the custom op `mmr::normalize_u8` (torch.library), so
+torch.export traces it into a serving program (serving.export_inference):
+its CUDA implementation launches the kernel and counts the launch, its CPU
+implementation is the plain version, its fake implementation gives the
+output's shape and dtype. `normalize_images_cuda` checks its input and
+calls the op.
 """
 
 from __future__ import annotations
@@ -89,21 +96,26 @@ def normalize_images_cuda(
 
     On a CUDA tensor: the kernel, for dtype float32 or bfloat16; the input
     must be contiguous. On a CPU tensor: the plain version. Anything else
-    raises.
+    raises. Both go through the op `mmr::normalize_u8`.
     """
-    global launches
     if x_u8.dtype != torch.uint8 or x_u8.ndim != 4 or x_u8.shape[-1] != 3:
         raise ValueError(
             f"expected uint8 (B, H, W, 3), got {x_u8.dtype} {tuple(x_u8.shape)}"
         )
-    if x_u8.device.type == "cpu":
-        return normalize_images(x_u8, dtype)
-    if x_u8.device.type != "cuda":
+    if x_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x_u8.device}")
-    if dtype not in _OUT_BF16:
-        raise TypeError(f"the kernel writes float32 or bfloat16, not {dtype}")
-    if not x_u8.is_contiguous():
-        raise ValueError("the kernel needs a contiguous (B, H, W, 3) input")
+    if x_u8.device.type == "cuda":
+        if dtype not in _OUT_BF16:
+            raise TypeError(f"the kernel writes float32 or bfloat16, not {dtype}")
+        if not x_u8.is_contiguous():
+            raise ValueError("the kernel needs a contiguous (B, H, W, 3) input")
+    return torch.ops.mmr.normalize_u8(x_u8, dtype)
+
+
+@torch.library.custom_op("mmr::normalize_u8", mutates_args=(), device_types="cuda")
+def _normalize_u8(x_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The kernel launch (CUDA implementation of the op)."""
+    global launches
     out = torch.empty(x_u8.shape, dtype=dtype, device=x_u8.device)
     if out.numel() == 0:
         return out
@@ -115,3 +127,13 @@ def normalize_images_cuda(
     _build.check(err, "normalize kernel")
     launches += 1
     return out
+
+
+@_normalize_u8.register_kernel("cpu")
+def _(x_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return normalize_images(x_u8, dtype)
+
+
+@_normalize_u8.register_fake
+def _(x_u8: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(x_u8.shape, dtype=dtype, device=x_u8.device)

@@ -25,6 +25,13 @@ backward routes each pooled gradient exactly as max_pool2d's backward does
 and differs from the plain vjp by float32 rounding only (it multiplies by a
 and sums in float32 before the one rounding to y's dtype).
 
+The forward kernel is the custom op `mmr::stem_pool_fwd` (torch.library),
+so torch.export traces it into a serving program: its CUDA implementation
+launches the kernel and counts the launch, its CPU implementation is
+`_composite`, its fake implementation gives the channels_last output.
+Training reaches it through `_StemPool`; a call that needs no gradient
+(eval, serving, export) calls the op directly.
+
 Layout: y is a (B, C, H, W) tensor in torch.channels_last memory format —
 physically NHWC, as the trunk's conv1 writes it — with even H and W (the
 JAX kernel's contract). p and dy are channels_last too; an incoming
@@ -183,16 +190,28 @@ def _check_kernel_args(y, a, b) -> None:
 
 
 def _forward(y, a, b) -> torch.Tensor:
-    """The forward kernel on a CUDA tensor, `_composite` on a CPU tensor."""
-    global launches
-    if y.device.type == "cpu":
-        return _composite(y, a, b)
-    _check_kernel_args(y, a, b)
+    """The forward kernel on a CUDA tensor, `_composite` on a CPU tensor
+    (the op `mmr::stem_pool_fwd`)."""
+    if y.device.type == "cuda":
+        _check_kernel_args(y, a, b)
+    return torch.ops.mmr.stem_pool_fwd(y, a, b)
+
+
+def _pooled_like(y: torch.Tensor) -> torch.Tensor:
     bsz, c, h, w = y.shape
-    out = torch.empty(
-        (bsz, c, h // 2, w // 2), dtype=y.dtype, device=y.device,
-        memory_format=torch.channels_last,
-    )
+    return torch.empty((bsz, c, h // 2, w // 2), dtype=y.dtype, device=y.device,
+                       memory_format=torch.channels_last)
+
+
+@torch.library.custom_op("mmr::stem_pool_fwd", mutates_args=(), device_types="cuda")
+def _stem_pool_fwd(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The forward kernel launch (CUDA implementation of the op), on y made
+    channels_last (a no-op for the trunk's conv1 output; an exported
+    program's runtime layout is the card's)."""
+    global launches
+    y = y.contiguous(memory_format=torch.channels_last)
+    bsz, c, h, w = y.shape
+    out = _pooled_like(y)
     if out.numel() == 0:
         return out
     plan = _stem_plan(bsz, h, w, c, y.element_size(), _aligned(y, out))
@@ -204,6 +223,16 @@ def _forward(y, a, b) -> torch.Tensor:
     _build.check(err, "stem kernel")
     launches += 1
     return out
+
+
+@_stem_pool_fwd.register_kernel("cpu")
+def _(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _composite(y, a, b)
+
+
+@_stem_pool_fwd.register_fake
+def _(y: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _pooled_like(y)
 
 
 def stem_pool_bwd(
@@ -277,8 +306,13 @@ def stem_bn_relu_pool(
     h, w = y.shape[2:]
     if h % 2 or w % 2:
         raise ValueError(f"the stem kernel needs even H and W, got {h}x{w}")
-    if not y.is_contiguous(memory_format=torch.channels_last):
+    # a traced layout (torch.export) need not be the one the card gives: the
+    # op's CUDA implementation makes y channels_last, a no-op when it is
+    if not y.is_contiguous(memory_format=torch.channels_last) and \
+            not torch.compiler.is_compiling():
         raise ValueError("the stem kernel needs y in torch.channels_last")
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {y.device}")
-    return _StemPool.apply(y, a, b)
+    if torch.is_grad_enabled() and (y.requires_grad or a.requires_grad or b.requires_grad):
+        return _StemPool.apply(y, a, b)
+    return _forward(y, a, b)

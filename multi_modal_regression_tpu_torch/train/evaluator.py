@@ -145,6 +145,7 @@ class SnapshotEnsembleEvaluator:
             frozen_bn=cfg.frozen_bn,
             # the training steps' input contract: device resize and flips
             resize_to=trainer.resize_to, random_flip=cfg.train_flip,
+            mesh=trainer.mesh,  # a data-parallel fine-tune is the global batch's
         )
         # the reference fine-tune starts at step 0 with s = 0
         state = state.replace(optimizer=sgd, step=0, s=init_log_balance(trainer.device))

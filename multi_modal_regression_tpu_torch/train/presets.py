@@ -8,8 +8,8 @@ the Elhoseiny multi-task models, categorization and cat-given-pose) and
 the five ObjectNet3D presets over the label-concat models, each with the
 JAX package's overrides and comments, over a config of the JAX names and
 defaults. Every field of the JAX ExperimentConfig runs, on-device resize,
-train-time flips and remat among them, except `tensorboard`, which raises
-(TensorBoard output is not ported).
+train-time flips, remat and `tensorboard` (scalars in <workdir>/tb, written
+by utils/metrics_writer) among them.
 
 `build_model` and `build_problem` place what they build on the card
 ("cuda") unless the caller names another device, as `Trainer` does.
@@ -149,7 +149,7 @@ class ExperimentConfig:
     # on the caller's thread, then written on a background thread;
     # Trainer.wait_for_checkpoints() observes completion and failure
     checkpoint_async: bool = True
-    tensorboard: bool = False  # TensorBoard scalars: not ported, True raises
+    tensorboard: bool = False  # TensorBoard scalars in <workdir>/tb beside metrics.jsonl
     # snapshot-ensemble evaluation: the cyclical rate's endpoints and the
     # fine-tune's epochs (helperFunctions.py:64,112-118; train/evaluator.py)
     eval_alpha1: float = 1e-6

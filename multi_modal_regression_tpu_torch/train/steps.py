@@ -16,6 +16,12 @@ where `train_modes` says so. `s`, the loss and the metrics
 stay on the device; nothing in the step calls `.item()`, `float()` or
 `.cpu()`.
 
+With a data-parallel `mesh` (parallel/) each rank runs the step on its own
+rows and the step is the global batch's: BN moments over the data group,
+the loss terms that feed self-balance and the logged metrics averaged over
+it, flip and dropout masks drawn for the global batch with each rank
+keeping its rows, and one all-reduce of the gradients before the update.
+
 One eval step: the normalize kernel (or the resize and the plain
 normalize) -> the model in eval mode, whatever mode the module was left
 in -> decode.
@@ -38,6 +44,13 @@ from multi_modal_regression_tpu_torch.ops.augment import (
     flip_pose_euler,
 )
 from multi_modal_regression_tpu_torch.ops.preprocess import normalize_images_cuda
+from multi_modal_regression_tpu_torch.parallel.mesh import (
+    Mesh,
+    mean_over_data,
+    reduce_gradients,
+    syncing_bn,
+)
+from multi_modal_regression_tpu_torch.parallel.tp import param_shards
 from multi_modal_regression_tpu_torch.train.problems import Problem
 from multi_modal_regression_tpu_torch.train.state import TrainState
 
@@ -148,6 +161,7 @@ def make_train_step(
     frozen_bn: bool = False,
     resize_to: int | None = None,
     random_flip: bool = False,
+    mesh: Mesh | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build the train step (state, batch) -> (state, metrics) for
     (model, problem, optimizer, phase); the semantics of the JAX step.
@@ -197,6 +211,21 @@ def make_train_step(
     Metrics: loss, lc, lr, s (after the update) and alpha (the effective Lr
     weight after the update, as the reference logs it), all 0-d tensors on
     the device.
+
+    mesh (parallel.mesh.Mesh; None or one data rank: the one-process step):
+    the batch is this rank's rows, the same count on every rank. The step
+    is then the one-process step over the global batch whose streams are
+    the ranks' streams concatenated in rank order (with dual_stream_bn each
+    half is a stream, so the global batch is [real of every rank, render
+    of every rank]; else the whole local batch is one): every BN forward
+    (`syncing_bn`) takes the global stream's moments; the flip mask and a
+    VGG fc7's dropout are drawn for the global stream and each rank keeps
+    its block, so every rank's generator advances alike; (lc, lr) are
+    averaged over the data group for `s` and the metrics, while each rank
+    backpropagates its own rows' loss; the gradients are averaged over the
+    data group (`reduce_gradients`) before the update. On a mesh with a
+    model axis the replicated parameters' gradients (all but the bank
+    shards, parallel/tp) first take their mean over the model group.
     """
     if phase == "warmup":
         loss_pair, balance = problem.warmup_losses, problem.warmup_balance
@@ -218,6 +247,20 @@ def make_train_step(
     trained = [p for group in optimizer.param_groups for p in group["params"]]
     device = params[0].device
     fixed_alpha = torch.tensor(alpha, dtype=torch.float32, device=device)
+    dp = mesh is not None and mesh.n_data > 1
+    shards = param_shards(model)  # the Trainer shards the banks before any step is made
+    replicated = ([p for p in trained if id(p) not in shards]
+                  if mesh is not None and mesh.n_model > 1 else [])
+    streams = 2 if dual_stream_bn and not frozen_bn else 1
+
+    def draw_flips(rng, n):
+        if not dp:
+            return flip_mask(rng, n, device)
+        # the global batch's mask, each stream's rows of every rank in turn
+        per, blk = n // streams, n // streams * mesh.n_data
+        full = flip_mask(rng, blk * streams, device)
+        lo = mesh.data_rank * per
+        return torch.cat([full[s * blk + lo:s * blk + lo + per] for s in range(streams)])
 
     def forward(images, labels):
         if frozen_bn or not dual_stream_bn:
@@ -244,7 +287,7 @@ def make_train_step(
         if random_flip:
             if state.rng is None:
                 raise ValueError("random_flip needs a state with a flip generator (rng)")
-            flip = flip_mask(state.rng, euler.shape[0], euler.device)
+            flip = draw_flips(state.rng, euler.shape[0])
             euler = flip_pose_euler(euler, flip)
             images = flip_images(images, flip)
         tg = dict(problem.targets(euler_to_pose(euler, problem.ydata_type)))
@@ -253,7 +296,8 @@ def make_train_step(
         is_real = batch.get("is_real")
         tg["is_real"] = (torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
                          if is_real is None else is_real)
-        with _grads_for(params, trained), _drawing_from(drawing, state.rng):
+        with _grads_for(params, trained), _drawing_from(drawing, state.rng), \
+                syncing_bn(modules, mesh if dp else None):
             with _mode(modules, modes):
                 lc, lr = loss_pair(forward(images, labels), tg)
             if balance is None:
@@ -263,6 +307,17 @@ def make_train_step(
                 loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+        if replicated:
+            reduce_gradients(replicated, mesh, "model")
+        if dp:
+            # the global batch's terms: s and the metrics; this rank's loss
+            # above is what it backpropagated
+            lc, lr = mean_over_data(torch.stack([lc.detach(), lr.detach()]), mesh)
+            if balance is None:
+                loss = lc + alpha * lr
+            else:
+                loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
+            reduce_gradients(trained, mesh)
         optimizer.step()
         if balance is None:
             alpha_logged = fixed_alpha

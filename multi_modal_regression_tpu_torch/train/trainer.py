@@ -27,8 +27,21 @@ JAX trainer's migration). They are written with `torch.save` to
 the best headline metric, `final` by the CLI), atomically: a temporary
 file in the same directory, then `os.replace`.
 Metrics go to `<workdir>/metrics.jsonl` under the JAX package's record keys
-and the validation curve to `<workdir>/plots.npz`. The multi-host predict
-waits for `parallel/` (ROADMAP.md).
+and the validation curve to `<workdir>/plots.npz`.
+
+With a mesh of several ranks (parallel/: `mesh=`, or by default every rank
+of an initialized process group, data-parallel) every rank builds the same
+model and takes rank 0's weights; on a ('data', 'model') mesh the head
+banks are then cut to the rank's heads (parallel.tp.shard_state) before
+the optimizer is built over them. Each rank's steps run on its own rows
+(train/steps). Checkpoints are written by rank 0 alone, synchronously, in
+the one-process layout, the sharded banks and their moments gathered
+first, while the other ranks wait at a barrier; every rank restores the
+whole file and cuts its own shards, so a checkpoint moves freely between
+one process and dp x tp. Only rank 0 writes metrics and plots.npz.
+`predict` over several ranks runs each rank's test stride (the loaders'
+host_count/host_index) and gathers the rows back into the one-process
+order; a tensor-parallel mesh refuses it, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -48,6 +61,14 @@ from multi_modal_regression_tpu_torch.losses.self_balance import init_log_balanc
 from multi_modal_regression_tpu_torch.metrics.pose_error import (
     mean_class_accuracy,
     mean_class_median_error,
+)
+from multi_modal_regression_tpu_torch.parallel import tp
+from multi_modal_regression_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    barrier,
+    broadcast_module,
+    make_mesh,
 )
 from multi_modal_regression_tpu_torch.train.presets import (
     ExperimentConfig,
@@ -125,26 +146,33 @@ class Trainer:
     run on a CUDA device; a CPU device takes their plain versions).
     The model keeps float32 master weights (float64 for a float64 run) and
     computes in cfg.compute_dtype, as the JAX package does.
+    mesh: parallel.mesh.make_mesh() / parallel.tp.make_2d_mesh(); None is
+    make_mesh(device): data-parallel over an initialized process group,
+    else the one-process run.
     """
 
     def __init__(
         self, config: ExperimentConfig, dictionary=None,
         workdir: str | Path | None = None, device: torch.device | str = "cuda",
+        mesh: Mesh | None = None,
     ):
         self.config = config
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(self.device)
         self.workdir = Path(workdir) if workdir else None
         if self.workdir:
             self.workdir.mkdir(parents=True, exist_ok=True)
         self._writer = (
             MetricsWriter(self.workdir, tensorboard=config.tensorboard)
-            if self.workdir else None
+            if self.workdir and self.mesh.rank == 0 else None  # one writer a job
         )
         self.compute_dtype = resolve_compute_dtype(config.compute_dtype)
         self.model = build_model(
             config, self.device,
             param_dtype=torch.promote_types(torch.float32, self.compute_dtype),
         )
+        broadcast_module(self.model, self.mesh)
+        tp.shard_state(self.model, self.mesh)
         self.problem = build_problem(config, dictionary, self.device)
         # over the trained parameters only (cfg.train_only)
         self.optimizer = build_optimizer(config, self.model)
@@ -179,6 +207,7 @@ class Trainer:
                 frozen_bn=cfg.frozen_bn,
                 resize_to=self.resize_to,
                 random_flip=cfg.train_flip,
+                mesh=self.mesh,
             )
         return self._train_steps[key]
 
@@ -258,21 +287,39 @@ class Trainer:
         (one save in flight at a time), else before this returns."""
         if not self.workdir:
             return
+        shards = tp.param_shards(self.model)
+
+        def moments(p):  # a bank shard's moments gathered to the whole bank's
+            st = dict(state.optimizer.state.get(p, {}))
+            s = shards.get(id(p))
+            if s is not None:
+                st = {k: tp.gather_heads_tensor(v, s)
+                      if isinstance(v, torch.Tensor) and v.shape[:1] == p.shape[:1] else v
+                      for k, v in st.items()}
+            return st
+
+        # the gathers are collectives over a sharded bank's model group
+        model_sd, opt = tp.full_state_dict(state.model), [moments(p) for p in self._params()]
+        path = self._checkpoint_path(name)
+        if self.mesh.world > 1 and self.mesh.rank != 0:
+            barrier(self.mesh)  # rank 0 writes; the others wait for the file
+            return
         payload = {
-            "model": _host_copy(state.model.state_dict()),
+            "model": _host_copy(model_sd),
             # Adam's state per parameter, in the order of its param groups:
             # count, mu and nu in their own dtypes
-            "optimizer": [_host_copy(dict(state.optimizer.state.get(p, {})))
-                          for p in self._params()],
+            "optimizer": [_host_copy(st) for st in opt],
             "learning_rate": self.optimizer.param_groups[0]["lr"],
             "s": _host_copy(state.s),
             "rng": None if state.rng is None else state.rng.get_state(),
             "step": int(state.step),
             "config": dataclasses.asdict(self.config),
         }
-        path = self._checkpoint_path(name)
         self.wait_for_checkpoints()
-        if self.config.checkpoint_async:
+        if self.mesh.world > 1:
+            _write_atomic(path, payload)  # the one-process layout
+            barrier(self.mesh)
+        elif self.config.checkpoint_async:
             t = threading.Thread(
                 target=self._run_save, args=(path, payload),
                 name=f"ckpt-save-{name}", daemon=False,
@@ -307,8 +354,9 @@ class Trainer:
         payload = torch.load(
             self._checkpoint_path(name), map_location="cpu", weights_only=True
         )
-        self.model.load_state_dict(payload["model"])
+        self.model.load_state_dict(tp.slice_state_dict(self.model, payload["model"]))
         params = self._params()
+        shards = tp.param_shards(self.model)
         if len(payload["optimizer"]) != len(params):
             raise ValueError(
                 f"checkpoint {name!r} holds optimizer state for "
@@ -317,6 +365,11 @@ class Trainer:
         self.optimizer.state.clear()
         for p, st in zip(params, payload["optimizer"]):
             if st:  # torch's Optimizer.load_state_dict would cast mu to p's dtype
+                s = shards.get(id(p))
+                if s is not None:  # this rank's heads of a sharded bank
+                    st = {k: v[s.lo:s.lo + s.local]
+                          if isinstance(v, torch.Tensor) and v.shape[:1] == (s.total,) else v
+                          for k, v in st.items()}
                 self.optimizer.state[p] = {
                     k: v.to(p.device) if isinstance(v, torch.Tensor) else v
                     for k, v in st.items()
@@ -372,7 +425,9 @@ class Trainer:
                     "step": state.step, "phase": phase, **m,
                     # reference scalar name (learnGeodesicBDModel.py:187-189)
                     "train_loss": m["loss"],
-                    "images_per_sec": images_done / max(time.time() - t0, 1e-9),
+                    # the global batch's images (every data rank's rows)
+                    "images_per_sec": images_done * self.mesh.n_data
+                    / max(time.time() - t0, 1e-9),
                 }
                 print(
                     f"[{phase}] step {state.step} loss {m['loss']:.4f} "
@@ -434,7 +489,7 @@ class Trainer:
                 if (med > best) if maximize else (med < best):
                     best = med  # the best-by-headline-metric checkpoint
                     self.save_checkpoint(state, "best")
-        if self.workdir and self.val_history:
+        if self.workdir and self.val_history and self.mesh.rank == 0:
             # validation-curve history (the reference's plots/<S>.mat,
             # learnGeodesicBDModel.py:257-258)
             np.savez(self.workdir / "plots.npz", val_loss=np.asarray(self.val_history))
@@ -447,9 +502,20 @@ class Trainer:
         """(ytrue, ypred, labels) on the host over the whole test set, the
         padded rows (`valid` False) dropped. The model runs in eval mode.
         Float outputs come back in at least float32; class ids (the category
-        problem's decode) as int32."""
+        problem's decode) as int32.
+
+        Over several ranks: each rank runs its own test stride (a loader
+        built with host_count = world, host_index = rank), the ranks gather
+        each other's rows, and the rows come back in the one-process order
+        where the loader strides images (`_ids`: TestLoader and its packed
+        form; crop-level loaders keep rank order, which the metrics do not
+        see). Every rank returns the whole set."""
         if state.model is not self.model:
             raise ValueError("the state holds another model than this trainer")
+        if self.mesh.world > 1 and self.mesh.n_model > 1:
+            raise NotImplementedError(
+                "multi-host predict needs replicated params; run predict on a "
+                "data-parallel mesh (tp checkpoints restore fine on one host)")
         preds, trues, labels = [], [], []
         for batch in test_loader:
             valid = np.asarray(batch["valid"], bool)
@@ -459,7 +525,36 @@ class Trainer:
                     y = y.to(torch.promote_types(torch.float32, y.dtype))
                 out.append(y.cpu().numpy()[valid])
             labels.append(np.asarray(batch["label"])[valid])
-        return np.concatenate(trues), np.concatenate(preds), np.concatenate(labels)
+        if self.mesh.world == 1:
+            return np.concatenate(trues), np.concatenate(preds), np.concatenate(labels)
+        return self._gather_predictions(trues, preds, labels, test_loader)
+
+    def _gather_predictions(self, trues, preds, labels, test_loader):
+        """Every rank's predict rows, in the one-process order when the
+        loader's stride can be inverted (the JAX `_predict_multihost`)."""
+        dims = 4 if self.problem.ydata_type == "quaternion" else 3
+        fdtype = np.float64 if self.compute_dtype == torch.float64 else np.float32
+        category = self.problem.metric == "category_accuracy"
+
+        def cat(parts, shape, dtype):
+            return np.concatenate(parts) if parts else np.zeros(shape, dtype)
+
+        local = {"ytrue": cat(trues, (0, dims), fdtype),
+                 "ypred": cat(preds, (0,) if category else (0, dims),
+                              np.int32 if category else fdtype),
+                 "label": cat(labels, (0,), np.int32)}
+        local["rank"] = np.full(len(local["label"]), self.mesh.rank, np.int32)
+        out = all_gather_rows(local, self.mesh)
+        n_total, world = len(out["label"]), self.mesh.world
+        counts = np.bincount(out.pop("rank"), minlength=world)
+        # a rank p holds images p::world in order, its padded rows dropped;
+        # a loader that strides otherwise keeps the rank order
+        if hasattr(test_loader, "_ids") and all(
+                counts[p] == len(range(p, n_total, world)) for p in range(world)):
+            gids = np.concatenate([np.arange(p, n_total, world) for p in range(world)])
+            order = np.argsort(gids, kind="stable")
+            out = {k: v[order] for k, v in out.items()}
+        return out["ytrue"], out["ypred"], out["label"].astype(np.int32)
 
     def metric_label(self, value: float) -> str:
         """The headline metric as printed: 'MedErr 12.345 deg', or 'Acc

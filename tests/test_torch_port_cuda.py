@@ -1302,3 +1302,109 @@ def test_flip_step_repeats_on_the_card(dev, monkeypatch):
     assert 0 < int(torch.cat(m0).sum()) < 24
     for k, v in sd0.items():
         assert torch.equal(v, sd1[k]), k
+
+
+# --- the ops under torch.library, the export, profiling, process groups -------------
+
+
+def test_custom_ops_launch_their_kernels(dev):
+    """mmr::normalize_u8 and mmr::stem_pool_fwd on CUDA tensors launch the
+    kernels (one count each) and give the wrappers' bits."""
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 16, 16, 3),
+                                                           np.uint8)).to(dev)
+    c0 = preprocess.launches
+    got = torch.ops.mmr.normalize_u8(x, torch.bfloat16)
+    assert preprocess.launches == c0 + 1
+    assert torch.equal(got, preprocess.normalize_images_cuda(x, torch.bfloat16))
+    y = torch.randn(2, 8, 6, 6, device=dev).contiguous(memory_format=torch.channels_last)
+    a, b = torch.rand(8, device=dev) + 0.5, torch.randn(8, device=dev)
+    s0 = stem_pool.launches
+    p = torch.ops.mmr.stem_pool_fwd(y, a, b)
+    assert stem_pool.launches == s0 + 1
+    assert torch.equal(p, stem_pool._composite(y, a, b))
+
+
+@pytest.mark.parametrize("image_size", [None, 48])
+def test_export_serves_on_the_card(dev, tmp_path, image_size):
+    """export_inference of a small bf16 model with the stem kernel on the
+    card, saved and loaded: 1 normalize and 1 stem launch a request (0
+    normalize with the resize in the program), requests of 5 and 8 equal to
+    make_inference_fn's (the same ops on the same card)."""
+    from multi_modal_regression_tpu_torch.serving import (
+        export_inference,
+        load_inference,
+        save_inference,
+    )
+
+    cfg = get_config("geodesic_bd", feature_network="resnet18", feature_layer="layer2",
+                     N0=128, N1=16, N2=8, num_classes=3, dict_size=8, image_size=32,
+                     compute_dtype="bfloat16", stem_pool="kernel")
+    centers = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    t = Trainer(cfg, dictionary=centers, device=dev)
+    save_inference(tmp_path / "p.pt2", export_inference(t, "dynamic", image_size=image_size))
+    fn = load_inference(tmp_path / "p.pt2")
+    ref = make_inference_fn(t.model, t.problem, resize_to=32 if image_size else None)
+    rng = np.random.default_rng(2)
+    for n in (5, 8):
+        x = rng.integers(0, 256, (n, image_size or 32, image_size or 32, 3), np.uint8)
+        lab = (np.arange(n) % 3).astype(np.int32)
+        c0, s0 = preprocess.launches, stem_pool.launches
+        got = fn(x, lab)
+        torch.cuda.synchronize()
+        assert (preprocess.launches - c0, stem_pool.launches - s0) == (
+            (0, 1) if image_size else (1, 1))
+        assert got.device.type == "cuda" and torch.equal(got, ref(x, lab))
+
+
+def test_profile_trace_names_the_kernels_on_the_card(dev, tmp_path):
+    """profile_trace over 2 train steps on the card: the trace names the ops
+    and, where the profiler records device kernels, the normalize and stem
+    kernels."""
+    import json
+
+    from multi_modal_regression_tpu_torch.utils.profiling import profile_trace
+
+    cfg = get_config("geodesic_bd", **_SMALL_CARD, feature_network="resnet18",
+                     feature_layer="layer2", N0=128, num_classes=3, dict_size=8,
+                     compute_dtype="bfloat16", stem_pool="kernel")
+    centers = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    t = Trainer(cfg, dictionary=centers, device=dev)
+    batch = {**_card_batches(4, 6, 3)[0], "is_real": np.arange(6) < 3}
+    batch = t._to_device(batch)
+    step, state = t.train_step_fn("main", dual_stream=True), t.init_state()
+    with profile_trace(tmp_path):
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    (trace,) = tmp_path.glob("trace_*.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert {"mmr::normalize_u8", "mmr::stem_pool_fwd"} <= names
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if kernels:
+        for k in ("normalize_u8_kernel", "stem_fwd_kernel", "stem_bwd_kernel"):
+            assert any(k in n for n in kernels), k
+
+
+def test_world_one_nccl_group_on_the_card(dev):
+    """initialize(device='cuda') for a world of one takes NCCL (one rank, one
+    card), puts the rank on cuda:0, all-reduces on the card and leaves."""
+    import socket
+
+    import torch.distributed as dist
+
+    from multi_modal_regression_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert multihost.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda") == (1, 0)
+    try:
+        assert dist.get_backend() == "nccl" and multihost.local_device() == dev
+        t = torch.full((3,), 2.0, device=dev)
+        dist.all_reduce(t)
+        assert torch.equal(t, torch.full((3,), 2.0, device=dev))
+        assert multihost.choose_backend("cuda", torch.cuda.device_count() + 1) == "gloo"
+    finally:
+        multihost.shutdown()
+    assert not dist.is_initialized()

@@ -399,11 +399,57 @@ def test_cli_predict(trained, protocol):
     ("verify-parity", ["--compile-cache", "off"]), ("evaluate", ["--distributed"]),
     ("predict", ["--coordinator-address", "localhost:1"]), ("pack", ["--compile-cache", "off"]),
 ], ids=lambda f: f if isinstance(f, str) else f[0])
-def test_cli_refuses_what_is_not_ported(cli_tree, cmd, flag):
-    """Multi-host runs and the compile cache (of the gate too) raise
-    NotImplementedError naming ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP.md\)"):
-        cli.main(_args(cmd, cli_tree, *flag))
+def test_cli_takes_what_it_once_refused(trained, monkeypatch, cmd, flag):
+    """The flags that raised before they were ported now run. `--compile-cache
+    off` (the gate's, pack's) builds the kernel library into a fresh
+    temporary directory of the process: pack runs whole, the gate up to its
+    first stage. `evaluate --distributed` (torchrun's variables for a world
+    of one) and `predict --distributed --coordinator-address` (the explicit
+    address, process count and id) join a gloo process group, run, print
+    their results (predict within 1e-3 deg of train's final MedErr) and
+    leave the group."""
+    import socket
+    import torch.distributed as dist
+
+    from multi_modal_regression_tpu_torch.ops import _build
+    from multi_modal_regression_tpu_torch.tools import parity
+
+    root, med, _ = trained
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    default = _build.BUILD_DIR
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if cmd == "predict":
+        flag = ["--distributed", flag[0], f"127.0.0.1:{port}", "--num-processes", "1",
+                "--process-id", "0", "--checkpoint", "final"]
+    elif cmd == "evaluate":
+        for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)),
+                     ("WORLD_SIZE", "1"), ("RANK", "0")):
+            monkeypatch.setenv(k, v)
+        flag = [*flag, "--checkpoint", "final", "--eval-num-epochs", "1"]
+    elif cmd == "verify-parity":
+        class Reached(Exception):
+            pass
+
+        def gate(*a, **k):
+            raise Reached(_build.BUILD_DIR)
+
+        monkeypatch.setattr(parity, "run_parity_gate", gate)
+        with pytest.raises(Reached) as e:
+            cli.main(_args(cmd, root, *flag))
+        assert e.value.args[0] != default and e.value.args[0].name.startswith("mmr_kernels_")
+        return
+    out = _run(_args(cmd, root, *flag))
+    assert not dist.is_initialized()
+    if cmd == "pack":
+        assert _build.BUILD_DIR != default and _build.BUILD_DIR.name.startswith("mmr_kernels_")
+        assert "packed test" in out
+    elif cmd == "evaluate":
+        assert "distributed: process 0/1 on cpu" in out and "ensembled MedErr" in out
+    else:
+        assert "distributed: process 0/1 on cpu" in out
+        assert abs(float(out.split("MedErr ")[-1]) - med) <= 1e-3
 
 
 def test_cli_new_commands_default_to_the_card():

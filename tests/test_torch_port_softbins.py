@@ -429,4 +429,4 @@ def test_new_modules_import_without_jax():
     res = subprocess.run([sys.executable, "-m", f"{pkg}.cli", "dictionary", "--help"], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "--device" in res.stdout, res.stderr
-    assert "--compile-cache" not in res.stdout
+    assert "--compile-cache" in res.stdout  # the kernel library's directory

@@ -548,12 +548,17 @@ def test_unported_settings_raise(setting):
 
 
 def test_trainer_refuses_what_it_does_not_do(jax_side, tmp_path):
-    """TensorBoard output (not ported), a test batch of out-of-range labels,
-    mismatched stream halves, a state of another model, and a bad optimizer
-    dtype raise; the interleave carries the is_real mask."""
+    """A test batch of out-of-range labels, mismatched stream halves, a
+    state of another model, and a bad optimizer dtype raise; the
+    interleave carries the is_real mask. TensorBoard output, which raised
+    before it was ported, writes its event file beside metrics.jsonl."""
+    from multi_modal_regression_tpu_torch.utils.metrics_writer import read_scalars
+
     cfg = get_config("geodesic_bd", **SMALL, tensorboard=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(cfg, dictionary=_centers(), workdir=tmp_path, device="cpu")
+    tb = Trainer(cfg, dictionary=_centers(), workdir=tmp_path, device="cpu")
+    tb._log({"step": 2, "loss": 0.5})
+    (events,) = (tmp_path / "tb").glob("events.out.tfevents.*")
+    assert read_scalars(events) == [("loss", 2, 0.5)]
     with pytest.raises(ValueError, match="optimizer_dtype"):
         get_config("geodesic_bd", optimizer_dtype="float16")
     port = _port_trainer(jax_side[1])

@@ -382,12 +382,35 @@ def test_cli_train_refuses_mismatched_classes(cli_tree, tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--coordinator-address", "localhost:1"], ["--distributed"], ["--compile-cache", "off"],
 ], ids=lambda f: f[0])
-def test_cli_train_refuses_what_is_not_ported(cli_tree, tmp_path, flag):
-    """Each flag whose machinery is not ported raises NotImplementedError
-    before anything is built."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(_cli_args(cli_tree, "--workdir", str(tmp_path / "run"), *flag))
-    assert not (tmp_path / "run").exists()
+def test_cli_train_takes_what_it_once_refused(cli_tree, tmp_path, monkeypatch, flag):
+    """The flags that raised before they were ported now train: with
+    `--distributed` and an explicit `--coordinator-address` (or torchrun's
+    variables) a world of one joins a gloo process group, trains, writes
+    its checkpoints and leaves the group; `--compile-cache off` builds the
+    kernel library into a temporary directory of the process."""
+    import socket
+    import torch.distributed as dist
+
+    from multi_modal_regression_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    default = _build.BUILD_DIR
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if flag[0] == "--coordinator-address":
+        flag = ["--distributed", flag[0], f"127.0.0.1:{port}", "--num-processes", "1",
+                "--process-id", "0"]
+    elif flag[0] == "--distributed":
+        for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)),
+                     ("WORLD_SIZE", "1"), ("RANK", "0")):
+            monkeypatch.setenv(k, v)
+    wd = tmp_path / "run"
+    assert cli.main(_cli_args(cli_tree, "--workdir", str(wd), "--num-epochs", "1", *flag)) == 0
+    assert not dist.is_initialized()
+    assert torch.load(wd / "checkpoints" / "final", weights_only=True)["step"] == 4
+    if flag[0] == "--compile-cache":
+        assert _build.BUILD_DIR != default and _build.BUILD_DIR.name.startswith("mmr_kernels_")
 
 
 @pytest.mark.parametrize("flag,field,value", [
