@@ -47,7 +47,7 @@ parallel    `multihost.initialize` (torch.distributed process groups), the
             data-parallel `Mesh` (global BN statistics, gradient means),
             `tp` (head banks split over a model axis, Megatron's f and g)
 utils       `MetricsWriter` (metrics.jsonl, TensorBoard event files),
-            `profiling` (`profile_trace`, `StepTimer`)
+            `profiling` (`profile_trace`, the program's `span`s)
 cli         `python -m multi_modal_regression_tpu_torch.cli` train, pack,
             evaluate, predict, dictionary, prepare-data,
             prepare-detections, evaluate-detections, verify-parity;

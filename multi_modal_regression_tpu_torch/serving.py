@@ -21,20 +21,23 @@ kernels are in it as the custom ops `mmr::normalize_u8` and
   fn = load_inference("pose.pt2")                       # no model code
   poses = fn(images_uint8, labels)
 
-Loading imports only the port's `ops` (which registers the ops) and builds
-no model; the loaded callable checks the labels on the host, outside the
-program, as `make_inference_fn` does.
+Loading imports only the port's `ops` (which registers the ops) and
+`utils.profiling`, and builds no model; the loaded callable checks the
+labels on the host, outside the program, as `make_inference_fn` does.
 """
 
 from __future__ import annotations
 
 import io
+import itertools
 import json
 from pathlib import Path
 from typing import Callable
 
 import torch
 from torch import nn
+
+from multi_modal_regression_tpu_torch.utils.profiling import span
 
 _META = "mmr_inference.json"  # the extra file of a saved program
 
@@ -75,7 +78,9 @@ def make_inference_fn(
     another size are resized to it on the device first (then the plain
     normalize, no kernel), as the JAX package's make_inference_fn does. Labels
     given on the host are range-checked there; labels already on the device
-    are not (an out-of-range label then fails in the gather).
+    are not (an out-of-range label then fails in the gather). Each call is
+    a span `mmr.serve.request#<n>` (n from 1) holding `mmr.serve.h2d` and
+    `mmr.serve.model` (utils/profiling).
     """
     from multi_modal_regression_tpu_torch.train.steps import make_eval_step
 
@@ -83,12 +88,17 @@ def make_inference_fn(
     eval_step = make_eval_step(model, problem, resize_to=resize_to,
                                compute_dtype=compute_dtype or _trunk_dtype(model))
 
+    requests = itertools.count(1)
+
     def infer(images, labels) -> torch.Tensor:
-        images = torch.as_tensor(images)
-        labels = torch.as_tensor(labels)
-        _check_labels(images, labels, model.num_classes)
-        batch = {"xdata": images.to(device), "label": labels.to(device)}
-        ypred, _ = eval_step(batch)
+        with span("mmr.serve.request", next(requests)):
+            with span("mmr.serve.h2d"):
+                images = torch.as_tensor(images)
+                labels = torch.as_tensor(labels)
+                _check_labels(images, labels, model.num_classes)
+                batch = {"xdata": images.to(device), "label": labels.to(device)}
+            with span("mmr.serve.model"):
+                ypred, _ = eval_step(batch)
         return ypred
 
     return infer

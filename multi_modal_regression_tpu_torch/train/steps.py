@@ -53,6 +53,7 @@ from multi_modal_regression_tpu_torch.parallel.mesh import (
 from multi_modal_regression_tpu_torch.parallel.tp import param_shards
 from multi_modal_regression_tpu_torch.train.problems import Problem
 from multi_modal_regression_tpu_torch.train.state import TrainState
+from multi_modal_regression_tpu_torch.utils.profiling import span
 
 
 def _preprocess(
@@ -282,43 +283,46 @@ def make_train_step(
     def train_step(state: TrainState, batch: dict):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this step")
-        images = _preprocess(batch, resize_to, compute_dtype)
-        euler = batch["euler"]
-        if random_flip:
-            if state.rng is None:
-                raise ValueError("random_flip needs a state with a flip generator (rng)")
-            flip = draw_flips(state.rng, euler.shape[0])
-            euler = flip_pose_euler(euler, flip)
-            images = flip_images(images, flip)
-        tg = dict(problem.targets(euler_to_pose(euler, problem.ydata_type)))
-        labels = batch["label"]
-        tg["class_label"] = labels
-        is_real = batch.get("is_real")
-        tg["is_real"] = (torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
-                         if is_real is None else is_real)
         with _grads_for(params, trained), _drawing_from(drawing, state.rng), \
                 syncing_bn(modules, mesh if dp else None):
-            with _mode(modules, modes):
-                lc, lr = loss_pair(forward(images, labels), tg)
-            if balance is None:
-                lc, lr = loss_scale * lc, loss_scale * lr
-                loss, s_next = lc + alpha * lr, state.s
-            else:
-                loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        if replicated:
-            reduce_gradients(replicated, mesh, "model")
-        if dp:
-            # the global batch's terms: s and the metrics; this rank's loss
-            # above is what it backpropagated
-            lc, lr = mean_over_data(torch.stack([lc.detach(), lr.detach()]), mesh)
-            if balance is None:
-                loss = lc + alpha * lr
-            else:
-                loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
-            reduce_gradients(trained, mesh)
-        optimizer.step()
+            with span("mmr.train.forward"):
+                images = _preprocess(batch, resize_to, compute_dtype)
+                euler = batch["euler"]
+                if random_flip:
+                    if state.rng is None:
+                        raise ValueError("random_flip needs a state with a flip generator (rng)")
+                    flip = draw_flips(state.rng, euler.shape[0])
+                    euler = flip_pose_euler(euler, flip)
+                    images = flip_images(images, flip)
+                tg = dict(problem.targets(euler_to_pose(euler, problem.ydata_type)))
+                labels = batch["label"]
+                tg["class_label"] = labels
+                is_real = batch.get("is_real")
+                tg["is_real"] = (torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+                                 if is_real is None else is_real)
+                with _mode(modules, modes):
+                    lc, lr = loss_pair(forward(images, labels), tg)
+                if balance is None:
+                    lc, lr = loss_scale * lc, loss_scale * lr
+                    loss, s_next = lc + alpha * lr, state.s
+                else:
+                    loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
+            with span("mmr.train.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+        with span("mmr.train.optimizer"):
+            if replicated:
+                reduce_gradients(replicated, mesh, "model")
+            if dp:
+                # the global batch's terms: s and the metrics; this rank's loss
+                # above is what it backpropagated
+                lc, lr = mean_over_data(torch.stack([lc.detach(), lr.detach()]), mesh)
+                if balance is None:
+                    loss = lc + alpha * lr
+                else:
+                    loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
+                reduce_gradients(trained, mesh)
+            optimizer.step()
         if balance is None:
             alpha_logged = fixed_alpha
         elif balance == "warmup":

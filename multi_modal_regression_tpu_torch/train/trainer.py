@@ -86,6 +86,7 @@ from multi_modal_regression_tpu_torch.train.steps import (
     validate_dual_stream_layout,
 )
 from multi_modal_regression_tpu_torch.utils.metrics_writer import MetricsWriter
+from multi_modal_regression_tpu_torch.utils.profiling import span
 
 _METRIC_KEYS = ("loss", "lc", "lr", "s", "alpha")
 # the batch entries that cross to the device (`valid` stays on the host;
@@ -405,47 +406,65 @@ class Trainer:
         1, log_every, 2*log_every, ... are logged: one device-to-host fetch
         of the step's metrics each, printed, appended to self.history with
         the learning rate the step ran at, and written to metrics.jsonl; no
-        other step waits for the device."""
+        other step waits for the device. A record's `images_per_sec` is the
+        images of the steps since the previous fetch that waited for the
+        device (a logged step's, an evaluation's, or the pass's start) over
+        the time since it. Each iteration is a span `mmr.train.step#<n>`
+        (utils/profiling) holding its batch wait, H2D, the step's spans
+        and a logged step's fetch; the pass's last wait, which finds the
+        loaders empty, is a step span of its own."""
         cfg = self.config
         # frozen_bn has no batch statistics, so there is nothing to split
         use_dual = render_loader is not None and cfg.bn_per_stream and not cfg.frozen_bn
         step_fn = self.train_step_fn(phase, dual_stream=use_dual)
-        n_steps = images_done = 0
-        t0 = time.time()
-        for batch in _interleave(real_loader, render_loader):
-            if use_dual:
-                validate_dual_stream_layout(batch)
-            state, metrics = step_fn(state, self._to_device(batch))
-            n_steps += 1
-            images_done += len(batch["label"])
-            if n_steps % log_every == 0 or n_steps == 1:
-                values = torch.stack([metrics[k] for k in _METRIC_KEYS]).tolist()
-                m = dict(zip(_METRIC_KEYS, values))
-                rec = {
-                    "step": state.step, "phase": phase, **m,
-                    # reference scalar name (learnGeodesicBDModel.py:187-189)
-                    "train_loss": m["loss"],
-                    # the global batch's images (every data rank's rows)
-                    "images_per_sec": images_done * self.mesh.n_data
-                    / max(time.time() - t0, 1e-9),
-                }
-                print(
-                    f"[{phase}] step {state.step} loss {m['loss']:.4f} "
-                    f"lc {m['lc']:.4f} lr {m['lr']:.4f} "
-                    f"({rec['images_per_sec']:.1f} img/s)",
-                    flush=True,
-                )
-                self._log(rec)
-                self.history.append(
-                    {**rec, "learning_rate": self.optimizer.param_groups[0]["lr"]}
-                )
-            if test_loader is not None and cfg.eval_every and n_steps % cfg.eval_every == 0:
-                med = self.evaluate(state, test_loader)
-                print(f"[{phase}] step {state.step} {self.metric_label(med)}", flush=True)
-                self._log({"step": state.step, "med_err": med, "val_loss": med})
-                self.val_history.append(med)
-            if cfg.max_iterations and n_steps >= cfg.max_iterations:
-                break
+        batches = _interleave(real_loader, render_loader)
+        n_steps = images_since = 0
+        since = time.perf_counter()
+        while True:
+            with span("mmr.train.step", state.step + 1):
+                with span("mmr.train.batch_wait"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                if use_dual:
+                    validate_dual_stream_layout(batch)
+                with span("mmr.train.h2d"):
+                    device_batch = self._to_device(batch)
+                state, metrics = step_fn(state, device_batch)
+                n_steps += 1
+                images_since += len(batch["label"])
+                if n_steps % log_every == 0 or n_steps == 1:
+                    with span("mmr.train.log_fetch"):
+                        values = torch.stack([metrics[k] for k in _METRIC_KEYS]).tolist()
+                    now = time.perf_counter()
+                    m = dict(zip(_METRIC_KEYS, values))
+                    rec = {
+                        "step": state.step, "phase": phase, **m,
+                        # reference scalar name (learnGeodesicBDModel.py:187-189)
+                        "train_loss": m["loss"],
+                        # the global batch's images (every data rank's rows)
+                        "images_per_sec": images_since * self.mesh.n_data
+                        / max(now - since, 1e-9),
+                    }
+                    images_since, since = 0, now
+                    print(
+                        f"[{phase}] step {state.step} loss {m['loss']:.4f} "
+                        f"lc {m['lc']:.4f} lr {m['lr']:.4f} "
+                        f"({rec['images_per_sec']:.1f} img/s)",
+                        flush=True,
+                    )
+                    self._log(rec)
+                    self.history.append(
+                        {**rec, "learning_rate": self.optimizer.param_groups[0]["lr"]}
+                    )
+                if test_loader is not None and cfg.eval_every and n_steps % cfg.eval_every == 0:
+                    med = self.evaluate(state, test_loader)
+                    print(f"[{phase}] step {state.step} {self.metric_label(med)}", flush=True)
+                    self._log({"step": state.step, "med_err": med, "val_loss": med})
+                    self.val_history.append(med)
+                    images_since, since = 0, time.perf_counter()
+                if cfg.max_iterations and n_steps >= cfg.max_iterations:
+                    break
         return state
 
     def fit(

@@ -1,2 +1,2 @@
 """Metric sinks (utils/metrics_writer.py: metrics.jsonl, TensorBoard event
-files) and profiling (utils/profiling.py: profile_trace, StepTimer)."""
+files) and profiling (utils/profiling.py: profile_trace, span)."""

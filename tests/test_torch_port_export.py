@@ -40,7 +40,7 @@ from multi_modal_regression_tpu_torch.serving import (
 from multi_modal_regression_tpu_torch.train.presets import get_config
 from multi_modal_regression_tpu_torch.train.trainer import Trainer
 from multi_modal_regression_tpu_torch.utils.metrics_writer import MetricsWriter, read_scalars
-from multi_modal_regression_tpu_torch.utils.profiling import StepTimer, profile_trace
+from multi_modal_regression_tpu_torch.utils.profiling import profile_trace, span
 
 from test_torch_port_ops import one_torch_thread, randomize_batch_stats  # noqa: F401
 
@@ -227,10 +227,11 @@ def test_trainer_writes_tensorboard(tmp_path):
     assert read_scalars(path) == [("loss", 3, 1.5), ("med_err", 3, 20.0)]
 
 
-def test_profile_trace_and_step_timer(pair, tmp_path):
+def test_profile_trace_writes_the_kernels_and_the_step_spans(pair, tmp_path):
     """profile_trace over 3 train steps writes a Chrome trace naming the
-    kernels' ops; enabled=False writes none; StepTimer's rate is the items
-    after the first stamp over the window's time."""
+    kernels' ops and, 3 times each, the step's forward, backward and
+    optimizer spans, the kernels' ops inside the forward; enabled=False
+    writes none, and a span there is the shared no-op."""
     import json
 
     _, _, port = pair
@@ -240,20 +241,25 @@ def test_profile_trace_and_step_timer(pair, tmp_path):
              "is_real": torch.arange(6) < 3}
     step = port.train_step_fn("main", dual_stream=True)
     state = port.init_state()
-    timer = StepTimer(window=2)
     with profile_trace(tmp_path / "prof") as prof:
         for _ in range(3):
             state, _ = step(state, batch)
-            timer.update(6)
     (trace,) = (tmp_path / "prof").glob("trace_*.json")
-    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
-    assert {"mmr::normalize_u8", "mmr::stem_pool_fwd"} <= names
-    assert prof is not None and timer.items_per_sec > 0
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e.get("ph") == "X"]
+    names = [e["name"] for e in events]
+    assert {"mmr::normalize_u8", "mmr::stem_pool_fwd"} <= set(names)
+    for layer in ("forward", "backward", "optimizer"):
+        assert names.count(f"mmr.train.{layer}") == 3
+    fwd = [e for e in events if e["name"] == "mmr.train.forward"]
+    for e in events:
+        if e["name"] in ("mmr::normalize_u8", "mmr::stem_pool_fwd"):
+            assert any(f["ts"] <= e["ts"] and e["ts"] + e["dur"] <= f["ts"] + f["dur"]
+                       for f in fwd), e
+    assert prof is not None
     with profile_trace(tmp_path / "off", enabled=False) as off:
         assert off is None
+        assert span("mmr.train.forward") is span("mmr.train.step", 1)
     assert not (tmp_path / "off").exists()
-    t = StepTimer()
-    assert t.items_per_sec == 0.0
 
 
 @pytest.mark.parametrize("choice", ["dir", "off", "unwritable"])
