@@ -46,8 +46,12 @@ line each (or more), in order:
   5  training: Trainer.fit of the full-width geodesic_bd preset (bf16,
      stem_pool='kernel', dual loaders of 4 items x 12 classes = 96 images a
      step, Adam) for 2 warm-up + 2 main steps; exactly 1 normalize, 2 stem
-     forward and 2 stem backward launches per step; finite metrics, s moving,
-     every BN's running statistics moved; the same 4 steps through the plain
+     forward, 2 stem backward and 1 Adam launches per step (the Adam kernel
+     counted in every Trainer run of [5]-[16] likewise); finite metrics, s
+     moving, every BN's running statistics moved; the Adam kernel on the
+     fit's last state (`adam_record`: its gradients and moments, 85.95 M
+     parameters) bit-equal in p, mu, nu to the foreach passes, and timed
+     against them, torch._fused_adam_ and its bound; the same 4 steps through the plain
      path (plain normalize, stem_pool='plain') from the same weights within
      TRAIN_TOL; host-clock step time in interleaved pairs, img/s and peak
      memory; then one f32 step with TF32 off and SGD(lr=1), stem kernels vs
@@ -169,7 +173,8 @@ line each (or more), in order:
      through the plain path from the same weights within TRAIN_TOL, then
      one 64-image request served from the trained model through
      make_inference_fn against the plain path within SERVE_RTOL;
-     geodesic_bd_multires' peak memory, its head bank's per-forward bf16
+     geodesic_bd_multires' peak memory, [5]'s `adam_record` on its state
+     (548.0 M parameters), its head bank's per-forward bf16
      cast and product (CUDA events), and its main step against [5]'s
      geodesic_bd step in 5 interleaved pairs (host clock); `cli train
      --preset geodesic_bd_quaternion` and `--preset geodesic_regression`
@@ -268,7 +273,8 @@ line each (or more), in order:
      trace holds device kernels, the kernels
   9  one JSON line of the kernels (times, plain times and the bound of each:
      the larger of bytes moved over 3.35 TB/s and operations over the peak
-     rate of their type; `zoo_launches` their launches in [13],
+     rate of their type; Adam's as [5] and, under `multires_`, as [13]
+     gives them for geodesic_bd_multires; `zoo_launches` their launches in [13],
      `joint_launches` in [14], `objectnet_launches` in [15]; in [16]
      `dp_rank_launches`, `dp_fused_rank_launches`, `tp_rank_launches` a
      rank and `export_request_launches` a request), then the result line
@@ -328,6 +334,7 @@ from multi_modal_regression_tpu_torch.models import surgery  # noqa: E402
 from multi_modal_regression_tpu_torch.models.heads import HeadBatchNorm  # noqa: E402
 from multi_modal_regression_tpu_torch.ops import (  # noqa: E402
     _build,
+    adam,
     assign,
     fused_conv_bn,
     preprocess,
@@ -349,6 +356,7 @@ from multi_modal_regression_tpu_torch.tools.time_fused import (  # noqa: E402
     REPS,
     cuda_ms,
     fused_inputs,
+    host_ms,
 )
 from multi_modal_regression_tpu_torch.train import steps  # noqa: E402
 from multi_modal_regression_tpu_torch.train.analysis import run_joint_analysis  # noqa: E402
@@ -427,6 +435,9 @@ FUSED_TRAIN_TOL = 0.2
 # H100 SXM peaks for the bounds: HBM bytes/s, dense bf16 tensor FLOP/s,
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+# ~50 ms at the H100's clocks: the card's sleep before a timed Adam update,
+# longer than the host takes to enqueue one (the foreach passes: ~11-20 ms)
+ADAM_SLEEP_CYCLES = 100_000_000
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
@@ -1277,13 +1288,15 @@ def phase_train(dev, dictionary) -> dict:
     state = kern.fit(kern.init_state(), real, render, log_every=1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {k: v for k, v in read_counts().items() if v}
+    launches = {k: v for k, v in read_train_counts().items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = state.step
     print(f"[5] fit: {n} steps in {fit_s:.2f} s (first steps included); launches {launches}; "
           f"peak device memory {peak:.2f} GiB")
-    if n != 4 or launches != {"normalize": n, "stem_pool": 2 * n, "stem_pool_bwd": 2 * n}:
-        raise AssertionError("expected 4 steps of 1 normalize, 2 stem, 2 stem bwd launches")
+    if n != 4 or launches != {"normalize": n, "stem_pool": 2 * n, "stem_pool_bwd": 2 * n,
+                              "adam": n}:
+        raise AssertionError("expected 4 steps of 1 normalize, 2 stem, 2 stem bwd, 1 Adam "
+                             "launches")
     keys = ("loss", "lc", "lr", "s", "alpha")
     hist = kern.history
     for rec in hist:
@@ -1296,6 +1309,7 @@ def phase_train(dev, dictionary) -> dict:
     if stuck:
         raise AssertionError(f"running statistics that did not move: {stuck[:5]}")
     print(f"[5] metrics finite at every step, s moving, all {len(before)} running statistics moved")
+    adam_rec = adam_record("5", kern, dev)
 
     # the same 4 steps through the plain path, from the same weights
     plain = Trainer(cfg.replace(stem_pool="plain"), dictionary=dictionary, device=dev)
@@ -1389,14 +1403,15 @@ def phase_train(dev, dictionary) -> dict:
     if not (loss_err <= 1e-4 and worst_err <= 1e-3):
         raise AssertionError("f32 kernel-path gradients differ from the plain path")
     return {"launches": launches, "img_s": n_img / med_k, "plain_img_s": n_img / med_p,
-            "img_s_iqr": (n_img / np.percentile(t_k, 75), n_img / np.percentile(t_k, 25))}
+            "img_s_iqr": (n_img / np.percentile(t_k, 75), n_img / np.percentile(t_k, 25)),
+            "adam": adam_rec}
 
 
 FUSED_COUNTERS = ("mm_launches", "mm_bwd_launches", "c3_launches", "c3_bwd_launches")
 
 
 def reset_counts() -> None:
-    preprocess.launches = stem_pool.launches = stem_pool.bwd_launches = 0
+    preprocess.launches = stem_pool.launches = stem_pool.bwd_launches = adam.launches = 0
     for name in FUSED_COUNTERS:
         setattr(fused_conv_bn, name, 0)
 
@@ -1406,6 +1421,86 @@ def read_counts() -> dict:
             "stem_pool_bwd": stem_pool.bwd_launches,
             **{name.removesuffix("_launches"): getattr(fused_conv_bn, name)
                for name in FUSED_COUNTERS}}
+
+
+def read_train_counts() -> dict:
+    """read_counts and the Adam kernel's launches: one a step of a Trainer
+    on the card (its optimizer holds one param group)."""
+    return {**read_counts(), "adam": adam.launches}
+
+
+def adam_record(tag: str, trainer: Trainer, dev) -> dict:
+    """The Adam kernel on a real step's state: the trainer's parameters, the
+    gradients its last step left on them and its moments. One update
+    through adam.adam_update (the kernel, one launch) and one through
+    adam_update_plain (the foreach passes), each from its own copy of that
+    state, must give the same bits in every p, mu and nu. Then, from the
+    kernel's copy, the times of both on both timers (tools/time_fused
+    cuda_ms, the L2 flushed, the card held ADAM_SLEEP_CYCLES for device
+    time) and of torch._fused_adam_ (the library's fused Adam: a yardstick
+    of the same update, its first moment in float32, 28 bytes a parameter,
+    another rounding), the host's time to enqueue each, the bound (24 bytes
+    a parameter), and the device memory each allocates beyond what it
+    holds."""
+    opt = trainer.optimizer
+    params = [p for group in opt.param_groups for p in group["params"] if p.grad is not None]
+    group = opt.param_groups[0]
+    count = opt.state[params[0]]["count"] + 1
+    b1, b2 = group["b1"], group["b2"]
+    kw = dict(lr=group["lr"], b1=b1, b2=b2, eps=group["eps"],
+              bc1=float(np.float32(1) - np.float32(b1) ** np.float32(count)),
+              bc2=float(np.float32(1) - np.float32(b2) ** np.float32(count)),
+              mu_dtype=opt.mu_dtype)
+    n = sum(p.numel() for p in params)
+    with torch.no_grad():
+        state = [[p.detach() for p in params], [p.grad for p in params],
+                 [opt.state[p]["mu"] for p in params], [opt.state[p]["nu"] for p in params]]
+        kern, plain = ([[t.clone() for t in lst] for lst in state] for _ in range(2))
+        n0 = adam.launches
+        fused = adam.adam_update(*kern, **kw)
+        launched = adam.launches - n0
+        adam.adam_update_plain(*plain, **kw)
+        torch.cuda.synchronize()
+        unequal = {name: sum(not torch.equal(a, b) for a, b in zip(kern[i], plain[i]))
+                   for i, name in ((0, "p"), (2, "mu"), (3, "nu"))}
+        del state, plain
+        if fused != n or launched != 1 or any(unequal.values()):
+            raise AssertionError(f"[{tag}] Adam kernel: {fused} of {n} elements, {launched} "
+                                 f"launches, tensors unequal to the foreach passes {unequal}")
+        lib = [kern[0], kern[1], [m.float() for m in kern[2]], [v.clone() for v in kern[3]],
+               [], [torch.tensor(float(count), device=dev) for _ in params]]
+        lib_kw = dict(lr=kw["lr"], beta1=b1, beta2=b2, weight_decay=0.0, eps=kw["eps"],
+                      amsgrad=False, maximize=False)
+        fns = {"": lambda: adam.adam_update(*kern, **kw),
+               "plain_": lambda: adam.adam_update_plain(*kern, **kw),
+               "library_": lambda: torch._fused_adam_(*lib, **lib_kw)}
+        flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
+        rec = {"parameters": n, "tensors": len(params), "mu_dtype": str(opt.mu_dtype),
+               "launches_a_step": launched, "equal": True,
+               **bound(24 * n, 14 * n, PEAK_F32), "library_bytes": 28 * n}
+        for key, fn in fns.items():
+            rec[f"{key}ms"] = cuda_ms(fn, flush)
+            rec[f"{key}device_ms"] = cuda_ms(fn, flush, held=True,
+                                             sleep_cycles=ADAM_SLEEP_CYCLES)
+            rec[f"{key}host_ms"] = host_ms(fn)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            rec[f"{key}peak_mib"] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        del kern, lib, flush
+    torch.cuda.empty_cache()
+    print(f"[{tag}] Adam kernel on a step's state: {n / 1e6:.2f} M parameters in {len(params)} "
+          f"tensors, mu {opt.mu_dtype}, one launch, p, mu, nu bit-equal to the foreach passes; "
+          f"device {rec['device_ms']:.3f} ms ({rec['ms']:.3f} with host gaps) against the "
+          f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: 24 B a parameter), foreach "
+          f"{rec['plain_device_ms']:.3f} ({rec['plain_ms']:.3f}) ms allocating "
+          f"{rec['plain_peak_mib']:.1f} MiB, torch._fused_adam_ (f32 mu, 28 B a parameter) "
+          f"{rec['library_device_ms']:.3f} ({rec['library_ms']:.3f}) ms; kernel allocates "
+          f"{rec['peak_mib']:.1f} MiB; host per call: kernel {rec['host_ms']:.3f}, foreach "
+          f"{rec['plain_host_ms']:.3f}, library {rec['library_host_ms']:.3f} ms")
+    return rec
 
 
 def profile_steps(tag: str, step_fn, state, batch, n: int = 3):
@@ -1451,13 +1546,13 @@ def phase_train_fused(dev, dictionary, profile: bool) -> dict:
     state = kern.fit(kern.init_state(), real, render, log_every=1)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = read_counts()
+    launches = read_train_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     n = state.step
     print(f"[6] fused fit (fused_conv_bn='kernel'): {n} steps in {fit_s:.2f} s (first steps "
           f"included); launches {launches}; peak device memory {peak:.2f} GiB")
     per_step = {"normalize": 1, "stem_pool": 2, "stem_pool_bwd": 2, "mm": 72, "mm_bwd": 72,
-                "c3": 26, "c3_bwd": 26}
+                "c3": 26, "c3_bwd": 26, "adam": 1}
     if n != 4 or launches != {k: v * n for k, v in per_step.items()}:
         raise AssertionError(f"expected 4 steps of {per_step} launches")
     keys = ("loss", "lc", "lr", "s", "alpha")
@@ -1740,10 +1835,10 @@ def phase_train_soft(dev, preset: str, dictionary) -> None:
     assign.launches = 0
     state = kern.fit(kern.init_state(), real, render, log_every=1)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in read_counts().items() if v}
+    launches = {k: v for k, v in read_train_counts().items() if v}
     n = state.step
     if n != cfg.num_warmup_epochs + 2 or assign.launches != 0 or launches != {
-            "normalize": n, "stem_pool": 2 * n, "stem_pool_bwd": 2 * n}:
+            "normalize": n, "stem_pool": 2 * n, "stem_pool_bwd": 2 * n, "adam": n}:
         raise AssertionError(f"{preset}: {n} steps, launches {launches}, assign {assign.launches}")
     keys = ("loss", "lc", "lr", "s", "alpha")
     hist = kern.history
@@ -1961,19 +2056,21 @@ def phase_user_command(dev, smi: str, dictionary: KMeansDictionary, step: dict,
         if cli.main(args + ["--resume"]) != 0:
             raise AssertionError("cli train --resume failed")
     torch.cuda.synchronize()
-    counts = read_counts()
+    counts = read_train_counts()
     final = torch.load(ck / "final", map_location="cpu", weights_only=True)
     resumed = read_records(wd / "metrics.jsonl")[len(recs):]
     n_steps = final["step"] - saved["step"]
     n_evals = len(test) * (cfg.num_epochs + 1)
     if not (final["step"] == 12 and resumed[0]["step"] == 7
-            and counts == {**{k: 0 for k in counts}, "normalize": n_steps + n_evals}):
+            and counts == {**{k: 0 for k in counts}, "normalize": n_steps + n_evals,
+                           "adam": n_steps}):
         raise AssertionError(f"resume: step {final['step']}, first logged {resumed[0]}, "
                              f"launches {counts}")
     print(f"[10] --resume (this process): from step {saved['step']} to {final['step']}, "
           f"normalize launches {counts['normalize']} = {n_steps} train steps + {n_evals} "
-          f"eval batches, no other kernel (stem_pool and fused_conv_bn stay off, as the "
-          f"JAX package's 'auto' resolves them)")
+          f"eval batches, Adam kernel launches {counts['adam']}, one a train step, no other "
+          f"kernel (stem_pool and fused_conv_bn stay off, as the JAX package's 'auto' "
+          f"resolves them)")
 
     # labels out of range never reach the card
     dbinfo = tmp / "dbinfo.mat"
@@ -2371,7 +2468,7 @@ def phase_gate(dev, smi: str, tmp: Path) -> dict:
             rc = cli.main(gate_args)
             torch.cuda.synchronize()
             gate_s = time.perf_counter() - t0
-        counts = {**read_counts(), "assign": assign.launches}
+        counts = {**read_train_counts(), "assign": assign.launches}
         table = json.loads((wd / "parity.json").read_text())
         runs.append((counts, table, clock.times, gate_s, out.getvalue()))
         if rc != 0:
@@ -2386,9 +2483,10 @@ def phase_gate(dev, smi: str, tmp: Path) -> dict:
     n_det = -(-len(xdata) // cfg.eval_batch)
     n_snap = len(stages["evaluate"]["snapshot_med_errs"])
     # 2 warm-up + 2 main steps, an eval after the main epoch and one after
-    # fit, 2 fine-tune steps, a test pass per snapshot, the detection batches
+    # fit, 2 fine-tune steps, a test pass per snapshot, the detection batches;
+    # Adam in the 4 train steps (the fine-tune's optimizer is SGD)
     want = {**{k: 0 for k in counts}, "normalize": 4 + 2 + n_test * (2 + n_snap) + n_det,
-            "assign": 4 * 101}
+            "assign": 4 * 101, "adam": 4}
     if not (set(stages) == {"prepare_data", "dictionary", "train", "evaluate", "detections"}
             and np.all(np.isfinite(numbers)) and counts == want
             and set(stages["detections"]) == {*classes, "mean"}):
@@ -2402,7 +2500,8 @@ def phase_gate(dev, smi: str, tmp: Path) -> dict:
           f"4 items a class a stream, {' '.join(GATE_CUT)}): exit 0 in {gate_s:.2f} s wall; "
           f"stages {stage_line} (prepare_data above: {prep_s:.2f} s); launches {counts} = "
           f"6 steps + {n_test} test batch x (2 + {n_snap} snapshot) + {n_det} detection "
-          f"batch, and 4 x 101 assign for the K {cfg.dict_size} kmeans fit; {where}")
+          f"batch, 4 x 101 assign for the K {cfg.dict_size} kmeans fit and 4 Adam for the 4 "
+          f"train steps; {where}")
     print(f"[12] parity table: train MedErr {stages['train']['med_err_deg']} deg, snapshots "
           f"{stages['evaluate']['snapshot_med_errs']}, ensembled "
           f"{stages['evaluate']['ensembled_med_err_deg']} deg, Acc@pi/6 "
@@ -2604,7 +2703,7 @@ def zoo_checks(preset: str, cfg, hist, launches: dict, before: dict, after: dict
     n = len(hist)
     bd = cfg.model_kind in BD_KINDS
     want = {**{k: 0 for k in launches}, "normalize": n,
-            "stem_pool": 2 * n if bd else 0, "stem_pool_bwd": 2 * n if bd else 0}
+            "stem_pool": 2 * n if bd else 0, "stem_pool_bwd": 2 * n if bd else 0, "adam": n}
     if n != 2 or launches != want:
         raise AssertionError(f"[13] {preset}: {n} steps, launches {launches}, expected {want}")
     for rec in hist:
@@ -2801,7 +2900,7 @@ def phase_zoo(dev, smi: str, kmeans_200, gmm, user: dict, tmp: Path) -> dict:
     dicts, assign_launches = zoo_dictionaries(dev, smi, kmeans_200, gmm)
     rng = np.random.default_rng(13)
     real, render = (make_loader(rng, 1, 4, 224, 12) for _ in range(2))
-    totals = {k: 0 for k in read_counts()}
+    totals = {k: 0 for k in read_train_counts()}
     serve_launches = {}
     multires = None
     t_all = time.perf_counter()
@@ -2822,7 +2921,7 @@ def phase_zoo(dev, smi: str, kmeans_200, gmm, user: dict, tmp: Path) -> dict:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
-        launches = read_counts()
+        launches = read_train_counts()
         if assign.launches:
             raise AssertionError(f"[13] {preset}: {assign.launches} assign launches in its steps")
         hist = kern.history
@@ -2837,7 +2936,8 @@ def phase_zoo(dev, smi: str, kmeans_200, gmm, user: dict, tmp: Path) -> dict:
               + "; ".join(f"{r['phase']} lr {r['learning_rate']:.3g}: loss {r['loss']:.4f} "
                           f"lc {r['lc']:.4f} lr {r['lr']:.4f}" for r in hist))
         if preset == "geodesic_bd_multires":
-            multires = {"peak_gib": peak, "params_m": n_params / 1e6}
+            multires = {"peak_gib": peak, "params_m": n_params / 1e6,
+                        "adam": adam_record("13", kern, dev)}
             multires.update(zoo_multires_cost(dev, smi, kern, dicts[200], real, render))
             print(f"[13] geodesic_bd_multires peak device memory during its fit: {peak:.2f} GiB "
                   f"({n_params / 1e6:.1f} M parameters, Adam mu {cfg.optimizer_dtype}); {smi}")
@@ -2917,7 +3017,8 @@ def joint_checks(preset: str, cfg, trainer: Trainer, launches: dict, before: dic
     Returns the counts of trained and frozen leaves and of moved statistics."""
     hist, n = trainer.history, len(trainer.history)
     stem = cfg.stem_pool is not None
-    want = {**{k: 0 for k in launches}, "normalize": n, "stem_pool": 2 * n if stem else 0}
+    want = {**{k: 0 for k in launches}, "normalize": n, "stem_pool": 2 * n if stem else 0,
+            "adam": n}
     if n != 2 or launches != want:
         raise AssertionError(f"[14] {preset}: {n} steps, launches {launches}, expected {want}")
     for rec in hist:
@@ -3300,7 +3401,7 @@ def phase_joint(dev, smi: str, dicts: dict, user: dict, tmp: Path) -> dict:
     t_all = time.perf_counter()
     rng = np.random.default_rng(14)
     real, render = (make_loader(rng, 1, 4, 224, 12) for _ in range(2))
-    totals = {k: 0 for k in read_counts()}
+    totals = {k: 0 for k in read_train_counts()}
     peaks, served = {}, {}
     for preset in JOINT_PRESETS:
         cfg = joint_config(preset)
@@ -3317,7 +3418,7 @@ def phase_joint(dev, smi: str, dicts: dict, user: dict, tmp: Path) -> dict:
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         peaks[preset] = torch.cuda.max_memory_allocated() / 2**30
-        launches = read_counts()
+        launches = read_train_counts()
         if assign.launches:
             raise AssertionError(f"[14] {preset}: {assign.launches} assign launches in its steps")
         counts = joint_checks(preset, cfg, kern, launches, before)
@@ -3365,7 +3466,7 @@ def phase_joint(dev, smi: str, dicts: dict, user: dict, tmp: Path) -> dict:
     print(f"[14] done in {wall:.1f} s (chains {time.perf_counter() - t0:.1f} s); {smi}")
     return {"normalize": totals["normalize"] + two["normalize"],
             "stem_pool": totals["stem_pool"], "stem_pool_bwd": totals["stem_pool_bwd"],
-            "assign": assign_launches, "wall_s": wall, "peaks": peaks, "chain1": one,
+            "adam": totals["adam"], "assign": assign_launches, "wall_s": wall, "peaks": peaks, "chain1": one,
             "chain2": two}
 
 
@@ -3417,7 +3518,8 @@ def objectnet_checks(tag: str, cfg, trainer: Trainer, launches: dict, before: di
     classification, each step's rate, every running statistic moved."""
     hist, n = trainer.history, len(trainer.history)
     stem = n if cfg.stem_pool == "kernel" else 0
-    want = {**{k: 0 for k in launches}, "normalize": n, "stem_pool": stem, "stem_pool_bwd": stem}
+    want = {**{k: 0 for k in launches}, "normalize": n, "stem_pool": stem, "stem_pool_bwd": stem,
+            "adam": n}
     if n != 2 or launches != want:
         raise AssertionError(f"[15] {tag}: {n} steps, launches {launches}, expected {want}")
     for rec in hist:
@@ -3491,7 +3593,7 @@ def objectnet_fit(tag: str, cfg, dictionary, batches, dev, totals: dict):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = read_counts()
+    launches = read_train_counts()
     if assign.launches:
         raise AssertionError(f"[15] {tag}: {assign.launches} assign launches in its steps")
     objectnet_checks(tag, cfg, kern, launches, before)
@@ -3727,7 +3829,7 @@ def phase_objectnet(dev, smi: str, dicts: dict, tmp: Path) -> dict:
     t_all = time.perf_counter()
     rng = np.random.default_rng(15)
     batches = make_flat_loader(rng, 1, OBJECTNET_IMAGES, 224, 100)
-    totals = {k: 0 for k in read_counts()}
+    totals = {k: 0 for k in read_train_counts()}
     served, peaks = {}, {}
     for preset in OBJECTNET_PRESETS:
         cfg = objectnet_config(preset)
@@ -3939,7 +4041,7 @@ def worker_dp(out: Path) -> None:
     reset_counts()
     state = t.fit(t.init_state(), real, render, log_every=1)
     torch.cuda.synchronize()
-    res = {"rank": rank, "backend": mesh.backend, "counts": read_counts(),
+    res = {"rank": rank, "backend": mesh.backend, "counts": read_train_counts(),
            "history": [{k: r[k] for k in ("step", "phase", "loss", "lc", "lr", "s", "alpha")}
                        for r in t.history],
            "fit_step": int(state.step), "fit_digest": digest(t.model.state_dict())}
@@ -3974,7 +4076,7 @@ def worker_dp(out: Path) -> None:
     reset_counts()
     _, m = fused.train_step_fn("main", dual_stream=True)(fused.init_state(), batch)
     torch.cuda.synchronize()
-    res["fused_counts"] = read_counts()
+    res["fused_counts"] = read_train_counts()
     res["fused_metrics"] = {k: float(v) for k, v in m.items()}
     (out / f"dp_{rank}.json").write_text(json.dumps(res))
     multihost.shutdown()
@@ -4003,7 +4105,7 @@ def worker_tp(out: Path) -> None:
     reset_counts()
     t.fit(t.init_state(), real, render, log_every=1)
     torch.cuda.synchronize()
-    res = {"rank": rank, "counts": read_counts(),
+    res = {"rank": rank, "counts": read_train_counts(),
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
            "params_m": sum(p.numel() for p in t.model.parameters()) / 1e6,
            "sharded": [n for n, m in t.model.named_children() if getattr(m, "tp", None)],
@@ -4190,7 +4292,7 @@ def phase_parallel(dev, smi: str, user: dict, step_img_s: float, tmp: Path) -> d
     launch_ranks("dp", out)
     dp_s = time.perf_counter() - t0
     ranks = [json.loads((out / f"dp_{r}.json").read_text()) for r in range(2)]
-    per_step = {"normalize": 1, "stem_pool": 2, "stem_pool_bwd": 2}
+    per_step = {"normalize": 1, "stem_pool": 2, "stem_pool_bwd": 2, "adam": 1}
     want = {k: 4 * per_step.get(k, 0) for k in ranks[0]["counts"]}
     want_fused = {**{k: per_step.get(k, 0) for k in want},
                   "mm": 72, "mm_bwd": 72, "c3": 26, "c3_bwd": 26}
@@ -4256,7 +4358,7 @@ def phase_parallel(dev, smi: str, user: dict, step_img_s: float, tmp: Path) -> d
         raise AssertionError(f"[16] TensorBoard scalars {tb[:4]} != metrics.jsonl {want_tb[:4]}")
     dp_img_s = 96 / step_s
     print(f"[16] 2 ranks on one card (gloo), [5]'s fit of 2 + 2 steps, 48 of the 96 images a "
-          f"rank: launches a rank {ranks[0]['counts']} (1/2/2 a step), fused trunk step "
+          f"rank: launches a rank {ranks[0]['counts']} (1/2/2/1 a step), fused trunk step "
           f"{ranks[0]['fused_counts']}; metrics equal on both ranks and within "
           f"{worst['bf16']:.3g} of one process (f32, TF32 off: {worst['f32']:.3g}); step-1 "
           f"gradients (f32, TF32 off) bit-equal on both ranks and, at the leaf nearest its "
@@ -4515,6 +4617,12 @@ def main() -> None:
          "verify_parity_launches": gate["assign"], "zoo_launches": zoo["assign"],
          "joint_launches": joint["assign"], "objectnet_launches": objectnet["assign"],
          **assign_rec},
+        {"name": "adam", "route": "cuda", "source": f"{PORT}/csrc/adam.cu",
+         "replaces": None,  # the JAX package leaves optax.adam to XLA
+         "launches": train["launches"]["adam"], "zoo_launches": zoo["adam"],
+         "joint_launches": joint["adam"], "objectnet_launches": objectnet["adam"],
+         **parallel_launches(par, "adam"), **train["adam"],
+         **{f"multires_{k}": v for k, v in zoo["multires"]["adam"].items()}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

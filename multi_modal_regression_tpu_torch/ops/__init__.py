@@ -9,11 +9,15 @@
                  conv1x1_bn_stats        `_mm_stats`, backward `_mm_stats_bwd`)
                  conv3x3_bn_stats        3x3 stride-1 conv likewise (`_c3_fwd`,
                                          `_c3_bwd`); autograd Functions
+  adam           adam_update             Adam's step over a list of float32
+                                         tensors in one pass (`adam_kernel`),
+                                         beside its foreach passes
+                                         `adam_update_plain`
 
 A wrapper takes its plain version only for a tensor on the CPU; for a CUDA
 tensor it launches its kernel (built by `_build` on first use) or raises.
 Each module counts its kernels' launches in module-level counters:
 `preprocess.launches`, `stem_pool.launches`, `stem_pool.bwd_launches`,
 `fused_conv_bn.mm_launches`, `mm_bwd_launches`, `c3_launches`,
-`c3_bwd_launches`, `assign.launches`.
+`c3_bwd_launches`, `assign.launches`, `adam.launches`.
 """

@@ -73,20 +73,21 @@ REPS = 30
 SLEEP_CYCLES = 2_000_000
 
 
-def cuda_ms(fn, flush: torch.Tensor, reps: int = REPS, held: bool = False) -> float:
+def cuda_ms(fn, flush: torch.Tensor, reps: int = REPS, held: bool = False,
+            sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Median time of fn() in ms between two CUDA events, the 50 MB L2
     flushed before each run. held False: the events also take in the host's
     gaps between fn's launches where the host enqueues them slower than the
     card runs them (chip_smoke.py's `ms`). held True: the card sleeps
-    (SLEEP_CYCLES) while the host enqueues fn, so its launches run back to
-    back: device time."""
+    (sleep_cycles, which must outlast the host's enqueue of fn) while the
+    host enqueues fn, so its launches run back to back: device time."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
         if held:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()

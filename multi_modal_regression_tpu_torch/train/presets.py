@@ -50,6 +50,7 @@ from multi_modal_regression_tpu_torch.models.pose import (
     PerClassClassificationModel,
     PerClassRegressionModel,
 )
+from multi_modal_regression_tpu_torch.ops import adam as adam_ops
 from multi_modal_regression_tpu_torch.train.joint_problems import (
     JOINT_DICTIONARY_FREE,
     JOINT_PROBLEMS,
@@ -708,6 +709,14 @@ class Adam(torch.optim.Optimizer):
     is rounded to it once per step, after the update used it.
     torch.optim.Adam computes the same float32 step in another rounding
     order. Moments live in `self.state[p]` and are cleared with it.
+
+    The update is ops/adam.adam_update: on the card the one-pass kernel,
+    one launch a param group, in a span `mmr.optim.adam_fused` (float32
+    parameters whose gradient and moments share their layout, `fusable`;
+    any other parameter there raises ValueError); on the CPU, float64
+    included, the foreach passes (`adam_update_plain`). Both give the same
+    bits. `fused_share` is the share of the last step's updated elements
+    that the kernel took.
     """
 
     def __init__(self, params: Iterable, lr: float, b1: float = 0.9,
@@ -715,11 +724,13 @@ class Adam(torch.optim.Optimizer):
                  mu_dtype: torch.dtype | None = None):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
         self.mu_dtype = mu_dtype
+        self.fused_share = 0.0
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
+        fused = total = 0
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
@@ -739,35 +750,18 @@ class Adam(torch.optim.Optimizer):
             count = states[0]["count"] + 1
             if any(st["count"] + 1 != count for st in states):
                 raise RuntimeError("Adam: parameters of one group at different steps")
-            grads = [p.grad for p in params]
-            mus = [st["mu"] for st in states]
-            nus = [st["nu"] for st in states]
-            mu = torch._foreach_mul(grads, 1 - b1)
-            if self.mu_dtype is None:
-                decayed = torch._foreach_mul(mus, b1)
-            else:
-                b1_mu = float(torch.tensor(b1, dtype=self.mu_dtype))
-                decayed = [
-                    m.to(p.dtype) for m, p in zip(torch._foreach_mul(mus, b1_mu), params)
-                ]
-            torch._foreach_add_(mu, decayed)
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_add_(
-                nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2)
-            )
             # bias corrections in float32, as optax computes 1 - decay**count
             bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
             bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-            denom = torch._foreach_div(nus, bc2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
-            upd = torch._foreach_div(mu, bc1)
-            torch._foreach_div_(upd, denom)
-            torch._foreach_mul_(upd, -lr)
-            torch._foreach_add_(params, upd)
-            torch._foreach_copy_(mus, mu)
+            fused += adam_ops.adam_update(
+                params, [p.grad for p in params], [st["mu"] for st in states],
+                [st["nu"] for st in states], lr=lr, b1=b1, b2=b2, eps=eps, bc1=bc1,
+                bc2=bc2, mu_dtype=self.mu_dtype,
+            )
+            total += sum(p.numel() for p in params)
             for st in states:
                 st["count"] = count
+        self.fused_share = fused / total if total else 0.0
 
 
 def trained_parameters(cfg: ExperimentConfig, model: nn.Module) -> list[nn.Parameter]:

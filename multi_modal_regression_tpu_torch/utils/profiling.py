@@ -15,6 +15,7 @@ no-op context. The spans the port opens, by layer:
     mmr.train.forward      preprocess, flips, targets, forward, losses, balance
     mmr.train.backward     zero_grad and loss.backward()
     mmr.train.optimizer    gradient reduces and optimizer.step()
+      mmr.optim.adam_fused   Adam's kernel launch (ops/adam; on the card)
     mmr.train.log_fetch    a logged step's fetch of its metrics to the host
   mmr.serve.request#<n>  one call of `make_inference_fn`'s function, n its
                          sequence number from 1

@@ -1408,3 +1408,181 @@ def test_world_one_nccl_group_on_the_card(dev):
     finally:
         multihost.shutdown()
     assert not dist.is_initialized()
+
+
+# --- the Adam kernel -------------------------------------------------------------
+
+
+def _adam_groups(case: str, dev) -> list[dict]:
+    """Param groups of a case, seeded: every tensor a leaf on the card."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+
+    def leaf(*shape, channels_last=False):
+        t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        if channels_last:
+            t = t.contiguous(memory_format=torch.channels_last)
+        return torch.nn.Parameter(t)
+
+    if case == "sizes":
+        return [{"params": [leaf(1), leaf(3), leaf(4097), leaf(2**20 + 5)]}]
+    if case == "conv_bn":
+        return [{"params": [leaf(64, 3, 7, 7, channels_last=True), leaf(64), leaf(64)]}]
+    if case == "two_groups":
+        return [{"params": [leaf(300, 7), leaf(64)]},
+                {"params": [leaf(5000), leaf(2, 3)], "lr": 3e-3}]
+    if case == "no_grad":
+        return [{"params": [leaf(4096), leaf(33), leaf(10)]}]  # the last gets none
+    if case == "misaligned":  # a view 4 bytes into its storage: no 16-byte loads
+        base = torch.from_numpy(rng.standard_normal(9001).astype(np.float32)).to(dev)
+        return [{"params": [torch.nn.Parameter(base[1:]), leaf(8)]}]
+    if case == "many":  # past the 640 tensors a launch's table holds
+        return [{"params": [leaf(int(n)) for n in rng.integers(1, 40, 700)]}]
+    raise ValueError(case)
+
+
+def _adam_run(case, dev, mu_dtype, kernel: bool, monkeypatch, steps=5):
+    """`steps` Adam steps of a case with seeded gradients (magnitudes 1e-6 to
+    10, 5% exact zeros, laid out as their parameters): the groups, the
+    optimizer and the kernel launches made."""
+    from multi_modal_regression_tpu_torch.ops import adam as adam_ops
+    from multi_modal_regression_tpu_torch.train.presets import Adam
+
+    groups = _adam_groups(case, dev)
+    opt = Adam(groups, lr=1e-3, mu_dtype=mu_dtype)
+    rng = np.random.default_rng(7)
+    n0 = adam_ops.launches
+    with monkeypatch.context() as m:
+        if not kernel:
+            def plain(*lists, **kw):
+                adam_ops.adam_update_plain(*lists, **kw)
+                return 0
+
+            m.setattr(adam_ops, "adam_update", plain)
+        for _ in range(steps):
+            for group in groups:
+                for p in group["params"]:
+                    if case == "no_grad" and p.numel() == 10:
+                        continue
+                    g = rng.standard_normal(p.shape) * 10.0 ** rng.integers(-6, 2, p.shape)
+                    g[rng.random(p.shape) < 0.05] = 0.0
+                    p.grad = torch.empty_like(p).copy_(torch.from_numpy(g.astype(np.float32)))
+            opt.step()
+            assert opt.fused_share == (1.0 if kernel else 0.0)
+    torch.cuda.synchronize()
+    return groups, opt, adam_ops.launches - n0
+
+
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, None], ids=["mu_bf16", "mu_f32"])
+@pytest.mark.parametrize("case", ["sizes", "conv_bn", "two_groups", "no_grad", "misaligned",
+                                  "many"])
+def test_adam_kernel_equals_the_foreach_passes(dev, case, mu_dtype, monkeypatch):
+    """5 Adam steps from one seeded state through the kernel and through the
+    foreach passes (adam_update patched to adam_update_plain): p, mu and nu bit-equal, for
+    tensors of 1, 3, 4097 and 2**20 + 5 elements, a channels-last conv weight
+    and 64-element BN vectors, two groups at different rates, a parameter
+    with no gradient (untouched, no state), a view off the 16-byte boundary
+    and 700 tensors (two launches a step). One launch a group a step."""
+    got, opt_k, launches = _adam_run(case, dev, mu_dtype, True, monkeypatch)
+    want, opt_f, none = _adam_run(case, dev, mu_dtype, False, monkeypatch)
+    assert none == 0
+    assert launches == 5 * (2 if case in ("two_groups", "many") else 1)
+    for gk, gf in zip(got, want):
+        for pk, pf in zip(gk["params"], gf["params"]):
+            assert torch.equal(pk, pf)
+            if case == "no_grad" and pk.numel() == 10:
+                assert pk not in opt_k.state and torch.equal(pk, _adam_groups(case, dev)[0]
+                                                             ["params"][2])
+                continue
+            sk, sf = opt_k.state[pk], opt_f.state[pf]
+            assert sk["count"] == sf["count"] == 5
+            assert sk["mu"].dtype == (mu_dtype or torch.float32)
+            assert torch.equal(sk["mu"], sf["mu"]) and torch.equal(sk["nu"], sf["nu"])
+            assert sk["mu"].stride() == pk.stride()
+
+
+@pytest.mark.parametrize("case", ["float64", "gaps"])
+def test_adam_kernel_refuses_what_it_cannot_take(dev, case):
+    """On the card a parameter the kernel cannot take (float64, or a view
+    with gaps) raises ValueError naming it, and nothing is written: the
+    foreach passes are the CPU's alone."""
+    from multi_modal_regression_tpu_torch.ops import adam as adam_ops
+
+    ok = torch.ones(64, device=dev)
+    bad = (torch.ones(64, device=dev, dtype=torch.float64) if case == "float64"
+           else torch.ones(64, 2, device=dev)[:, 0])
+    params = [ok.clone(), bad.clone() if case == "float64" else bad]
+    grads = [torch.ones_like(p) for p in params]
+    mus = [torch.zeros_like(p) for p in params]
+    nus = [torch.zeros_like(p) for p in params]
+    with pytest.raises(ValueError, match="parameter 1 "):
+        adam_ops.adam_update(params, grads, mus, nus, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                             bc1=0.1, bc2=0.001, mu_dtype=None)
+    torch.cuda.synchronize()
+    assert torch.equal(params[0], ok) and all(int(torch.count_nonzero(m)) == 0 for m in mus)
+
+
+def test_adam_kernel_past_32_bit_offsets(dev):
+    """One tensor of 2**31 + 4101 elements, mu bf16 (30 GB with g and nu):
+    after one kernel step the first 8192 elements and the 8197 across element
+    2**31 equal adam_update_plain's on copies of those slices."""
+    from multi_modal_regression_tpu_torch.ops import adam as adam_ops
+
+    torch.cuda.empty_cache()
+    n = 2**31 + 4101
+    gen = torch.Generator(device=dev).manual_seed(8)
+    p = torch.randn(n, device=dev, generator=gen)
+    g = torch.randn(n, device=dev, generator=gen)
+    nu = torch.rand(n, device=dev, generator=gen)
+    mu = torch.empty(n, device=dev, dtype=torch.bfloat16)
+    for lo in range(0, n, 2**28):
+        mu[lo:lo + 2**28] = torch.randn(min(2**28, n - lo), device=dev, generator=gen)
+    windows = [slice(0, 8192), slice(2**31 - 4096, n)]
+    before = [[t[w].clone() for t in (p, g, mu, nu)] for w in windows]
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, bc1=0.271, bc2=0.002997)
+    assert adam_ops.adam_update([p], [g], [mu], [nu], **kw, mu_dtype=torch.bfloat16) == n
+    for w, (pw, gw, mw, vw) in zip(windows, before):
+        adam_ops.adam_update_plain([pw], [gw], [mw], [vw], **kw, mu_dtype=torch.bfloat16)
+        assert torch.equal(p[w], pw) and torch.equal(mu[w], mw) and torch.equal(nu[w], vw)
+    del p, g, mu, nu
+    torch.cuda.empty_cache()
+
+
+def test_trainer_step_takes_the_adam_kernel(dev, monkeypatch):
+    """A small bf16 Trainer's second main step on the card: Adam launches the
+    kernel once (one param group) with fused_share 1.0, and every
+    parameter, mu and nu equals adam_update_plain's from the same
+    gradients and moments."""
+    from multi_modal_regression_tpu_torch.ops import adam as adam_ops
+
+    cfg = get_config("geodesic_bd", **_SMALL_CARD, feature_network="resnet18",
+                     feature_layer="layer2", N0=128, num_classes=3, dict_size=8,
+                     compute_dtype="bfloat16", stem_pool="kernel")
+    centers = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+    t = Trainer(cfg, dictionary=centers, device=dev)
+    batch = t._to_device({**_card_batches(4, 6, 3)[0], "is_real": np.arange(6) < 3})
+    step, state = t.train_step_fn("main", dual_stream=True), t.init_state()
+    state, _ = step(state, batch)
+    opt, seen = t.optimizer, {}
+    real = opt.step
+
+    def spy():
+        params = [p for group in opt.param_groups for p in group["params"]
+                  if p.grad is not None]
+        seen["before"] = [[p.detach().clone(), p.grad.clone(), opt.state[p]["mu"].clone(),
+                           opt.state[p]["nu"].clone()] for p in params]
+        n0 = adam_ops.launches
+        real()
+        seen["launches"] = adam_ops.launches - n0
+        seen["after"] = [(p.detach(), opt.state[p]["mu"], opt.state[p]["nu"]) for p in params]
+
+    monkeypatch.setattr(opt, "step", spy)
+    state, _ = step(state, batch)
+    assert seen["launches"] == 1 and opt.fused_share == 1.0
+    ps, gs, ms, vs = map(list, zip(*seen["before"]))
+    group = opt.param_groups[0]
+    bc1 = float(np.float32(1) - np.float32(0.9) ** np.float32(2))
+    bc2 = float(np.float32(1) - np.float32(0.999) ** np.float32(2))
+    adam_ops.adam_update_plain(ps, gs, ms, vs, lr=group["lr"], b1=0.9, b2=0.999, eps=1e-8,
+                               bc1=bc1, bc2=bc2, mu_dtype=opt.mu_dtype)
+    for (p, mu, nu), pw, mw, vw in zip(seen["after"], ps, ms, vs):
+        assert torch.equal(p, pw) and torch.equal(mu, mw) and torch.equal(nu, vw)
