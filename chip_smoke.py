@@ -4432,6 +4432,13 @@ def phase_parallel(dev, smi: str, user: dict, step_img_s: float, tmp: Path) -> d
 
     # the CLI over 2 ranks beside tp2 (both on the card), and meanwhile here
     # a world-1 NCCL group and a profiler trace
+    # six rank processes share the card from here: `one`'s graphed train step
+    # would keep its CUDA graph memory (a step's activations) reserved while
+    # they run; parallel_profile captures the step again
+    release = getattr(one.train_step_fn("main", dual_stream=True), "release", None)
+    if release is not None:
+        release()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         chain = pool.submit(parallel_cli, user, tmp, out / "dp_run")

@@ -31,10 +31,15 @@
 //     size is no multiple of 4, go one element a thread.
 //   - The tensors' pointers and sizes ride in the kernel's parameters
 //     (`Table`, __grid_constant__, 48 bytes a tensor: 640 tensors in the
-//     32,764 bytes that sm_90 takes from CUDA 12.1). Gradients
-//     are new tensors every step (zero_grad(set_to_none=True)), so the host
-//     packs the table anew for each launch; nothing is allocated and nothing
-//     waits for the host. A group of more tensors takes one launch a table.
+//     32,764 bytes that sm_90 takes from CUDA 12.1). The host packs the
+//     table for each launch, or once where the launch is captured in a CUDA
+//     graph (train/steps: the gradients keep their addresses from step to
+//     step there); nothing is allocated and nothing waits for the host. A
+//     group of more tensors takes one launch a table.
+//   - The three scalars that change from step to step (-lr, 1 / bc1,
+//     1 / bc2) are read from device memory (`Scalars::step`, 12 bytes the
+//     host writes in stream order before the launch), so that a graph's
+//     replay takes each step's rate and bias corrections.
 // On an H100 80GB HBM3 at 700 W (112-114 registers, two blocks of 256 an
 // SM): 4.61 ms at 548.0 M parameters, 85% of the bound; 0.73 ms at 85.95 M,
 // 84%; the foreach passes take 29.8 and 5.5 ms.
@@ -43,7 +48,8 @@
 // rounded on its own (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn, never a
 // contracted FMA), so the kernel and adam_update_plain give the same bits.
 // With the launch's scalars (host floats rounded to float32, as the foreach
-// ops round a Python scalar):
+// ops round a Python scalar; -lr, 1 / bc1 and 1 / bc2 rounded on the host too,
+// then read from the device):
 //     decayed = M(m * b1)                   b1 rounded to M on the host
 //     mu      = g * (1 - b1) + decayed      the float32 first moment
 //     nu      = nu * b2 + (g * g) * (1 - b2)
@@ -75,7 +81,13 @@ constexpr long long kChunk = kThreads * kVec * kUnroll;  // 4096 elements
 constexpr int kMaxTensors = 640;  // 30,768 bytes of parameters
 
 struct Scalars {
-  float one_minus_b1, b1, b2, one_minus_b2, inv_bc1, inv_bc2, eps, neg_lr;
+  float one_minus_b1, b1, b2, one_minus_b2, eps;
+  const float* step;  // on the device: -lr, 1 / bc1, 1 / bc2
+};
+
+// the scalars of one step, as update() takes them
+struct Step {
+  float neg_lr, inv_bc1, inv_bc2;
 };
 
 struct Table {
@@ -104,19 +116,21 @@ __device__ __forceinline__ void narrow(float v, unsigned short& m) {
 }
 
 template <typename S>
-__device__ __forceinline__ void update(float& p, float g, S& m, float& v, const Scalars& s) {
+__device__ __forceinline__ void update(float& p, float g, S& m, float& v, const Scalars& s,
+                                       const Step& t) {
   S decayed;
   narrow(__fmul_rn(widen(m), s.b1), decayed);
   const float mu = __fadd_rn(__fmul_rn(g, s.one_minus_b1), widen(decayed));
   v = __fadd_rn(__fmul_rn(v, s.b2), __fmul_rn(__fmul_rn(g, g), s.one_minus_b2));
-  const float denom = __fadd_rn(__fsqrt_rn(__fmul_rn(v, s.inv_bc2)), s.eps);
-  p = __fadd_rn(p, __fmul_rn(__fdiv_rn(__fmul_rn(mu, s.inv_bc1), denom), s.neg_lr));
+  const float denom = __fadd_rn(__fsqrt_rn(__fmul_rn(v, t.inv_bc2)), s.eps);
+  p = __fadd_rn(p, __fmul_rn(__fdiv_rn(__fmul_rn(mu, t.inv_bc1), denom), t.neg_lr));
   narrow(mu, m);
 }
 
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
     adam_kernel(const __grid_constant__ Table t, const Scalars s) {
+  const Step step{__ldg(s.step), __ldg(s.step + 1), __ldg(s.step + 2)};
   const long long chunks = t.first[t.tensors];
   int k = 0;  // the tensor of the block's chunk: chunks only grow
   for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
@@ -148,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
       if (i < nvec) {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
-          update(pv[u].v[e], gv[u].v[e], mv[u].v[e], vv[u].v[e], s);
+          update(pv[u].v[e], gv[u].v[e], mv[u].v[e], vv[u].v[e], s, step);
         }
         reinterpret_cast<Pack<float>*>(p)[i] = pv[u];
         reinterpret_cast<Pack<float>*>(nu)[i] = vv[u];
@@ -158,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = nvec * kVec + threadIdx.x; i < len; i += kThreads) {
       float pe = p[i], ve = nu[i];
       S me = mu[i];
-      update(pe, g[i], me, ve, s);
+      update(pe, g[i], me, ve, s, step);
       p[i] = pe;
       nu[i] = ve;
       mu[i] = me;
@@ -217,22 +231,23 @@ cudaError_t launch(const long long* rows, int tensors, const Scalars& s, int sms
 // mu, nu as device addresses, then its element count), each a dense,
 // non-overlapping float32 tensor (mu bfloat16 where mu_bf16 is 1) of that
 // many elements, the four laid out alike (ops/adam.fusable checks this).
+// `step` is the device address of three float32: -lr, 1 / bc1, 1 / bc2,
+// read by the kernels when they run.
 // Launches kernels (one a 640 tensors holding elements) on `stream`, each
 // of at most `sms` times the blocks an SM holds, and counts them in
 // *launched. Returns cudaGetLastError() after the launches (0 on success),
 // cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int mmr_adam(const long long* rows, int tensors, int mu_bf16, float one_minus_b1,
-                        float b1, float b2, float one_minus_b2, float inv_bc1, float inv_bc2,
-                        float eps, float neg_lr, int sms, int* launched, int device,
-                        void* stream) {
+                        float b1, float b2, float one_minus_b2, float eps, const void* step,
+                        int sms, int* launched, int device, void* stream) {
   *launched = 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (tensors < 0 || sms < 1) return (int)cudaErrorInvalidValue;
+  if (tensors < 0 || sms < 1 || step == nullptr) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < tensors; ++i) {
     if (rows[5 * (long long)i + 4] < 0) return (int)cudaErrorInvalidValue;
   }
-  const Scalars s{one_minus_b1, b1, b2, one_minus_b2, inv_bc1, inv_bc2, eps, neg_lr};
+  const Scalars s{one_minus_b1, b1, b2, one_minus_b2, eps, (const float*)step};
   cudaStream_t st = (cudaStream_t)stream;
   err = mu_bf16 ? launch<unsigned short>(rows, tensors, s, sms, st, launched)
                 : launch<float>(rows, tensors, s, sms, st, launched);

@@ -72,9 +72,10 @@ _SIGNATURES = {
     # y, centers, out, N, D, K, blocks, tiles, smem, device, stream
     "mmr_assign": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, ctypes.c_longlong,
                    _I, _I, _P],
-    # rows (5 int64 a tensor), tensors, mu_bf16, 1 - b1, b1, b2, 1 - b2,
-    # 1 / bc1, 1 / bc2, eps, -lr, sms, launched (int*), device, stream
-    "mmr_adam": [_P, _I, _I] + [_F] * 8 + [_I, _P, _I, _P],
+    # rows (5 int64 a tensor), tensors, mu_bf16, 1 - b1, b1, b2, 1 - b2, eps,
+    # step (device float[3]: -lr, 1 / bc1, 1 / bc2), sms, launched (int*),
+    # device, stream
+    "mmr_adam": [_P, _I, _I] + [_F] * 5 + [_P, _I, _P, _I, _P],
 }
 
 

@@ -14,7 +14,10 @@ launch. The two give the same bits.
 The foreach division by a Python scalar (`torch._foreach_div(nus, bc2)`)
 multiplies by the scalar's reciprocal on the card, computed in double and
 rounded to float32 (torch 2.11, checked bit for bit there); the kernel takes
-the same reciprocals from the host. On the CPU the foreach passes round
+the same reciprocals, computed on the host (`kernel_step`) and read from the
+card's memory, where the host writes them in stream order before each
+launch: so a launch captured in a CUDA graph (`CapturedUpdate`) takes each
+replay's rate and bias corrections. On the CPU the foreach passes round
 otherwise (a true division, a vectorized square root); the kernel never
 runs there.
 """
@@ -93,23 +96,23 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def adam_update(params, grads, mus, nus, *, lr: float, b1: float, b2: float, eps: float,
-                bc1: float, bc2: float, mu_dtype: torch.dtype | None) -> int:
-    """One Adam step over the given tensors in place (bc1, bc2: the bias
-    corrections 1 - b**count; mu_dtype as adam_update_plain's). CPU tensors
-    take adam_update_plain. Any other list takes the kernel, through the op
-    mmr::adam_ inside the span `mmr.optim.adam_fused`, one launch for each
-    device and mu dtype among its tensors (and one more a 640 tensors past
-    the first 640); ValueError names the first parameter that is not
-    `fusable` with its mu in mu_dtype (None: the parameter's dtype), before
-    anything is written. Returns the number of elements the kernel
-    updated."""
-    if not len(params) == len(grads) == len(mus) == len(nus):
-        raise ValueError("adam_update needs as many grads, mus and nus as params")
-    if all(p.device.type == "cpu" for p in params):
-        adam_update_plain(params, grads, mus, nus, lr=lr, b1=b1, b2=b2, eps=eps, bc1=bc1,
-                          bc2=bc2, mu_dtype=mu_dtype)
-        return 0
+def kernel_step(lr: float, bc1: float, bc2: float) -> torch.Tensor:
+    """The scalars of one step as the kernel reads them from the card: -lr,
+    1 / bc1 and 1 / bc2, each computed in double on the host and rounded
+    once to float32 (a (3,) CPU tensor)."""
+    return torch.tensor([-lr, 1.0 / bc1, 1.0 / bc2], dtype=torch.float32)
+
+
+def write_step(dst: torch.Tensor, host: torch.Tensor) -> None:
+    """Copy host scalars into dst on the card in stream order, through pinned
+    memory that torch's host allocator keeps until the copy has run: the
+    host does not wait for the card."""
+    dst.copy_(host.pin_memory() if dst.is_cuda else host, non_blocking=True)
+
+
+def check_fusable(params, grads, mus, nus, mu_dtype: torch.dtype | None) -> None:
+    """ValueError naming the first parameter that is not `fusable` with its mu
+    in mu_dtype (None: the parameter's dtype)."""
     for i, (p, g, mu, nu) in enumerate(zip(params, grads, mus, nus)):
         if mu.dtype != (mu_dtype or p.dtype) or not fusable(p, g, mu, nu):
             raise ValueError(
@@ -119,13 +122,85 @@ def adam_update(params, grads, mus, nus, *, lr: float, b1: float, b2: float, eps
                 f"{mu.stride()}, nu {nu.dtype} strides {nu.stride()} (it takes float32 on one "
                 f"card, mu in {mu_dtype or p.dtype} (float32 or bfloat16), the four dense "
                 f"with the same strides)")
+
+
+def adam_update(params, grads, mus, nus, *, lr: float, b1: float, b2: float, eps: float,
+                bc1: float, bc2: float, mu_dtype: torch.dtype | None) -> int:
+    """One Adam step over the given tensors in place (bc1, bc2: the bias
+    corrections 1 - b**count; mu_dtype as adam_update_plain's). CPU tensors
+    take adam_update_plain. Any other list takes the kernel, through the op
+    mmr::adam_ inside the span `mmr.optim.adam_fused`, one launch for each
+    device and mu dtype among its tensors (and one more a 640 tensors past
+    the first 640), with the step's scalars (`kernel_step`) written to the
+    card before it; ValueError names the first parameter that is not
+    `fusable` (`check_fusable`), before anything is written. Returns the
+    number of elements the kernel updated."""
+    if not len(params) == len(grads) == len(mus) == len(nus):
+        raise ValueError("adam_update needs as many grads, mus and nus as params")
+    if all(p.device.type == "cpu" for p in params):
+        adam_update_plain(params, grads, mus, nus, lr=lr, b1=b1, b2=b2, eps=eps, bc1=bc1,
+                          bc2=bc2, mu_dtype=mu_dtype)
+        return 0
+    check_fusable(params, grads, mus, nus, mu_dtype)
+    step = torch.empty(3, dtype=torch.float32, device=params[0].device)
+    write_step(step, kernel_step(lr, bc1, bc2))
     with span("mmr.optim.adam_fused"):
-        torch.ops.mmr.adam_(params, grads, mus, nus, lr, b1, b2, eps, bc1, bc2)
+        torch.ops.mmr.adam_(params, grads, mus, nus, step, b1, b2, eps)
     # the kernel writes through raw pointers: move the version counters, as
     # an in-place torch op does, so that autograd refuses a saved tensor
     # that the step changed
     torch.autograd.graph.increment_version([*params, *mus, *nus])
     return sum(p.numel() for p in params)
+
+
+class CapturedUpdate:
+    """The kernel launches of Adam's update over the same tensors step after
+    step, captured in one CUDA graph (train/steps.GraphedTrainStep: the
+    gradients keep their addresses there), so that the layout checks and
+    the tables of addresses are made once, at the capture.
+
+    groups: (params, grads, mus, nus, b1, b2, eps, mu_dtype) of each param
+    group, every parameter `fusable` (else ValueError, as adam_update). Each
+    group's launch reads its row of `step`, which `replay` fills with that
+    step's scalars before the graph runs. The capture runs nothing and
+    leaves `launches` as it found it; a replay counts the launches it runs.
+    pool: the memory pool of the graphs it is replayed with."""
+
+    def __init__(self, groups: list[tuple], pool=None):
+        global launches
+        for params, grads, mus, nus, *_, mu_dtype in groups:
+            check_fusable(params, grads, mus, nus, mu_dtype)
+        self.tensors = [[list(t) for t in g[:4]] for g in groups]
+        self.consts = [tuple(g[4:7]) for g in groups]
+        self.step = torch.zeros(len(groups), 3, device=groups[0][0][0].device)
+        self.graph = torch.cuda.CUDAGraph()
+        before = launches
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                for (params, grads, mus, nus), (b1, b2, eps), row in zip(
+                        self.tensors, self.consts, self.step):
+                    torch.ops.mmr.adam_(params, grads, mus, nus, row, b1, b2, eps)
+        finally:
+            self.launches, launches = launches - before, before
+
+    def covers(self, groups: list[tuple]) -> bool:
+        """Whether `groups` (as the constructor's) are the tensors and
+        constants captured: then a replay is their update."""
+        return len(groups) == len(self.tensors) and all(
+            tuple(g[4:7]) == c and all(len(a) == len(b) and all(x is y for x, y in zip(a, b))
+                                       for a, b in zip(g[:4], t))
+            for g, t, c in zip(groups, self.tensors, self.consts))
+
+    def replay(self, host_step: torch.Tensor) -> None:
+        """One update, each group at its row of host_step ((groups, 3) as
+        kernel_step gives them)."""
+        global launches
+        write_step(self.step, host_step)
+        with span("mmr.optim.adam_fused"):
+            self.graph.replay()
+        torch.autograd.graph.increment_version(
+            [t for params, _, mus, nus in self.tensors for t in (*params, *mus, *nus)])
+        launches += self.launches
 
 
 # The kernel runs as the op mmr::adam_, so that torch.profiler charges its
@@ -135,25 +210,31 @@ def adam_update(params, grads, mus, nus, *, lr: float, b1: float, b2: float, eps
 # lists of ~170 tensors costs the host ~0.2 ms, a torch.library.custom_op's ~0.8.
 _LIB = torch.library.Library("mmr", "FRAGMENT")
 _LIB.define("adam_(Tensor(a!)[] params, Tensor[] grads, Tensor(b!)[] mus, Tensor(c!)[] nus, "
-            "float lr, float b1, float b2, float eps, float bc1, float bc2) -> ()")
+            "Tensor step, float b1, float b2, float eps) -> ()")
 
 
-def _launch(params, grads, mus, nus, lr: float, b1: float, b2: float, eps: float,
-            bc1: float, bc2: float) -> None:
+def _launch(params, grads, mus, nus, step: torch.Tensor, b1: float, b2: float,
+            eps: float) -> None:
     """The kernel over tensors that `fusable` admits (the CUDA
     implementation of mmr::adam_, which has no other): a table of rows, the
-    four addresses and the size, for each device and mu dtype among them."""
+    four addresses and the size, for each device and mu dtype among them;
+    `step` holds -lr, 1 / bc1, 1 / bc2 as float32 (`kernel_step`), which the
+    kernel reads when it runs."""
     global launches
+    if step.dtype != torch.float32 or step.numel() != 3 or not step.is_contiguous():
+        raise ValueError(f"the step's scalars are 3 contiguous float32, got {step.dtype} "
+                         f"{tuple(step.shape)}")
     rows: dict[tuple, list[int]] = {}
     for p, g, mu, nu in zip(params, grads, mus, nus):
         rows.setdefault((p.device, mu.dtype), []).extend(
             (p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel()))
     for (device, mu_dtype), row in rows.items():
+        scalars = step if step.device == device else step.to(device)
         table = (ctypes.c_longlong * len(row))(*row)
         launched = ctypes.c_int(0)
         err = _build.load().mmr_adam(
             table, len(row) // 5, int(mu_dtype == torch.bfloat16), 1 - b1,
-            _b1_in(b1, mu_dtype), b2, 1 - b2, 1.0 / bc1, 1.0 / bc2, eps, -lr,
+            _b1_in(b1, mu_dtype), b2, 1 - b2, eps, scalars.data_ptr(),
             _sms(device.index), ctypes.byref(launched), device.index,
             torch.cuda.current_stream(device).cuda_stream,
         )

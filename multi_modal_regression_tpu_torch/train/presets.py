@@ -717,6 +717,14 @@ class Adam(torch.optim.Optimizer):
     included, the foreach passes (`adam_update_plain`). Both give the same
     bits. `fused_share` is the share of the last step's updated elements
     that the kernel took.
+
+    `capture_update` captures the kernel launches of an update over the
+    tensors the groups hold (ops/adam.CapturedUpdate); step() then replays
+    them while the parameters, gradients and moments are those tensors and
+    b1, b2, eps unchanged, writing each step's rate and bias corrections to
+    the card first (train/steps.GraphedTrainStep captures it with the
+    step). The counts and every host value stay as the eager step keeps
+    them.
     """
 
     def __init__(self, params: Iterable, lr: float, b1: float = 0.9,
@@ -725,17 +733,18 @@ class Adam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
         self.mu_dtype = mu_dtype
         self.fused_share = 0.0
+        # the update capture_update made, which step() replays (None: none)
+        self.captured: adam_ops.CapturedUpdate | None = None
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise ValueError("Adam.step takes no closure")
-        fused = total = 0
+    def _due(self) -> list[tuple]:
+        """(group, params, states, count) of each param group with
+        gradients: its parameters that have one, their states (created on a
+        parameter's first step) and the count they step to."""
+        due = []
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            lr, b1, b2, eps = group["lr"], group["b1"], group["b2"], group["eps"]
             for p in params:
                 if not self.state[p]:
                     self.state[p]["count"] = 0
@@ -750,18 +759,78 @@ class Adam(torch.optim.Optimizer):
             count = states[0]["count"] + 1
             if any(st["count"] + 1 != count for st in states):
                 raise RuntimeError("Adam: parameters of one group at different steps")
-            # bias corrections in float32, as optax computes 1 - decay**count
-            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-            fused += adam_ops.adam_update(
-                params, [p.grad for p in params], [st["mu"] for st in states],
-                [st["nu"] for st in states], lr=lr, b1=b1, b2=b2, eps=eps, bc1=bc1,
-                bc2=bc2, mu_dtype=self.mu_dtype,
-            )
-            total += sum(p.numel() for p in params)
-            for st in states:
-                st["count"] = count
+            due.append((group, params, states, count))
+        return due
+
+    def _lists(self, due: list[tuple]) -> list[tuple]:
+        """CapturedUpdate's groups: tensors and constants of each due group."""
+        return [(params, [p.grad for p in params], [st["mu"] for st in states],
+                 [st["nu"] for st in states], group["b1"], group["b2"], group["eps"],
+                 self.mu_dtype) for group, params, states, _ in due]
+
+    @staticmethod
+    def _bias_corrections(group: dict, count: int) -> tuple[float, float]:
+        # in float32, as optax computes 1 - decay**count
+        return (float(np.float32(1) - np.float32(group["b1"]) ** np.float32(count)),
+                float(np.float32(1) - np.float32(group["b2"]) ** np.float32(count)))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        due = self._due()
+        total = sum(p.numel() for _, params, _, _ in due for p in params)
+        if self.captured is not None and self.captured.covers(self._lists(due)):
+            self.captured.replay(torch.stack([
+                adam_ops.kernel_step(group["lr"], *self._bias_corrections(group, count))
+                for group, _, _, count in due]))
+            fused = total
+            for _, _, states, count in due:
+                for st in states:
+                    st["count"] = count
+        else:
+            fused = 0
+            for group, params, states, count in due:
+                bc1, bc2 = self._bias_corrections(group, count)
+                fused += adam_ops.adam_update(
+                    params, [p.grad for p in params], [st["mu"] for st in states],
+                    [st["nu"] for st in states], lr=group["lr"], b1=group["b1"],
+                    b2=group["b2"], eps=group["eps"], bc1=bc1, bc2=bc2,
+                    mu_dtype=self.mu_dtype,
+                )
+                for st in states:
+                    st["count"] = count
         self.fused_share = fused / total if total else 0.0
+
+    def ready_to_capture(self) -> bool:
+        """Whether every parameter with a gradient has its moments (an
+        update can be captured: it creates none)."""
+        with_grad = [p for group in self.param_groups for p in group["params"]
+                     if p.grad is not None]
+        return bool(with_grad) and all(self.state[p] for p in with_grad)
+
+    @torch.no_grad()
+    def capture_update(self, pool=None) -> None:
+        """Capture the update of the parameters that have gradients now, over
+        their gradients and moments as they are (ops/adam.CapturedUpdate, in
+        the graph memory pool `pool`), for step() to replay. Runs nothing;
+        ValueError where the kernel cannot take a parameter."""
+        if not self.ready_to_capture():
+            raise ValueError("capture_update needs the moments of every parameter with "
+                             "a gradient (one eager step first)")
+        self.captured = None
+        self.captured = adam_ops.CapturedUpdate(self._lists(self._due()), pool)
+
+    def holds_update(self) -> bool:
+        """Whether the captured update's parameters and moments are still the
+        groups' and their states' (the gradients are checked at step())."""
+        c = self.captured
+        if c is None:
+            return False
+        state = self.state
+        return all(state[p].get("mu") is mu and state[p].get("nu") is nu
+                   for params, _, mus, nus in c.tensors
+                   for p, mu, nu in zip(params, mus, nus))
 
 
 def trained_parameters(cfg: ExperimentConfig, model: nn.Module) -> list[nn.Parameter]:

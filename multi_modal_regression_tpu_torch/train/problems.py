@@ -105,6 +105,9 @@ class Problem:
     'warmup' | 'main' | 'sigma' | None (fixed weights Lc + alpha * Lr).
     `metric` is the headline evaluation: 'pose' (MedErr) or
     'category_accuracy' (mean per-class accuracy of decoded class ids).
+    `graphable` is False where the targets wait on the host every step (the
+    GMM posterior's Cholesky checks its result there), so that a CUDA graph
+    cannot capture the train step (train/steps.graph_blocker).
     """
 
     name: str
@@ -116,6 +119,7 @@ class Problem:
     warmup_balance: str | None = "warmup"
     main_balance: str | None = "main"
     metric: str = "pose"
+    graphable: bool = True
 
 
 def _first(out):
@@ -302,7 +306,7 @@ def make_problem(
             return soft_lc(scores, tg), lr
 
         return Problem(name, "axis_angle", targets, soft_warmup, main,
-                       lambda out: decode_soft(mu, out))
+                       lambda out: decode_soft(mu, out), graphable=False)
 
     if name in ("probabilistic_quat", "probabilistic_quat_multires"):
         # the reference-dormant quaternion variants (RelaXedProbabilisticLossQ

@@ -22,6 +22,11 @@ the loss terms that feed self-balance and the logged metrics averaged over
 it, flip and dropout masks drawn for the global batch with each rank
 keeping its rows, and one all-reduce of the gradients before the update.
 
+On the card a one-process step replays its work as CUDA graphs
+(`GraphedTrainStep`: captured on the second call with a batch layout, the
+same bits as the eager step); the CPU and the configurations that
+`graph_blocker` names run the eager step.
+
 One eval step: the normalize kernel (or the resize and the plain
 normalize) -> the model in eval mode, whatever mode the module was left
 in -> decode.
@@ -30,6 +35,7 @@ in -> decode.
 from __future__ import annotations
 
 import contextlib
+import warnings
 from typing import Callable
 
 import torch
@@ -43,6 +49,7 @@ from multi_modal_regression_tpu_torch.ops.augment import (
     flip_images,
     flip_pose_euler,
 )
+from multi_modal_regression_tpu_torch.ops import fused_conv_bn, preprocess, stem_pool
 from multi_modal_regression_tpu_torch.ops.preprocess import normalize_images_cuda
 from multi_modal_regression_tpu_torch.parallel.mesh import (
     Mesh,
@@ -227,6 +234,11 @@ def make_train_step(
     data group (`reduce_gradients`) before the update. On a mesh with a
     model axis the replicated parameters' gradients (all but the bank
     shards, parallel/tp) first take their mean over the model group.
+
+    The step returned is that function itself, or, where `graph_blocker`
+    finds nothing against it (a one-process step on the card with Adam and
+    no remat, VGG trunk, resize or GMM targets), a `GraphedTrainStep`
+    around it.
     """
     if phase == "warmup":
         loss_pair, balance = problem.warmup_losses, problem.warmup_balance
@@ -280,33 +292,45 @@ def make_train_step(
             return torch.cat([out_a, out_b])
         return tuple(torch.cat([a, b]) for a, b in zip(out_a, out_b))
 
+    def losses(s, rng, batch):
+        """#1, flips, targets, the forward, the losses and the balance:
+        (loss, lc, lr, s_next)."""
+        images = _preprocess(batch, resize_to, compute_dtype)
+        euler = batch["euler"]
+        if random_flip:
+            if rng is None:
+                raise ValueError("random_flip needs a state with a flip generator (rng)")
+            flip = draw_flips(rng, euler.shape[0])
+            euler = flip_pose_euler(euler, flip)
+            images = flip_images(images, flip)
+        tg = dict(problem.targets(euler_to_pose(euler, problem.ydata_type)))
+        labels = batch["label"]
+        tg["class_label"] = labels
+        is_real = batch.get("is_real")
+        tg["is_real"] = (torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+                         if is_real is None else is_real)
+        with _mode(modules, modes):
+            lc, lr = loss_pair(forward(images, labels), tg)
+        if balance is None:
+            lc, lr = loss_scale * lc, loss_scale * lr
+            return lc + alpha * lr, lc, lr, s
+        loss, s_next = self_balanced(lc, lr, s, mode=balance)
+        return loss, lc, lr, s_next
+
+    def alpha_after(s_next):
+        if balance is None:
+            return fixed_alpha
+        if balance == "warmup":
+            return 0.5 * torch.exp(-2.0 * s_next)
+        return torch.exp(-s_next)
+
     def train_step(state: TrainState, batch: dict):
         if state.model is not model or state.optimizer is not optimizer:
             raise ValueError("the state holds another model or optimizer than this step")
         with _grads_for(params, trained), _drawing_from(drawing, state.rng), \
                 syncing_bn(modules, mesh if dp else None):
             with span("mmr.train.forward"):
-                images = _preprocess(batch, resize_to, compute_dtype)
-                euler = batch["euler"]
-                if random_flip:
-                    if state.rng is None:
-                        raise ValueError("random_flip needs a state with a flip generator (rng)")
-                    flip = draw_flips(state.rng, euler.shape[0])
-                    euler = flip_pose_euler(euler, flip)
-                    images = flip_images(images, flip)
-                tg = dict(problem.targets(euler_to_pose(euler, problem.ydata_type)))
-                labels = batch["label"]
-                tg["class_label"] = labels
-                is_real = batch.get("is_real")
-                tg["is_real"] = (torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
-                                 if is_real is None else is_real)
-                with _mode(modules, modes):
-                    lc, lr = loss_pair(forward(images, labels), tg)
-                if balance is None:
-                    lc, lr = loss_scale * lc, loss_scale * lr
-                    loss, s_next = lc + alpha * lr, state.s
-                else:
-                    loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
+                loss, lc, lr, s_next = losses(state.s, state.rng, batch)
             with span("mmr.train.backward"):
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
@@ -323,19 +347,211 @@ def make_train_step(
                     loss, s_next = self_balanced(lc, lr, state.s, mode=balance)
                 reduce_gradients(trained, mesh)
             optimizer.step()
-        if balance is None:
-            alpha_logged = fixed_alpha
-        elif balance == "warmup":
-            alpha_logged = 0.5 * torch.exp(-2.0 * s_next)
-        else:
-            alpha_logged = torch.exp(-s_next)
         metrics = {
             "loss": loss.detach(), "lc": lc.detach(), "lr": lr.detach(),
-            "s": s_next, "alpha": alpha_logged,
+            "s": s_next, "alpha": alpha_after(s_next),
         }
         return state.replace(step=state.step + 1, s=s_next), metrics
 
-    return train_step
+    if graph_blocker(device, mesh, modules, optimizer, resize_to, problem) is not None:
+        return train_step
+    return GraphedTrainStep(train_step, losses, alpha_after, model, optimizer, params,
+                            trained, draws=random_flip)
+
+
+def graph_blocker(device: torch.device, mesh: Mesh | None, modules: list[nn.Module],
+                  optimizer: torch.optim.Optimizer, resize_to: int | None,
+                  problem: Problem) -> str | None:
+    """Why a train step of this configuration runs eagerly, or None where
+    make_train_step replays it as CUDA graphs (`GraphedTrainStep`). The
+    path follows the device and the configuration, with no setting."""
+    if device.type != "cuda":
+        return f"a {device.type} device: graphs are the card's"
+    if mesh is not None and mesh.world > 1:
+        return "a mesh of several ranks: the collectives go through the host"
+    if any(getattr(m, "remat", None) is not None for m in modules):
+        return "a remat mode: the backward reruns checkpointed segments of the forward"
+    if any(hasattr(m, "dropout_rng") for m in modules):
+        return "a VGG trunk: its fc7 dropout draws from a generator the step binds"
+    if resize_to is not None:
+        return "device_resize_from: the resize builds its matrices on the host each step"
+    if not problem.graphable:
+        return f"the {problem.name} problem: its targets wait on the host each step"
+    if not callable(getattr(optimizer, "capture_update", None)):
+        return f"{type(optimizer).__name__} cannot capture its update"
+    return None
+
+
+# the kernel launch counters of the ops a train step runs (ops/__init__.py);
+# Adam keeps its own (train/presets.Adam.capture_update)
+_COUNTERS = ((preprocess, "launches"), (stem_pool, "launches"), (stem_pool, "bwd_launches"),
+             (fused_conv_bn, "mm_launches"), (fused_conv_bn, "mm_bwd_launches"),
+             (fused_conv_bn, "c3_launches"), (fused_conv_bn, "c3_bwd_launches"))
+
+
+def _counts() -> list[int]:
+    return [getattr(module, name) for module, name in _COUNTERS]
+
+
+def _add_counts(delta: list[int]) -> None:
+    for (module, name), d in zip(_COUNTERS, delta):
+        setattr(module, name, getattr(module, name) + d)
+
+
+def _layout(batch: dict, device: torch.device):
+    """The batch's keys, shapes and dtypes, or None where a tensor is not on
+    `device`."""
+    if any(v.device != device for v in batch.values()):
+        return None
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+
+
+class _StepGraphs:
+    """One batch layout's step captured as three CUDA graphs in one memory
+    pool, at the step's layer boundaries: `fwd` (#1, flips, targets, the
+    forward with its BN updates, the losses, the balance, alpha), `bwd` (the
+    backward into gradients that keep their addresses) and Adam's update,
+    which the optimizer holds and replays from its own step(). The batch and
+    `s` are copied into static inputs before a replay; `outputs` are the
+    metrics, cloned after it."""
+
+    def __init__(self, layout, inputs, s_in, outputs, fwd, bwd, update, grads, rng, held,
+                 launched):
+        self.layout, self.inputs, self.s_in, self.outputs = layout, inputs, s_in, outputs
+        self.fwd, self.bwd, self.update, self.grads, self.rng = fwd, bwd, update, grads, rng
+        self.held = held  # (the module's dict, name, tensor) of every parameter and buffer
+        self.launched = launched  # the counted kernel launches of one replay
+
+
+class GraphedTrainStep:
+    """A train step on the card that replays its work as CUDA graphs.
+
+    Called as the eager step `eager` is, with the same results bit for bit.
+    The first call with a batch layout (keys, shapes, dtypes) runs eagerly;
+    the next call with the same layout captures the step (`_StepGraphs`)
+    and replays it, and later calls with that layout replay it while the
+    state's tensors are those captured: the model's parameters and buffers
+    (BN statistics), Adam's moments and, where the step draws flips, the
+    state's generator (registered with the forward graph, which advances it
+    as the eager draws would). Any other call runs `eager`: a batch of
+    another layout (a pass's last, partial batch), a state it does not hold
+    (a restored checkpoint: the stale graphs are dropped at once and the
+    next repeated layout captures anew), an optimizer with no moments yet
+    (after init_state). A capture runs no
+    kernel: the state after it is the state before it, so every step,
+    the first replay's included, is a real step. The spans of the eager
+    step enclose the replays (Adam's inside Optimizer.step); the kernel
+    launch counters count each replay's launches. A capture that raises
+    leaves the step eager for good (`failure` says why). The graphs' memory
+    pool (a step's activations and gradients) stays reserved while the step
+    holds them, not shared with other steps' as the eager ones' memory is:
+    `release` drops it. torch keeps for good what a capture that raised had
+    allocated, so `graph_blocker` keeps the configurations known to fail
+    one eager."""
+
+    def __init__(self, eager, losses, alpha_after, model, optimizer, params, trained,
+                 draws: bool):
+        self.eager = eager
+        self._losses, self._alpha_after = losses, alpha_after
+        self._model, self._optimizer = model, optimizer
+        self._params, self._trained = params, trained
+        self._draws = draws
+        self._device = params[0].device
+        self._graphs: _StepGraphs | None = None
+        self._last = None  # the previous call's layout
+        self.failure: str | None = None
+        self.replays = 0  # steps replayed
+
+    def release(self) -> None:
+        """Drop the captured graphs, and the optimizer's update captured with
+        them where it still holds it: their memory pool goes with them."""
+        if self._graphs is not None and self._optimizer.captured is self._graphs.update:
+            self._optimizer.captured = None
+        self._graphs = None
+
+    def _holds(self, g: _StepGraphs, state: TrainState) -> bool:
+        return ((not self._draws or state.rng is g.rng)
+                and all(d.get(name) is t for d, name, t in g.held)
+                and self._optimizer.holds_update())
+
+    def __call__(self, state: TrainState, batch: dict):
+        if state.model is not self._model or state.optimizer is not self._optimizer:
+            raise ValueError("the state holds another model or optimizer than this step")
+        layout = _layout(batch, self._device)
+        if self._graphs is not None and not self._holds(self._graphs, state):
+            self.release()  # stale: its memory goes before this step's
+        g = self._graphs
+        if layout is None or (self._draws and state.rng is None):
+            out = self.eager(state, batch)
+        elif g is not None and g.layout == layout:
+            out = self._replay(g, state, batch)
+        elif (layout == self._last and self.failure is None
+              and self._optimizer.ready_to_capture()):
+            g = None  # the old graphs' pool goes before the new one is made
+            self.release()
+            self._graphs = self._capture(layout, state, batch)
+            out = (self.eager(state, batch) if self._graphs is None
+                   else self._replay(self._graphs, state, batch))
+        else:
+            out = self.eager(state, batch)
+        self._last = layout
+        return out
+
+    def _capture(self, layout, state: TrainState, batch: dict) -> _StepGraphs | None:
+        opt = self._optimizer
+        inputs = {k: v.clone() for k, v in batch.items()}
+        s_in = state.s.clone()
+        rng = state.rng if self._draws else None
+        pool = torch.cuda.graph_pool_handle()
+        fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        if rng is not None:
+            fwd.register_generator_state(rng)
+        before = _counts()
+        # gradients held from an earlier capture free their pool for the
+        # empty_cache that each capture begins with
+        opt.zero_grad(set_to_none=True)
+        try:
+            with _grads_for(self._params, self._trained):
+                with torch.cuda.graph(fwd, pool=pool):
+                    loss, lc, lr, s_next = self._losses(s_in, rng, inputs)
+                    outputs = {"loss": loss.detach(), "lc": lc.detach(), "lr": lr.detach(),
+                               "s": s_next, "alpha": self._alpha_after(s_next)}
+                with torch.cuda.graph(bwd, pool=pool):
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+            opt.capture_update(pool)
+        except RuntimeError as e:
+            self.failure = f"{type(e).__name__}: {e}"
+            warnings.warn(f"the train step runs eagerly: its capture failed ({self.failure})",
+                          stacklevel=3)
+            return None
+        finally:
+            launched = [a - b for a, b in zip(_counts(), before)]
+            _add_counts([-d for d in launched])
+        held = [(m._parameters, n, t) for m in self._model.modules()
+                for n, t in m._parameters.items() if t is not None]
+        held += [(m._buffers, n, t) for m in self._model.modules()
+                 for n, t in m._buffers.items() if t is not None]
+        return _StepGraphs(layout, inputs, s_in, outputs, fwd, bwd, opt.captured,
+                           [p.grad for p in self._trained], rng, held, launched)
+
+    def _replay(self, g: _StepGraphs, state: TrainState, batch: dict):
+        with span("mmr.train.forward"):
+            for k, t in g.inputs.items():
+                t.copy_(batch[k])
+            g.s_in.copy_(state.s)
+            g.fwd.replay()
+        with span("mmr.train.backward"):
+            g.bwd.replay()
+            for p, grad in zip(self._trained, g.grads):
+                if p.grad is not grad:  # an eager step set its own
+                    p.grad = grad
+        with span("mmr.train.optimizer"):
+            self._optimizer.step()
+        metrics = {k: v.clone() for k, v in g.outputs.items()}
+        _add_counts(g.launched)
+        self.replays += 1
+        return state.replace(step=state.step + 1, s=metrics["s"]), metrics
 
 
 def make_eval_step(

@@ -140,6 +140,34 @@ def _write_atomic(path: Path, payload: dict) -> None:
         raise
 
 
+class _Staging:
+    """Pinned host buffers of one batch layout, two sets used in turn. A
+    batch is copied into the next set and from it to fresh device tensors
+    without waiting (non_blocking); before a set is written again the host
+    waits for the event recorded after its last copies, so no copy still
+    pending reads a rewritten buffer, and the host runs at most two steps
+    ahead of the card's copies."""
+
+    def __init__(self, like: dict[str, torch.Tensor]):
+        self.sets = [{k: torch.empty_like(t, pin_memory=True) for k, t in like.items()}
+                     for _ in range(2)]
+        self.events: list[torch.cuda.Event | None] = [None, None]
+        self.turn = 0
+
+    def put(self, host: dict[str, torch.Tensor], device: torch.device) -> dict:
+        i, self.turn = self.turn, 1 - self.turn
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        out = {}
+        for k, t in host.items():
+            pinned = self.sets[i][k]
+            pinned.copy_(t)
+            out[k] = pinned.to(device, non_blocking=True)
+        self.events[i] = torch.cuda.Event()
+        self.events[i].record(torch.cuda.current_stream(device))
+        return out
+
+
 class Trainer:
     """Model, problem and optimizer of one experiment, and the loop over them.
 
@@ -178,6 +206,7 @@ class Trainer:
         # over the trained parameters only (cfg.train_only)
         self.optimizer = build_optimizer(config, self.model)
         self._train_steps: dict = {}
+        self._staging: dict[tuple, _Staging] = {}  # _to_device's, by batch layout
         # with device_resize_from the loaders ship images at that size and
         # the steps resize them to image_size on the device
         self.resize_to = config.image_size if config.device_resize_from else None
@@ -257,7 +286,10 @@ class Trainer:
 
     def _to_device(self, batch: dict) -> dict:
         """The batch's images, poses and labels on the trainer's device,
-        after the labels were checked on the host against the class count."""
+        after the labels were checked on the host against the class count.
+        On a CUDA device a host batch crosses through pinned staging
+        buffers of its layout (`_Staging`), so that the copy does not hold
+        the host; the tensors returned are the batch's own on the device."""
         labels = batch["label"]
         if isinstance(labels, torch.Tensor):
             labels = labels.cpu()
@@ -268,10 +300,14 @@ class Trainer:
                 f"labels must lie in [0, {n}) (num_classes {n}); this batch "
                 f"holds {labels.min()}..{labels.max()}"
             )
-        return {
-            k: torch.as_tensor(batch[k]).to(self.device)
-            for k in _DEVICE_KEYS if k in batch
-        }
+        host = {k: torch.as_tensor(batch[k]) for k in _DEVICE_KEYS if k in batch}
+        if self.device.type != "cuda" or any(t.device.type != "cpu" for t in host.values()):
+            return {k: t.to(self.device) for k, t in host.items()}
+        layout = tuple((k, tuple(t.shape), t.stride(), t.dtype) for k, t in host.items())
+        staging = self._staging.get(layout)
+        if staging is None:
+            staging = self._staging[layout] = _Staging(host)
+        return staging.put(host, self.device)
 
     # -- checkpointing ----------------------------------------------------
 
@@ -406,7 +442,8 @@ class Trainer:
         1, log_every, 2*log_every, ... are logged: one device-to-host fetch
         of the step's metrics each, printed, appended to self.history with
         the learning rate the step ran at, and written to metrics.jsonl; no
-        other step waits for the device. A record's `images_per_sec` is the
+        other step waits for the device but for the copies of the batch two
+        steps back (`_Staging`). A record's `images_per_sec` is the
         images of the steps since the previous fetch that waited for the
         device (a logged step's, an evaluation's, or the pass's start) over
         the time since it. Each iteration is a span `mmr.train.step#<n>`

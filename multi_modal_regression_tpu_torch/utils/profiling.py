@@ -24,6 +24,11 @@ no-op context. The spans the port opens, by layer:
 
 A unit's number rides in its top span's name, as torch.profiler's own
 `ProfilerStep#<n>`: the profiler keeps no string argument of a range.
+Where the train step replays CUDA graphs (train/steps.GraphedTrainStep)
+`forward` holds the copies into the graphs' inputs and the forward graph's
+replay, `backward` the backward graph's, `optimizer` Adam's step around its
+own graph's replay (`adam_fused`); the device work then runs under the
+replay calls (`cudaGraphLaunch`), not under a launch of its own.
 """
 
 from __future__ import annotations

@@ -159,7 +159,7 @@ def _meta_leaves(dtype=torch.float32):
 def _fake_kernel(calls):
     """A stand-in for the op mmr::adam_ that records the elements of each
     tensor it is given and writes nothing."""
-    def kernel(ps, gs, ms, vs, lr, b1, b2, eps, bc1, bc2):
+    def kernel(ps, gs, ms, vs, step, b1, b2, eps):
         calls.append([p.numel() for p in ps])
     return kernel
 
@@ -277,4 +277,166 @@ def test_the_kernel_op_declares_its_writes_and_runs_only_on_the_card():
     assert writes == ["params", "mus", "nus"]
     t = [torch.zeros(4)]
     with pytest.raises(NotImplementedError):
-        torch.ops.mmr.adam_(t, t, t, t, 1e-3, 0.9, 0.999, 1e-8, 0.1, 0.001)
+        torch.ops.mmr.adam_(t, t, t, t, torch.zeros(3), 0.9, 0.999, 1e-8)
+
+
+@pytest.mark.parametrize("lr,bc1,bc2", [(1e-3, 0.1, 0.001), (3e-4 / 7, 0.271, 0.002997),
+                                        (1e-4, 1 - 0.9**50, 1 - 0.999**50)])
+def test_the_step_scalars_round_as_the_launch_arguments_did(lr, bc1, bc2):
+    """kernel_step gives -lr, 1 / bc1 and 1 / bc2 in float32, each the double
+    rounded once: the bits the launch once took as ctypes float arguments,
+    which the foreach passes' scalar products use on the card."""
+    import ctypes
+
+    want = [ctypes.c_float(-lr).value, ctypes.c_float(1.0 / bc1).value,
+            ctypes.c_float(1.0 / bc2).value]
+    got = adam_ops.kernel_step(lr, bc1, bc2)
+    assert got.dtype == torch.float32 and torch.equal(got, torch.tensor(want, dtype=torch.float32))
+
+
+def test_an_optimizer_with_no_moments_is_not_ready_to_capture():
+    """ready_to_capture asks for the moments of every parameter with a
+    gradient; holds_update is False with nothing captured (the CPU never
+    captures)."""
+    params = _leaves(torch.float32)
+    opt = Adam(params, lr=KW["lr"])
+    assert not opt.ready_to_capture() and not opt.holds_update()
+    for p in params:
+        p.grad = torch.ones_like(p)
+    assert not opt.ready_to_capture()
+    opt.step()
+    assert opt.ready_to_capture() and not opt.holds_update()
+    with pytest.raises(ValueError, match="moments"):
+        Adam(_leaves(torch.float32), lr=KW["lr"]).capture_update()
+
+
+# --- on the card (marked cuda: skipped where torch.cuda.is_available() is False)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+def _card_groups(dev, mu_dtype, seed=5):
+    """Two groups of card tensors (a channels-last conv weight, BN-sized
+    vectors, 4097 and 2**20 + 5 elements), their zero moments and seeded
+    gradients, as (params, grads, mus, nus) lists."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, channels_last=False):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        return x.contiguous(memory_format=torch.channels_last) if channels_last else x
+
+    shapes = [[(64, 3, 7, 7), (64,), (4097,)], [(2**20 + 5,), (3,)]]
+    out = []
+    for group in shapes:
+        ps = [t(*s, channels_last=len(s) == 4) for s in group]
+        out.append((ps, [torch.zeros_like(p) for p in ps],
+                    [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in ps],
+                    [torch.zeros_like(p) for p in ps]))
+    return out
+
+
+def _fill_grads(grads, rng):
+    for g in grads:
+        x = rng.standard_normal(g.shape) * 10.0 ** rng.integers(-6, 2, g.shape)
+        x[rng.random(g.shape) < 0.05] = 0.0
+        g.copy_(torch.from_numpy(x.astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mu_dtype", [torch.bfloat16, None], ids=["mu_bf16", "mu_f32"])
+def test_a_captured_update_replays_what_the_eager_kernel_and_the_foreach_passes_give(
+        dev, mu_dtype):
+    """The kernel's launches over two groups captured once (CapturedUpdate),
+    then replayed for 6 steps with a new rate each step and the counts 1..6,
+    the gradients rewritten in place between replays: p, mu and nu bit-equal
+    after every step to the kernel launched eagerly (its scalars written
+    to the card before each launch) and to the foreach passes, from copies
+    of the same state. A replay counts its 2 launches; the capture none."""
+    graphed = _card_groups(dev, mu_dtype)
+    eager = [[[x.clone() for x in lst] for lst in g] for g in graphed]
+    plain = [[[x.clone() for x in lst] for lst in g] for g in graphed]
+    n0 = adam_ops.launches
+    cap = adam_ops.CapturedUpdate([(*g, 0.9, 0.999, 1e-8, mu_dtype) for g in graphed])
+    assert adam_ops.launches == n0 and cap.launches == 2
+    rng = np.random.default_rng(9)
+    for count in range(1, 7):
+        lrs = [1e-3 / count, 3e-3 * count]
+        for g in graphed:
+            _fill_grads(g[1], rng)
+        for side in (eager, plain):
+            for g, gg in zip(side, graphed):
+                for a, b in zip(g[1], gg[1]):
+                    a.copy_(b)
+        bc1 = float(np.float32(1) - np.float32(0.9) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(0.999) ** np.float32(count))
+        n1 = adam_ops.launches
+        cap.replay(torch.stack([adam_ops.kernel_step(lr, bc1, bc2) for lr in lrs]))
+        assert adam_ops.launches == n1 + 2
+        for lr, g, f in zip(lrs, eager, plain):
+            kw = dict(lr=lr, b1=0.9, b2=0.999, eps=1e-8, bc1=bc1, bc2=bc2, mu_dtype=mu_dtype)
+            adam_ops.adam_update(*g, **kw)
+            adam_ops.adam_update_plain(*f, **kw)
+        torch.cuda.synchronize()
+        for g, e, f in zip(graphed, eager, plain):
+            for i in (0, 2, 3):
+                for a, b, c in zip(g[i], e[i], f[i]):
+                    assert torch.equal(a, b) and torch.equal(a, c), (count, i, tuple(a.shape))
+
+
+@pytest.mark.cuda
+def test_adam_replays_its_capture_while_it_holds_the_same_tensors(dev):
+    """Adam.capture_update after one eager step, then step() replays it (the
+    kernel's launches counted, the counts and fused_share kept as eager
+    steps keep them) with the rate that param_groups gives each step,
+    bit-equal to an Adam that never captured; a state whose moments were
+    replaced (a restored checkpoint) no longer holds the capture, and
+    step() launches the kernel eagerly over the new moments."""
+    groups = _card_groups(dev, torch.bfloat16)
+    params = [[torch.nn.Parameter(p) for p in g[0]] for g in groups]
+    twins = [[torch.nn.Parameter(p.detach().clone()) for p in g] for g in params]
+    opts = [Adam([{"params": ps} for ps in side], lr=1e-3, mu_dtype=torch.bfloat16)
+            for side in (params, twins)]
+    rng = np.random.default_rng(3)
+
+    def grads():
+        gs = [torch.empty_like(p) for ps in params for p in ps]
+        _fill_grads(gs, rng)
+        for side in (params, twins):
+            for p, g in zip([p for ps in side for p in ps], gs):
+                if p.grad is None:
+                    p.grad = torch.empty_like(p)
+                p.grad.copy_(g)
+
+    grads()
+    for opt in opts:
+        opt.step()
+    opts[0].capture_update()
+    assert opts[0].holds_update()
+    for count in range(2, 6):
+        for opt in opts:
+            opt.param_groups[1]["lr"] = 1e-3 * count
+        grads()
+        n0 = adam_ops.launches
+        opts[0].step()
+        assert adam_ops.launches == n0 + 2 and opts[0].fused_share == 1.0
+        opts[1].step()
+        torch.cuda.synchronize()
+        for p, q in zip([p for ps in params for p in ps], [p for ps in twins for p in ps]):
+            s, t = opts[0].state[p], opts[1].state[q]
+            assert s["count"] == t["count"] == count
+            assert torch.equal(p, q) and torch.equal(s["mu"], t["mu"]) and torch.equal(
+                s["nu"], t["nu"])
+    p0 = params[0][0]
+    opts[0].state[p0]["mu"] = opts[0].state[p0]["mu"].clone()
+    assert not opts[0].holds_update()
+    grads()
+    for opt in opts:
+        opt.step()
+    torch.cuda.synchronize()
+    assert torch.equal(p0, twins[0][0]) and torch.equal(opts[0].state[p0]["mu"],
+                                                         opts[1].state[twins[0][0]]["mu"])
